@@ -1,0 +1,21 @@
+"""PQDTW in PyTorch — the port of :mod:`repro` to one NVIDIA H100.
+
+The paper's main path (DBA k-means codebooks + symmetric LUT, LB-filtered
+or fused MODWT encoding, symmetric/asymmetric PQ distances, 1-NN) runs on
+the card through four hand-written CUDA kernels under
+``repro_torch/kernels/csrc``.  Every kernel has a plain PyTorch version
+beside it; a wrapper takes that version only for tensors on the CPU.
+
+Entry points (``fit``, ``encode``, ``cdist_sym``, ``cdist_asym``,
+``knn_classify_*``, ``nn_dtw_exact``) run on ``cuda`` unless the caller
+passes ``device="cpu"``; with no card and no explicit CPU request they
+raise.
+
+Float32 products on the card stay in full float32: TF32 would break the
+parity of ``euclidean_sq`` and of every ADC sum with the reference.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,51 @@
+"""1-NN classification with PQ approximates (§4.1) and exact elastic 1-NN
+(counterpart of :mod:`repro.core.knn`).  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; labels come back as a tensor
+on that device."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _device
+from .dispatch import elastic_cdist
+from .measures import MeasureArg
+from .pq import PQCodebook, PQConfig, cdist_asym, cdist_sym, encode
+
+__all__ = ["knn_classify_sym", "knn_classify_asym", "nn_dtw_exact"]
+
+
+def _labels(labels, dev: torch.device) -> torch.Tensor:
+    return _device.to_tensor(labels, dev, torch.int64)
+
+
+def knn_classify_sym(train_codes, train_labels, Q, cb: PQCodebook,
+                     cfg: PQConfig, *,
+                     device: _device.DeviceArg = None) -> torch.Tensor:
+    """Symmetric 1-NN: encode the queries, then M LUT gathers per pair."""
+    dev = _device.resolve_device(device)
+    q_codes = encode(Q, cb, cfg, device=dev)
+    d = cdist_sym(q_codes, train_codes, cb.lut, device=dev)
+    return _labels(train_labels, dev)[torch.argmin(d, dim=1)]
+
+
+def knn_classify_asym(train_codes, train_labels, Q, cb: PQCodebook,
+                      cfg: PQConfig, *,
+                      device: _device.DeviceArg = None) -> torch.Tensor:
+    """Asymmetric 1-NN: one M x K elastic table per query, then gathers."""
+    dev = _device.resolve_device(device)
+    d = cdist_asym(Q, train_codes, cb, cfg, device=dev)
+    return _labels(train_labels, dev)[torch.argmin(d, dim=1)]
+
+
+def nn_dtw_exact(X, labels, Q, window: Optional[int] = None,
+                 measure: MeasureArg = None, *,
+                 device: _device.DeviceArg = None) -> torch.Tensor:
+    """Exact (banded) elastic 1-NN — the accuracy reference."""
+    dev = _device.resolve_device(device)
+    d = elastic_cdist(_device.to_tensor(Q, dev, torch.float32),
+                      _device.to_tensor(X, dev, torch.float32), window,
+                      measure=measure)
+    return _labels(labels, dev)[torch.argmin(d, dim=1)]

@@ -1,0 +1,186 @@
+"""Build, load and count the port's CUDA kernels.
+
+At first use, every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
+(all started together) for ``sm_90a`` and linked into one shared library
+with a plain C interface, ``build/repro_torch_kernels/libpqdtw.so`` at the
+repository root.  The library is rebuilt when a source or the flags
+change (a SHA-256 stamp beside it) and loaded with :mod:`ctypes`.
+A rebuild holds an exclusive ``flock`` on ``build.lock`` in the build
+directory, so processes that start together (test workers on one card
+machine) compile once and never load a half-written library.
+Pointers and the stream go in as ``c_void_p``, sizes as ``c_int``.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without ``nvcc`` never builds.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on anything but 0.  :data:`LAUNCHES` counts each
+kernel's launches (one per successful wrapper call on a CUDA tensor), so a
+run can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "count_launch", "build", "lib",
+           "check", "kernel_device", "ptr", "stream", "BUILD_DIR"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+LIB_NAME = "libpqdtw.so"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# --fmad=false: every product and sum rounds on its own, as in the
+# reference, so distances and lerp positions match it to the bit.
+FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", ARCH,
+         "-Xptxas=-v")
+
+KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
+           "prealign_encode")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_lib: Optional[ctypes.CDLL] = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "pq_dtw_band": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "pq_dtw_band_cdist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                          _I, _P],
+    "pq_adc_sym": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pq_adc_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pq_prealign_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not cand.exists():
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): cannot build the kernels")
+    return str(cand)
+
+
+def _stamp() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless the stamp says
+    it is current.  Returns the library's path; raises on a failed build
+    (the compiler's output, with ptxas's register and shared-memory report,
+    is kept in ``nvcc.log`` beside the library)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp_path = BUILD_DIR / (LIB_NAME + ".sha256")
+    stamp = _stamp()
+
+    def current() -> bool:
+        return (lib_path.exists() and stamp_path.exists()
+                and stamp_path.read_text() == stamp)
+
+    if current():
+        return lib_path
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not current():  # else another process built it while we waited
+            _compile_and_link(lib_path)
+            stamp_path.write_text(stamp)
+    return lib_path
+
+
+def _compile_and_link(lib_path: Path) -> None:
+    nvcc = _nvcc()
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / (src.stem + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (exit {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / (LIB_NAME + ".tmp")
+    link = subprocess.run(
+        [nvcc, ARCH, "-shared", "-o", str(tmp),
+         *[str(obj) for _, obj, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.pq_error_string.argtypes = [ctypes.c_int]
+        handle.pq_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if status != 0:
+        msg = lib().pq_error_string(status).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{status} ({msg})")
+
+
+def kernel_device(*tensors: torch.Tensor) -> Optional[torch.device]:
+    """Where a wrapper's inputs say to run: ``None`` when all lie on the CPU
+    (the plain version runs), their CUDA device when all lie on one (the
+    kernel runs).  Anything else raises: there is no fallback."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return None
+    dev = next(iter(devs))
+    if len(devs) != 1 or dev.type != "cuda":
+        raise ValueError(f"kernel inputs must all lie on one CUDA device or "
+                         f"all on the CPU, got {sorted(map(str, devs))}")
+    return dev
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
