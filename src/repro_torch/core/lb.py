@@ -9,7 +9,8 @@ from typing import Callable, Tuple
 
 import torch
 
-__all__ = ["keogh_envelope", "lb_keogh", "lb_kim"]
+__all__ = ["keogh_envelope", "lb_keogh", "lb_kim", "cascade_bound",
+           "lb_cascade", "lb_lut"]
 
 
 def _shift(x: torch.Tensor, offset: int, fill: float) -> torch.Tensor:
@@ -68,3 +69,30 @@ def lb_keogh(q: torch.Tensor, upper: torch.Tensor,
 def lb_kim(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Simplified LB_Kim: first and last points are always aligned."""
     return (q[..., 0] - c[..., 0]) ** 2 + (q[..., -1] - c[..., -1]) ** 2
+
+
+def cascade_bound(x: torch.Tensor, c: torch.Tensor, upper: torch.Tensor,
+                  lower: torch.Tensor) -> torch.Tensor:
+    """The cascade's bound ``max(LB_Kim(x, c), LB_Keogh(x, env(c)))``, with
+    ``upper``/``lower`` the Keogh envelope of ``c``; broadcasts ``(..., L)``.
+    Every cascade of the package (the encode's filter, the search bounds,
+    the query tables, the plain ``lb_refine``) forms its bound here, so
+    they share one summation order."""
+    return torch.maximum(lb_kim(x, c), lb_keogh(x, upper, lower))
+
+
+def lb_cascade(q: torch.Tensor, centroids: torch.Tensor,
+               upper: torch.Tensor, lower: torch.Tensor) -> torch.Tensor:
+    """``max(LB_Kim, reversed LB_Keogh)`` of ``q (L,)`` against every row of
+    ``centroids (K, L)`` with its envelope ``(K, L)`` -> ``(K,)``."""
+    return cascade_bound(q[None, :], centroids, upper, lower)
+
+
+def lb_lut(q_segs: torch.Tensor, centroids: torch.Tensor,
+           upper: torch.Tensor, lower: torch.Tensor) -> torch.Tensor:
+    """Cascaded lower-bound table for the asymmetric query LUT:
+    ``q_segs (..., M, S)`` vs ``centroids (M, K, S)`` with envelopes
+    ``(M, K, S)`` -> ``(..., M, K)``.  Every entry lower-bounds the squared
+    subspace distance of the query table, so code-wise sums of this table
+    lower-bound the asymmetric ADC distance."""
+    return cascade_bound(q_segs[..., None, :], centroids, upper, lower)

@@ -30,9 +30,12 @@ __all__ = [
     "MeasureSpec", "MeasureArg", "register_measure", "get_measure",
     "resolve", "available", "move_costs", "cost_factors", "gap_costs",
     "fma", "wdtw_weights", "kernel_measure_id", "kernel_param", "DTW",
+    "DTW_KERNEL_ID",
 ]
 
 MeasureArg = Union[None, str, "MeasureSpec"]
+
+DTW_KERNEL_ID = 0   # the dtw cell's number in kernels/csrc/wavefront.cuh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +57,21 @@ class MeasureSpec:
 
     def param(self, key: str) -> float:
         return dict(self.params)[key]
+
+    def to_manifest(self) -> dict:
+        """JSON-safe record for snapshot manifests (the reference's form)."""
+        return {"name": self.name, "params": dict(self.params)}
+
+    @property
+    def can_prune(self) -> bool:
+        """True when the LB-cascade filter-and-refine path is sound: the
+        cascade bound lower-bounds the measure and squared Euclidean
+        distance upper-bounds it (the threshold seed).
+
+        >>> get_measure("dtw").can_prune, get_measure("wdtw").can_prune
+        (True, False)
+        """
+        return self.has_keogh_lb and self.euclid_is_upper_bound
 
 
 _REGISTRY: Dict[str, dict] = {}
@@ -252,7 +270,7 @@ def _msm_step(params, x, y, xp, yp, dd, length):
 
 
 register_measure(
-    "dtw", step=_dtw_step, factors=_dtw_factors, kernel_id=0,
+    "dtw", step=_dtw_step, factors=_dtw_factors, kernel_id=DTW_KERNEL_ID,
     has_keogh_lb=True, euclid_is_upper_bound=True,
     doc="classic DTW, squared pointwise costs")
 register_measure(

@@ -31,12 +31,13 @@ from .dispatch import (adc_cdist, adc_lookup, elastic_cdist,
                        elastic_pairwise, prealign_encode)
 from .dtw import euclidean_sq
 from .kmeans import dba_kmeans, euclidean_kmeans
-from .lb import keogh_envelope, lb_keogh, lb_kim
+from .lb import cascade_bound, keogh_envelope
 from .measures import MeasureSpec
 from .modwt import fixed_segments, prealign
 
 __all__ = ["PQConfig", "PQCodebook", "segment", "fit", "encode",
-           "encode_with_stats", "lb_filter_pairs", "query_lut_batch",
+           "encode_with_stats", "lb_filter_pairs", "query_lut",
+           "query_lut_batch", "adc_gather",
            "cdist_sym", "cdist_asym", "memory_cost", "uses_fused_prealign",
            "codebook_from_numpy", "codebook_to_numpy"]
 
@@ -260,9 +261,8 @@ def lb_filter_pairs(segs: torch.Tensor, cb: PQCodebook, refine_t: int):
     N, M, S = segs.shape
     T = refine_t
     lbs = torch.stack([
-        torch.maximum(lb_kim(segs[:, m, None, :], cb.centroids[m][None]),
-                      lb_keogh(segs[:, m, None, :], cb.env_upper[m][None],
-                               cb.env_lower[m][None]))
+        cascade_bound(segs[:, m, None, :], cb.centroids[m][None],
+                      cb.env_upper[m][None], cb.env_lower[m][None])
         for m in range(M)], dim=1)                            # (N, M, K)
     srt = torch.sort(lbs, dim=-1, stable=True)
     cand = srt.indices[..., :T]                               # (N, M, T)
@@ -328,6 +328,41 @@ def cdist_sym(codes_a, codes_b, lut, *, lut_dtype: str = "float32",
                      lut_dtype=lut_dtype)
 
 
+def query_lut(q_segs: torch.Tensor, cb: PQCodebook, window: Optional[int],
+              euclidean: bool = False,
+              measure: Optional[MeasureSpec] = None) -> torch.Tensor:
+    """Asymmetric query table of one query: ``q_segs (M, S)`` -> ``(M, K)``.
+
+    >>> cfg = PQConfig(n_sub=2, codebook_size=2, use_prealign=False,
+    ...                kmeans_iters=1, dba_iters=1)
+    >>> X = torch.arange(32, dtype=torch.float32).reshape(4, 8) / 10.0
+    >>> cb = fit(X, cfg, torch.Generator().manual_seed(0), device="cpu")
+    >>> tuple(query_lut(segment(X, cfg)[0], cb, cfg.window(8),
+    ...                 measure=cfg.measure()).shape)
+    (2, 2)
+    """
+    return query_lut_batch(q_segs[None], cb, window, euclidean, measure)[0]
+
+
+def adc_gather(qlut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Plain ADC scan ``sqrt(max(0, sum_m qlut[m, codes[:, m]]))``: one
+    table ``(M, K)`` against codes ``(N, M)`` -> ``(N,)``, or a batch of
+    tables ``(B, M, K)`` against codes ``(B, N, M)`` -> ``(B, N)``.  The
+    subspaces are summed in order, as the ADC kernels and the reference's
+    ``_adc_gather`` sum them.  The IVF fine stage uses it on either device,
+    as the reference's fine stage uses its plain gather."""
+    single = qlut.dim() == 2
+    if single:
+        qlut, codes = qlut[None], codes[None]
+    codes = codes.long()
+    acc = torch.zeros(codes.shape[:-1], dtype=torch.float32,
+                      device=qlut.device)
+    for m in range(qlut.shape[1]):
+        acc = acc + torch.gather(qlut[:, m, :], 1, codes[..., m])
+    out = torch.sqrt(torch.clamp(acc, min=0.0))
+    return out[0] if single else out
+
+
 def query_lut_batch(q_segs: torch.Tensor, cb: PQCodebook,
                     window: Optional[int], euclidean: bool = False,
                     measure: Optional[MeasureSpec] = None) -> torch.Tensor:
@@ -361,8 +396,18 @@ def cdist_asym(Q, codes, cb: PQCodebook, cfg: PQConfig, *,
 # Memory accounting (§3.4)
 # ---------------------------------------------------------------------------
 
-def memory_cost(cfg: PQConfig, D: int, n_series: int) -> dict:
+def memory_cost(cfg: PQConfig, D: int, n_series: int, *,
+                n_segments: int = 0, n_lists: int = 0,
+                hot_capacity: int = 0, n_devices: int = 1) -> dict:
     """Bytes for raw data vs the PQ representation + auxiliary structures.
+
+    With the segmented-index keywords the estimate also covers the
+    streaming index (:mod:`repro_torch.index`): per-entry id/tombstone/
+    assignment sidecars, per-segment inverted-list offset tables and the
+    raw float32 hot buffer.  ``n_devices > 1`` splits it into replicated
+    bytes (quantizers, list tables, hot buffer) and partitioned bytes
+    (sealed codes and sidecars) for the list-sharded layout:
+    ``max_device_bytes = replicated + ceil(partitioned / n_devices)``.
 
     >>> cost = memory_cost(PQConfig(), 128, 1000)
     >>> cost["raw_bytes"], cost["code_bytes"], cost["compression"]
@@ -376,7 +421,30 @@ def memory_cost(cfg: PQConfig, D: int, n_series: int) -> dict:
     codebook = 4 * M * K * S
     lut = 4 * M * K * K
     envelopes = 2 * 4 * M * K * S
-    return dict(raw_bytes=raw, code_bytes=codes, codebook_bytes=codebook,
-                lut_bytes=lut, envelope_bytes=envelopes,
-                aux_bytes=codebook + lut + envelopes,
-                compression=raw / max(codes, 1))
+    out = dict(raw_bytes=raw, code_bytes=codes, codebook_bytes=codebook,
+               lut_bytes=lut, envelope_bytes=envelopes,
+               aux_bytes=codebook + lut + envelopes,
+               compression=raw / max(codes, 1))
+    if n_segments or hot_capacity:
+        # sealed sidecars: int32 id + int32 coarse assignment + bool live
+        sidecar = (4 + 4 + 1) * n_series
+        # per-segment inverted-list tables: int32 start + len per list
+        lists = 2 * 4 * n_lists * n_segments
+        # hot segment: raw float32 buffer + id/live sidecars at capacity
+        hot = (4 * D + 4 + 1) * hot_capacity
+        out.update(sidecar_bytes=sidecar, list_bytes=lists, hot_bytes=hot,
+                   index_bytes=codes + sidecar + lists + hot,
+                   total_bytes=codes + sidecar + lists + hot
+                   + out["aux_bytes"])
+        if n_devices > 1:
+            # coarse centroids ride along with every device's probe stage
+            coarse = 4 * n_lists * D
+            replicated = out["aux_bytes"] + coarse + lists + hot
+            partitioned = codes + sidecar
+            out.update(
+                n_devices=n_devices,
+                coarse_bytes=coarse,
+                replicated_bytes=replicated,
+                partitioned_bytes=partitioned,
+                max_device_bytes=replicated + -(-partitioned // n_devices))
+    return out

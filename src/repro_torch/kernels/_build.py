@@ -45,7 +45,7 @@ FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", ARCH,
          "-Xptxas=-v")
 
 KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
-           "prealign_encode")
+           "prealign_encode", "lb_refine")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "pq_adc_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pq_prealign_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _P],
+    "pq_lb_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P],
 }
 
 

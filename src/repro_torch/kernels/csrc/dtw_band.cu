@@ -19,18 +19,7 @@
 namespace {
 
 using pqdtw::band_cost;
-
-__device__ __forceinline__ void band_row(float* scratch, float** row,
-                                         int* stride) {
-  extern __shared__ float smem[];
-  if (scratch != nullptr) {
-    *row = scratch + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    *stride = gridDim.x * blockDim.x;
-  } else {
-    *row = smem + threadIdx.x;
-    *stride = blockDim.x;
-  }
-}
+using pqdtw::band_row;
 
 template <int MEAS>
 __global__ void dtw_band_pairs_kernel(const float* __restrict__ A,
@@ -70,10 +59,6 @@ __global__ void dtw_band_cdist_kernel(const float* __restrict__ A,
   }
 }
 
-size_t smem_bytes(const float* scratch, int threads, int w) {
-  return scratch != nullptr ? 0 : (size_t)threads * (2 * w + 2) * sizeof(float);
-}
-
 }  // namespace
 
 extern "C" {
@@ -81,7 +66,7 @@ extern "C" {
 int pq_dtw_band(const float* A, const float* B, float* out, const float* wt,
                 float* scratch, int n, int L, int w, int measure, float p,
                 int threads, int blocks, void* stream) {
-  const size_t smem = smem_bytes(scratch, threads, w);
+  const size_t smem = pqdtw::band_smem_bytes(scratch, threads, w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (measure) {
     case pqdtw::kDTW:
@@ -110,7 +95,7 @@ int pq_dtw_band_cdist(const float* A, const float* B, float* out,
                       const float* wt, float* scratch, int N, int M, int L,
                       int w, int measure, float p, int threads, int blocks,
                       void* stream) {
-  const size_t smem = smem_bytes(scratch, threads, w);
+  const size_t smem = pqdtw::band_smem_bytes(scratch, threads, w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (measure) {
     case pqdtw::kDTW:

@@ -1,6 +1,7 @@
 // Banded elastic DP shared by every kernel of the port that sweeps an
-// alignment table: dtw_band.cu (zipped pairs and all pairs) and
-// prealign_encode.cu (segment x centroid 1-NN).
+// alignment table: dtw_band.cu (zipped pairs and all pairs),
+// lb_cascade.cu (the refine step of the LB cascade) and prealign_encode.cu
+// (segment x centroid 1-NN).
 //
 // Replaces repro/kernels/dtw_band/kernel.py::wavefront_compressed, the
 // band-compressed anti-diagonal sweep of the TPU kernels.  On the TPU one
@@ -124,6 +125,27 @@ __device__ float band_cost(const float* __restrict__ a,
     }
   }
   return row[w * stride];  // cell (L-1, L-1) sits at k = w
+}
+
+// This thread's band row for a one-pair-per-thread kernel: a column of
+// the dynamic shared memory (stride blockDim.x) or, when the wrapper
+// passes a scratch buffer, a column of it (stride = total threads).
+__device__ __forceinline__ void band_row(float* scratch, float** row,
+                                         int* stride) {
+  extern __shared__ float smem[];
+  if (scratch != nullptr) {
+    *row = scratch + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    *stride = gridDim.x * blockDim.x;
+  } else {
+    *row = smem + threadIdx.x;
+    *stride = blockDim.x;
+  }
+}
+
+// Dynamic shared memory for band_row: none when the rows live in scratch.
+inline size_t band_smem_bytes(const float* scratch, int threads, int w) {
+  return scratch != nullptr ? 0
+                            : (size_t)threads * (2 * w + 2) * sizeof(float);
 }
 
 }  // namespace pqdtw

@@ -7,15 +7,21 @@ where there is no CUDA device.  On a machine with an H100 and ``nvcc``:
 
 Distances within ``rtol=1e-5, atol=1e-4`` (ERP's prefix sums are
 sequential in the kernel and a parallel scan in ``torch.cumsum``); codes
-identical.
+identical.  ``lb_refine`` sums its bound sequentially where ``torch.sum``
+makes a tree, so its cases use thresholds that no bound comes near; then
+the refined flags are identical too.
 """
 
 import pytest
 import torch
 
+from repro_torch.core import lb as tlb
+from repro_torch.core import lb_search
 from repro_torch.kernels import _build
 from repro_torch.kernels.dtw_band.ops import dtw_band, dtw_band_cdist
 from repro_torch.kernels.dtw_band.ref import dtw_band_cdist_ref, dtw_band_ref
+from repro_torch.kernels.lb_cascade.ops import lb_refine
+from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
 from repro_torch.kernels.pq_adc.ops import adc_lookup, adc_sym_cdist
 from repro_torch.kernels.pq_adc.ref import adc_lookup_ref, adc_sym_cdist_ref
 from repro_torch.kernels.prealign_encode.ops import prealign_encode
@@ -97,3 +103,46 @@ def test_mixed_devices_raise(gen):
     A = _randn(gen, 4, 16)
     with pytest.raises(ValueError):
         dtw_band(A, A.cpu(), 2)
+
+
+@pytest.mark.parametrize("L,window", [(33, 3), (74, 7), (512, 51),
+                                      (300, None)])
+def test_lb_refine_matches_plain(gen, L, window):
+    n = 301
+    A = torch.cumsum(_randn(gen, n, L), 1)
+    B = torch.cumsum(_randn(gen, n, L), 1)
+    w = L - 1 if window is None else window
+    up, lo = tlb.keogh_envelope(A, w)
+    lb = tlb.cascade_bound(B, A, up, lo)
+    th = torch.where(torch.arange(n, device="cuda") % 2 == 0, lb * 1.5 + 0.1,
+                     lb * 0.5 - 0.1)
+    th[3::7] = -float("inf")
+    th[5::7] = float("inf")
+    before = _build.LAUNCHES["lb_refine"]
+    d, f = lb_refine(A, B, up, lo, th, window)
+    assert _build.LAUNCHES["lb_refine"] == before + 1
+    want_d, want_f = lb_refine_ref(A, B, up, lo, th, window)
+    assert torch.equal(f, want_f)
+    torch.testing.assert_close(d, want_d, **TOL)
+
+
+def test_lb_refine_rejects_other_measures(gen):
+    A = _randn(gen, 4, 16)
+    with pytest.raises(ValueError, match="dtw only"):
+        lb_refine(A, A, A, A, torch.zeros(4, device="cuda"), 2, "wdtw")
+
+
+@pytest.mark.parametrize("k", [1, 7])
+def test_filtered_topk_card_equals_cpu(gen, k):
+    X = torch.cumsum(_randn(gen, 500, 128), 1)
+    Q = torch.cumsum(_randn(gen, 37, 128), 1)
+    Q[0] = X[11]
+    X[300] = X[11]
+    valid = torch.rand(500, generator=gen, device="cuda") > 0.1
+    valid[[11, 300]] = True
+    got_d, got_i, n_ref = lb_search.filtered_topk(Q, X, 13, k, valid=valid)
+    want_d, want_i, _ = lb_search.filtered_topk(Q.cpu(), X.cpu(), 13, k,
+                                                valid=valid.cpu())
+    assert torch.equal(got_i.cpu(), want_i)
+    torch.testing.assert_close(got_d.cpu(), want_d, **TOL)
+    assert 0 < int(n_ref) < 37 * 500

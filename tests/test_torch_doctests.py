@@ -1,0 +1,24 @@
+"""The port's docstring examples, run as tests (on the CPU: every example
+passes ``device="cpu"`` or works on CPU tensors)."""
+
+import doctest
+import importlib
+
+import pytest
+
+MODULES = (
+    "repro_torch.core.dispatch",
+    "repro_torch.core.measures",
+    "repro_torch.core.pq",
+    "repro_torch.core.topk",
+    "repro_torch.index.streaming",
+    "repro_torch.obs",
+)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_doctests(name):
+    mod = importlib.import_module(name)
+    result = doctest.testmod(mod, verbose=False, report=True)
+    assert result.attempted > 0, f"{name} has no doctest examples"
+    assert result.failed == 0, f"{name}: {result.failed} doctest(s) failed"

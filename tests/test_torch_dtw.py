@@ -97,7 +97,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdispatch.elastic_pairwise(A, A, 2, band="adaptive")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdispatch.lb_refine(A, A, A, A, torch.zeros(1))
+        tdispatch.lb_refine(A, A, A, A, torch.zeros(1), band="adaptive")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdispatch.adc_cdist(torch.zeros((1, 2), dtype=torch.int32),
                             torch.zeros((1, 2), dtype=torch.int32),
@@ -109,9 +109,11 @@ def test_measure_registry_mirrors_reference():
     for name in ("dtw", "wdtw", "erp", "msm"):
         t, j = tmeasures.get_measure(name), jmeasures.get_measure(name)
         assert (t.params, t.has_keogh_lb, t.euclid_is_upper_bound,
-                t.uses_gap_border, t.uses_neighbors, t.uses_position) == (
+                t.uses_gap_border, t.uses_neighbors, t.uses_position,
+                t.can_prune, t.to_manifest()) == (
             j.params, j.has_keogh_lb, j.euclid_is_upper_bound,
-            j.uses_gap_border, j.uses_neighbors, j.uses_position)
+            j.uses_gap_border, j.uses_neighbors, j.uses_position,
+            j.can_prune, j.to_manifest())
     assert tmeasures.resolve("erp:g=1.5").param("g") == 1.5
     with pytest.raises(ValueError):
         tmeasures.resolve("nope")
