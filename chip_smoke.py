@@ -14,14 +14,30 @@ window 7), then the search paths beyond 1-NN on the same data:
   them inserted (2 sealed segments, 1024 rows hot), 5% deleted, the 768
   queries searched (``n_probe=8, topk=10``); the hot part must equal a
   dense scan, the compacted index ``ivf.search_batch`` over the live rows,
-  and a snapshot must restore bit for bit.
+  and a snapshot must restore bit for bit;
+- ``adaptive_path``: the same index state with ``band="adaptive"`` (the
+  index path's quantizers, inserts and deletes), the 768 queries searched
+  through ``StreamingIndex.search`` so that the hot scan refines inside
+  per-pair corridors (width 32 at L=512, w=51); every refined pair is at
+  or above its static cost; ``elastic_pairwise(band="adaptive")`` and
+  ``certify_adaptive`` (the certified share printed, and how many
+  certified pairs equal the static cost)
+  on the 7680 pairs of each query and its static top 10; recall@10
+  against the static search;
+- ``quant_path``: ``pq.cdist_sym`` and ``dispatch.adc_lookup`` of the 768
+  query codes / tables against the 6144 training codes with int8 and
+  bfloat16 tables, each within 2% of the float32 maximum, with their 1-NN
+  accuracy and agreement with float32.
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
 wave of both searches (a second, untimed run of each) its flags and
 unrefined outputs are held against the plain bound, and on the first wave
 and the first mixed wave (refined and pruned pairs) of each search its
-whole output is held against the plain version.
+whole output is held against the plain version.  ``lb_refine_adaptive``
+is held the same way on the adaptive hot scan, its refined distances bit
+for bit; ``dtw_band_adaptive`` and the quantised ADC kernels must equal
+their plain versions exactly.
 
     python3 chip_smoke.py
 
@@ -73,6 +89,9 @@ INDEX_LISTS = 64
 HOT_CAPACITY = 2560
 N_PROBE, TOPK = 8, 10
 DELETE_FRAC = 0.05
+ADAPTIVE_WIDTH = 32       # tune.adaptive_width(512, 51) at lane 8
+WARPED_PAIRS = 512        # time-warped pairs for the certificate's check
+QUANT_MAX_REL = 0.02      # quantised ADC: the reference's bound against f32
 # the slice-1 main path's kernels (each must launch there)
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
@@ -83,6 +102,10 @@ TPU_SITES = {
     "adc_lookup": "src/repro/kernels/pq_adc/kernel.py:135",
     "prealign_encode": "src/repro/kernels/prealign_encode/kernel.py:133",
     "lb_refine": "src/repro/kernels/lb_cascade/kernel.py:138",
+    "dtw_band_adaptive": "src/repro/kernels/dtw_band/kernel.py:384",
+    "lb_refine_adaptive": "src/repro/kernels/lb_cascade/kernel.py:138",
+    "adc_sym_quant": "src/repro/kernels/pq_adc/kernel.py:151",
+    "adc_lookup_quant": "src/repro/kernels/pq_adc/kernel.py:170",
 }
 SOURCES = {
     "dtw_band": "src/repro_torch/kernels/csrc/dtw_band.cu",
@@ -91,6 +114,10 @@ SOURCES = {
     "adc_lookup": "src/repro_torch/kernels/csrc/pq_adc.cu",
     "prealign_encode": "src/repro_torch/kernels/csrc/prealign_encode.cu",
     "lb_refine": "src/repro_torch/kernels/csrc/lb_cascade.cu",
+    "dtw_band_adaptive": "src/repro_torch/kernels/csrc/dtw_band.cu",
+    "lb_refine_adaptive": "src/repro_torch/kernels/csrc/lb_cascade.cu",
+    "adc_sym_quant": "src/repro_torch/kernels/csrc/pq_adc.cu",
+    "adc_lookup_quant": "src/repro_torch/kernels/csrc/pq_adc.cu",
 }
 
 _records = []
@@ -148,9 +175,13 @@ def main() -> int:
     waves = {}
     ctx["pruned_launches"] = pruned_nn(torch, _build, ctx, waves)
     ctx["index_launches"] = index_path(torch, _build, ctx, waves)
+    ctx["adaptive_launches"] = adaptive_path(torch, _build, ctx, waves)
+    ctx["quant_launches"] = quant_path(torch, _build, ctx)
     small_reference(torch)
     kernels = kernel_phases(torch, ctx)
     kernels.append(lb_refine_phases(torch, ctx, waves))
+    kernels += adaptive_kernel_phases(torch, ctx, waves)
+    kernels += quant_kernel_phases(torch, ctx)
     measure_sweep(torch)
     emit({"kernels": kernels})
 
@@ -248,7 +279,7 @@ def main_path(torch, _build) -> dict:
           "lb_codes_equal_exact_codes": fused_equal_lb,
           "launches": launches, "routes": routes,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-    return dict(cfg=cfg, X=X, Xd=Xd, yd=yd, Qd=Qd, cb=cb, codes=codes,
+    return dict(cfg=cfg, X=X, Xd=Xd, yd=yd, Qd=Qd, yq=yq, cb=cb, codes=codes,
                 q_codes=q_codes, codes_fused=codes_fused, launches=launches,
                 D=D, w_exact=w_exact)
 
@@ -258,7 +289,7 @@ def main_path(torch, _build) -> dict:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def checked_waves(torch, lb_search, log: dict):
+def checked_waves(torch, lb_search, log: dict, extra=None):
     """Hook ``filtered_topk``'s ``lb_refine`` while the block runs.  Each
     wave still goes through the kernel once, as without the hook; then its
     pruning side is held against the plain bound (``lb.cascade_bound``):
@@ -268,7 +299,8 @@ def checked_waves(torch, lb_search, log: dict):
     bound within ``rtol, atol``.  ``log`` gathers the counts over all waves
     and keeps the arguments of the first wave and of the first mixed wave
     (pairs refined and pairs pruned at their threshold; one that also
-    carries filler where a wave does)."""
+    carries filler where a wave does).  ``extra(args, d, f, kw)`` runs
+    more checks on each wave."""
     from repro_torch.core.lb import cascade_bound
     original = lb_search.lb_refine
     totals = log.setdefault("totals", dict.fromkeys(
@@ -295,6 +327,8 @@ def checked_waves(torch, lb_search, log: dict):
                        ("flag_ties", int(flips.sum()))):
             totals[key] += v
         args = (A, B, upper, lower, thresh, window)
+        if extra is not None:
+            extra(args, d, f, kw)
         log.setdefault("first", args)
         if n_ref > 0 and n_pruned > 0:
             log.setdefault("mixed", args)
@@ -405,6 +439,10 @@ def index_path(torch, _build, ctx, waves) -> dict:
     check(hit == len(dead), f"delete hit {hit} of {len(dead)}")
     (d, i), seconds["search"] = _timed(torch, lambda: idx.search(
         Qd, n_probe=N_PROBE, topk=TOPK))
+    check(np.array_equal(ids, np.arange(N)), "insert ids are row numbers")
+    ctx["index_state"] = dict(cfg=cfg, coarse=idx.coarse, cb=idx.cb,
+                              two_level=idx.two_level, dead=dead,
+                              static_d=d, static_i=i)
     stage_names = ("coarse", "lut", "fine", "hot", "merge")
     before = {s: _stage_sum(obs, s) for s in stage_names}
     counters0 = _lb_counters(obs)
@@ -494,6 +532,377 @@ def _lb_counters(obs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The opt-in layer: adaptive corridors and quantised ADC tables
+# ---------------------------------------------------------------------------
+
+def _warped_pairs(torch, n, L, drift=3, seed=0):
+    """Random walks and their copies under small monotone time warps plus
+    noise (the reference's own generator for converging corridors)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    A = np.cumsum(rng.normal(size=(n, L)), axis=1).astype(np.float32)
+    B = np.empty_like(A)
+    for i in range(n):
+        off = np.clip(np.cumsum(rng.integers(-1, 2, size=L)), -drift, drift)
+        B[i] = A[i, np.clip(np.arange(L) + off, 0, L - 1)]
+    B = (B + rng.normal(scale=0.05, size=B.shape)).astype(np.float32)
+    return torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+
+
+def adaptive_path(torch, _build, ctx, waves) -> dict:
+    """``IndexConfig(band="adaptive")``: the index of ``index_path`` (its
+    quantizers, the same inserts and deletes: 2 sealed segments and the
+    hot buffer) searched with the 768 queries, so the hot scan refines
+    inside per-pair corridors (``lb_refine_adaptive``); then
+    ``elastic_pairwise(band="adaptive")`` and ``certify_adaptive`` on the
+    7680 zipped pairs of each query and its static top 10.
+
+    Checks: every adaptive wave's pruning side against the plain bound (as
+    for ``lb_refine``); on every refined pair of the hot scan, on the 7680
+    pairs and on time-warped pairs, adaptive >= static (``dtw_band`` on the
+    same pairs, row 1); on the warped pairs the card's certificates equal
+    the plain sweeps'.  Printed: recall@10 against the static search, and
+    per pair set the certified share and how many certified pairs equal
+    the static cost.  That count is not checked: the certificate (a
+    re-sweep one cell wider) is the reference's heuristic, and it flags
+    some pairs whose adaptive cost exceeds the static one, in the JAX
+    package alike."""
+    import numpy as np
+    from repro_torch.core import corridor, dispatch, lb_search
+    from repro_torch.index import StreamingIndex
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.dtw_band.ops import dtw_band
+    from repro_torch.kernels.dtw_band.ref import dtw_band_adaptive_ref
+
+    X, Xd, Qd, D = ctx["X"], ctx["Xd"], ctx["Qd"], ctx["D"]
+    st = ctx["index_state"]
+    cfg = dataclasses.replace(st["cfg"], band="adaptive")
+    w = cfg.coarse_window(D)
+    width = tune.adaptive_width(D, w)
+    check(width == ADAPTIVE_WIDTH, f"adaptive width {width} at L={D}, w={w}")
+    seconds = {}
+    _build.reset_launches()
+    dispatch.reset_stats()
+    idx = StreamingIndex.from_parts(cfg, st["coarse"], st["cb"], D,
+                                    st["two_level"])
+    ids, seconds["insert"] = _timed(torch, lambda: idx.insert(X))
+    check(np.array_equal(ids, np.arange(len(X))), "insert ids")
+    idx.delete(st["dead"])
+    (d, i), seconds["search"] = _timed(torch, lambda: idx.search(
+        Qd, n_probe=N_PROBE, topk=TOPK))
+    si = st["static_i"]
+    check(bool((si >= 0).all()), "static top-10 complete")
+    qq = Qd.repeat_interleave(TOPK, dim=0).contiguous()
+    xx = Xd[si.reshape(-1).long()].contiguous()
+    (lo, hi), seconds["build_corridor"] = _timed(
+        torch, lambda: corridor.build_corridor(qq, xx, w))
+    d_pairs, seconds["elastic_pairwise_adaptive"] = _timed(
+        torch, lambda: dispatch.elastic_pairwise(qq, xx, w, band="adaptive"))
+    cert, seconds["certify_adaptive"] = _timed(
+        torch, lambda: corridor.certify_adaptive(qq, xx, lo, hi, window=w,
+                                                 width=width))
+    launches = dict(_build.LAUNCHES)
+    routes = sorted({r for _, r in dispatch.stats})
+    for k in ("dtw_band_adaptive", "lb_refine_adaptive"):
+        check(launches[k] > 0, f"adaptive path launched {k}: {launches}")
+    check(launches["lb_refine"] == 0, "the adaptive search never ran the "
+          "static cascade")
+    check(routes == ["cuda"], f"adaptive path routes {routes}")
+    check(tuple(d.shape) == (Qd.shape[0], TOPK)
+          and bool(torch.isfinite(d).all()), "adaptive search: finite "
+          "(Nq, topk) distances")
+    check(not bool(torch.isin(i, torch.from_numpy(st["dead"]).to(
+        i.device)).any()), "no deleted id is returned")
+    recall = float(np.mean([len(set(a) & set(b)) / TOPK for a, b in zip(
+        i.tolist(), si.tolist())]))
+
+    # the 7680 pairs: adaptive >= static (row 1), certified share
+    static = dtw_band(qq, xx, w)
+    check(bool((d_pairs >= static).all()), "adaptive >= static on the "
+          "7680 pairs")
+    pairs = {"n": int(qq.shape[0]), "certified": int(cert.sum()),
+             "certified_equal": int((d_pairs[cert] == static[cert]).sum()),
+             "equal": int((d_pairs == static).sum()),
+             "median_ratio": float((d_pairs / static).median()),
+             "mean_corridor_width": float(corridor.corridor_width(
+                 lo, hi).float().mean())}
+
+    # the search again, untimed, with every wave checked
+    hot = {"refined": 0, "certified": 0, "certified_equal": 0, "equal": 0}
+
+    def per_wave(args, dw, fw, kw):
+        A, B, _, _, _, win = args
+        check(kw.get("band") == "adaptive", "the hot scan's band")
+        if not bool(fw.any()):
+            return
+        A, B, dr = A[fw], B[fw], dw[fw]
+        static_w = dtw_band(A, B, win)
+        check(bool((dr >= static_w).all()), "hot scan: adaptive >= static "
+              "on every refined pair")
+        c = corridor.certify_adaptive(A, B, *corridor.build_corridor(
+            A, B, win), window=win, width=width)
+        for key, v in (("refined", int(fw.sum())), ("certified",
+                       int(c.sum())), ("certified_equal",
+                       int((dr[c] == static_w[c]).sum())),
+                       ("equal", int((dr == static_w).sum()))):
+            hot[key] += v
+
+    with checked_waves(torch, lb_search, waves.setdefault("adaptive_hot", {}),
+                       per_wave):
+        d2, i2 = idx.search(Qd, n_probe=N_PROBE, topk=TOPK)
+    check(torch.equal(d2, d) and torch.equal(i2, i), "the checked adaptive "
+          "search equals the timed one")
+    check(waves["adaptive_hot"]["totals"]["waves"]
+          == launches["lb_refine_adaptive"], "one lb_refine_adaptive "
+          "launch per wave")
+
+    # the certificate on time-warped pairs, the reference tests' data: the
+    # card's verdicts are the plain sweeps' (base == one cell wider)
+    A, B = _warped_pairs(torch, WARPED_PAIRS, D)
+    wl, wh = corridor.build_corridor(A, B, w)
+    wa = dispatch.elastic_pairwise(A, B, w, band="adaptive",
+                                   corridor=(wl, wh))
+    ws = dtw_band(A, B, w)
+    wc = corridor.certify_adaptive(A, B, wl, wh, window=w, width=width)
+    check(bool((wa >= ws).all()), "warped: adaptive >= static")
+    dl, dh = corridor.dilate(wl, wh, D, w)
+    plain_wc = (dtw_band_adaptive_ref(A, B, *corridor.clip_to_width(
+        wl, wh, width), w, width) == dtw_band_adaptive_ref(
+        A, B, dl, dh, w, width + 2))
+    check(torch.equal(wc, plain_wc), "warped: the card's certificates are "
+          "the plain sweeps'")
+    warped = {"n": WARPED_PAIRS, "certified": int(wc.sum()),
+              "certified_equal": int((wa[wc] == ws[wc]).sum()),
+              "equal": int((wa == ws).sum())}
+    emit({"phase": "adaptive_path", "queries": list(Qd.shape),
+          "hot_window": w, "width": width, "seconds": seconds,
+          "recall_at_10_vs_static": recall, "pairs": pairs,
+          "hot_refined": hot, "warped": warped, "launches": launches,
+          "routes": routes})
+    ctx["adaptive_pairs"] = (qq, xx, lo, hi, w, width)
+    return launches
+
+
+def quant_path(torch, _build, ctx) -> dict:
+    """Quantised ADC tables on the main path's codes: ``pq.cdist_sym`` and
+    ``dispatch.adc_lookup`` of the 768 queries against the 6144 training
+    codes with ``lut_dtype`` int8 and bfloat16, each within the
+    reference's bound against float32 (max error under 2% of the float32
+    maximum), and the 1-NN predictions they give."""
+    from repro_torch.core import dispatch, metrics, pq
+    cfg, cb, D = ctx["cfg"], ctx["cb"], ctx["D"]
+    q_codes, codes, yd, yq = (ctx["q_codes"], ctx["codes"], ctx["yd"],
+                              ctx["yq"])
+    luts = pq.query_lut_batch(pq.segment(ctx["Qd"], cfg), cb, cfg.window(D),
+                              False, cfg.measure()).contiguous()
+    ctx["query_luts"] = luts
+    _build.reset_launches()
+    dispatch.reset_stats()
+    out, seconds = {}, {}
+    for dt in ("int8", "bfloat16"):
+        out[dt, "sym"], seconds[f"cdist_sym_{dt}"] = _timed(
+            torch, lambda: pq.cdist_sym(q_codes, codes, cb.lut, lut_dtype=dt))
+        out[dt, "lookup"], seconds[f"adc_lookup_{dt}"] = _timed(
+            torch, lambda: dispatch.adc_lookup(codes, luts, lut_dtype=dt))
+    launches = dict(_build.LAUNCHES)
+    routes = sorted({r for _, r in dispatch.stats})
+    check(launches["adc_sym_quant"] == 2 and launches["adc_lookup_quant"] == 2,
+          f"quant path launched both quantised kernels: {launches}")
+    check(routes == ["cuda"], f"quant path routes {routes}")
+    full = {"sym": pq.cdist_sym(q_codes, codes, cb.lut),
+            "lookup": dispatch.adc_lookup(codes, luts)}
+    pred_f = yd[torch.argmin(full["sym"], 1)]
+    result = {}
+    for (dt, form), got in out.items():
+        ref = full[form]
+        rel = float((got - ref).abs().max() / (ref.abs().max() + 1e-6))
+        check(tuple(got.shape) == tuple(ref.shape)
+              and bool(torch.isfinite(got).all()), f"{dt} {form} shape")
+        check(rel < QUANT_MAX_REL, f"{dt} {form}: max error {rel} of the "
+              f"float32 maximum (bound {QUANT_MAX_REL})")
+        pred = yd[torch.argmin(got, 1)]
+        pred_full = yd[torch.argmin(ref, 1)] if form == "lookup" else pred_f
+        result[f"{dt}_{form}"] = {
+            "max_err_of_f32_max": rel,
+            "accuracy": 1.0 - metrics.error_rate(yq, pred),
+            "f32_accuracy": 1.0 - metrics.error_rate(yq, pred_full),
+            "agreement_with_f32": float((pred == pred_full).float().mean())}
+    emit({"phase": "quant_path", "codes": [list(q_codes.shape),
+                                           list(codes.shape)],
+          "lut": list(cb.lut.shape), "qluts": list(luts.shape),
+          "seconds": seconds, "results": result, "launches": launches,
+          "routes": routes})
+    return launches
+
+
+def _live_cells(torch, lo, hi) -> int:
+    """DP cells a sweep of clipped corridors computes."""
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def adaptive_kernel_phases(torch, ctx, waves) -> list:
+    """Rows 7-8 against their plain versions: ``dtw_band_adaptive`` on the
+    7680 zipped pairs (timed beside ``dtw_band``, row 1, on the same
+    pairs), ``lb_refine_adaptive`` on the adaptive hot scan's first wave
+    and first mixed wave.  Both bit-identical where they refine; the
+    flags of row 8 as for ``lb_refine`` (flips only at bound ties)."""
+    from repro_torch.core import corridor
+    from repro_torch.core.lb import cascade_bound
+    from repro_torch.kernels.dtw_band.ops import (dtw_band, dtw_band_adaptive,
+                                                  launch_dtw_band_adaptive)
+    from repro_torch.kernels.dtw_band.ref import dtw_band_adaptive_ref
+    from repro_torch.kernels.lb_cascade.ops import (launch_lb_refine_adaptive,
+                                                    lb_refine)
+    from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
+    launches = ctx["adaptive_launches"]
+    rows = []
+    qq, xx, lo, hi, w, width = ctx["adaptive_pairs"]
+    clo, chi = corridor.clip_to_width(lo, hi, width)
+    clo, chi = clo.contiguous(), chi.contiguous()
+    n, L = qq.shape
+    out = torch.empty(n, dtype=torch.float32, device=qq.device)
+    static_ms = _mean_ms(torch, lambda: dtw_band(qq, xx, w), REPS)
+    kernel_row(
+        torch, launches, rows, "dtw_band_adaptive",
+        {"pairs": [n, L], "window": w, "width": width,
+         "static_dtw_band_ms": static_ms},
+        lambda: dtw_band_adaptive(qq, xx, (clo, chi), width, w),
+        lambda: dtw_band_adaptive_ref(qq, xx, clo, chi, w, width), None,
+        n * (2 * L * 4 + 2 * (2 * L - 1) * 4 + 4),
+        _live_cells(torch, clo, chi) * DTW_OPS_PER_CELL,
+        launch_fn=lambda: (launch_dtw_band_adaptive(
+            qq, xx, clo, chi, width, 0, None, out), out)[1], exact=True)
+
+    log = waves["adaptive_hot"]
+    check(log["totals"]["pruned"] > 0, "adaptive hot scan: some wave "
+          "pruned pairs at their threshold")
+    emit({"phase": "lb_refine_waves", "search": "adaptive_hot",
+          **log["totals"],
+          "unrefined_max_abs_err": log["unrefined_max_abs_err"][0]})
+    mixed = log.get("mixed_filler", log.get("mixed"))
+    check(mixed is not None, "adaptive hot scan: a wave both refined and "
+          "pruned")
+    for which, args in (("first", log["first"]), ("mixed", mixed)):
+        A, B, up, lo_e, th, win = args
+        n, L = A.shape
+        cl, ch = corridor.clip_to_width(*corridor.build_corridor(A, B, win),
+                                        width)
+        cl, ch = cl.contiguous(), ch.contiguous()
+        d, f = lb_refine(A, B, up, lo_e, th, win, corridor=(cl, ch),
+                         width=width)
+        torch.cuda.synchronize()
+        (want_d, want_f), plain_ms = _sync_ms(torch, lambda: lb_refine_ref(
+            A, B, up, lo_e, th, win, corridor=(cl, ch), width=width))
+        lb = cascade_bound(B, A, up, lo_e)
+        flips, near = _flag_flips(torch, f, lb, th,
+                                  f"lb_refine_adaptive {which}")
+        both = f & want_f
+        check(torch.equal(d[both], want_d[both]), f"lb_refine_adaptive "
+              f"{which}: refined distances bit-identical")
+        agree = ~flips
+        max_abs, max_rel, ok = _errors(torch, d[agree], want_d[agree])
+        check(ok, f"lb_refine_adaptive {which}: distances agree where "
+              "flags agree")
+        filler = th == -float("inf")
+        n_refined, n_filler = int(f.sum()), int(filler.sum())
+        n_pruned = n - n_refined - n_filler
+        if which == "mixed":
+            check(0 < n_refined < n and n_pruned > 0,
+                  "lb_refine_adaptive: the mixed wave refines and prunes")
+        d_out = torch.empty_like(d)
+        flag = torch.empty(n, dtype=torch.int32, device=A.device)
+        ms = _mean_ms(torch, lambda: launch_lb_refine_adaptive(
+            A, B, up, lo_e, th, cl, ch, width, d_out, flag), REPS)
+        check(torch.equal(flag.bool(), f) and torch.equal(d_out, d),
+              f"lb_refine_adaptive {which}: the launch alone equals the "
+              "wrapper")
+        wrapper_ms = _mean_ms(torch, lambda: lb_refine(
+            A, B, up, lo_e, th, win, corridor=(cl, ch), width=width), REPS)
+        bound_ms, bound_by = bound(
+            n * (16 * L + 12 + 2 * (2 * L - 1) * 4),
+            n * 5 * L + _live_cells(torch, cl[f], ch[f]) * DTW_OPS_PER_CELL)
+        row = {"name": "lb_refine_adaptive", "route": "cuda",
+               "source": SOURCES["lb_refine_adaptive"],
+               "replaces": TPU_SITES["lb_refine_adaptive"],
+               "launches": launches["lb_refine_adaptive"],
+               "max_abs_err": max_abs, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernel", **row, "wave": f"adaptive_hot {which}",
+              "shapes": {"pairs": [n, L], "window": win, "width": width},
+              "n_refined": n_refined, "n_pruned": n_pruned,
+              "n_filler": n_filler, "flag_ties": int(flips.sum()),
+              "near_threshold": int(near.sum()), "wrapper_ms": wrapper_ms,
+              "max_rel_err": max_rel, "agrees": ok,
+              "in_table": which == "first",
+              "tolerance": {"refined": "identical", "rtol": RTOL,
+                            "atol": ATOL, "flag_tie_rel": FLAG_TIE_REL}})
+        if which == "first":
+            rows.append(row)
+    return rows
+
+
+def quant_kernel_phases(torch, ctx) -> list:
+    """Rows 9-10 against their plain versions (dequantise, then gather) on
+    the quant path's tensors, int8 (the table's record) and bfloat16:
+    identical outputs.  ``library_ms``: one PyTorch gather-and-sum on the
+    dequantised table."""
+    from repro_torch.kernels.pq_adc.ops import (
+        adc_lookup_quant, adc_sym_cdist_quant, launch_adc_lookup_quant,
+        launch_adc_sym_quant, quantize_lut)
+    from repro_torch.kernels.pq_adc.ref import (
+        adc_lookup_quant_ref, adc_sym_cdist_quant_ref, dequantize)
+    launches = ctx["quant_launches"]
+    cb, luts = ctx["cb"], ctx["query_luts"]
+    q_codes, codes = ctx["q_codes"].contiguous(), ctx["codes"].contiguous()
+    (Nq, M), N, K = q_codes.shape, codes.shape[0], cb.lut.shape[1]
+    dev = codes.device
+    m_idx = torch.arange(M, device=dev)[:, None, None]
+    qa, tb = q_codes.long().T[:, :, None], codes.long().T[:, None, :]
+    m_row = torch.arange(M, device=dev)[None, :]
+    codes_l = codes.long()
+    rows = []
+    for dt in ("int8", "bfloat16"):
+        table = dt == "int8"
+        q, sc, zp = quantize_lut(cb.lut, dt)
+        scv, zpv = sc.reshape(M).contiguous(), zp.reshape(M).contiguous()
+        deq = dequantize(q, sc, zp)
+        size = q.element_size()
+        sym_out = torch.empty((Nq, N), dtype=torch.float32, device=dev)
+        kernel_row(
+            torch, launches, rows if table else [], "adc_sym_quant",
+            {"codes_a": [Nq, M], "codes_b": [N, M], "lut": [M, K, K],
+             "dtype": dt},
+            lambda: adc_sym_cdist_quant(q_codes, codes, q, sc, zp),
+            lambda: adc_sym_cdist_quant_ref(q_codes, codes, q, sc, zp),
+            lambda: torch.sqrt(deq[m_idx, qa, tb].sum(0).clamp_min(0.0)),
+            (Nq + N) * M * 4 + M * K * K * size + 2 * M * 4 + Nq * N * 4,
+            Nq * N * (3 * M + 2),
+            launch_fn=lambda: (launch_adc_sym_quant(
+                q_codes, codes, q, scv, zpv, sym_out), sym_out)[1],
+            table=table, exact=True)
+        qq, qs, qz = quantize_lut(luts.reshape(Nq * M, K), dt)
+        qq = qq.reshape(Nq, M, K).contiguous()
+        qs, qz = qs.reshape(Nq, M, 1), qz.reshape(Nq, M, 1)
+        qsv, qzv = qs.reshape(-1).contiguous(), qz.reshape(-1).contiguous()
+        qdeq = dequantize(qq, qs, qz)
+        lookup_out = torch.empty((Nq, N), dtype=torch.float32, device=dev)
+        kernel_row(
+            torch, launches, rows if table else [], "adc_lookup_quant",
+            {"qlut": [Nq, M, K], "codes": [N, M], "dtype": dt},
+            lambda: adc_lookup_quant(codes, qq, qs, qz),
+            lambda: adc_lookup_quant_ref(codes, qq, qs, qz),
+            lambda: torch.sqrt(qdeq[:, m_row, codes_l].sum(-1).clamp_min(
+                0.0)),
+            Nq * M * K * size + 2 * Nq * M * 4 + N * M * 4 + Nq * N * 4,
+            Nq * N * (3 * M + 2),
+            launch_fn=lambda: (launch_adc_lookup_quant(
+                codes, qq, qsv, qzv, lookup_out), lookup_out)[1],
+            table=table, exact=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Agreement with the port's CPU route on a small input
 # ---------------------------------------------------------------------------
 
@@ -570,6 +979,45 @@ def _errors(torch, got, want):
     return float(diff.max()), rel, ok
 
 
+def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
+               library_fn, nbytes, ops, launch_fn=None, table=True,
+               exact=False):
+    """Hold one kernel against its plain version and time both.
+    ``launch_fn``: the launch alone, returning its output, where the
+    wrapper does more than launch (a range check); ``table=False``: a
+    second shape of a kernel already in the table, printed as a phase line
+    only; ``exact``: the outputs must be identical (max abs error 0)."""
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    want, plain_ms = _sync_ms(torch, plain_fn)
+    max_abs, max_rel, ok = _errors(torch, got, want)
+    if exact:
+        ok = bool(torch.equal(got, want))
+    wrapper_ms = _mean_ms(torch, kernel_fn, REPS)
+    ms = wrapper_ms
+    if launch_fn is not None:
+        check(torch.equal(launch_fn(), got),
+              f"{name}: the launch alone equals the wrapper's result")
+        ms = _mean_ms(torch, launch_fn, REPS)
+    library_ms = (None if library_fn is None
+                  else _mean_ms(torch, library_fn, REPS))
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = {"name": name, "route": "cuda", "source": SOURCES[name],
+           "replaces": TPU_SITES[name], "launches": launches[name],
+           "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    emit({"phase": "kernel", **row, "shapes": shapes,
+          "wrapper_ms": wrapper_ms, "max_rel_err": max_rel, "agrees": ok,
+          "in_table": table,
+          "tolerance": ("identical" if exact or got.dtype == torch.int32
+                        else {"rtol": RTOL, "atol": ATOL})})
+    check(ok, f"{name} {shapes} agrees with its plain version")
+    if table:
+        rows.append(row)
+    return got
+
+
 def kernel_phases(torch, ctx) -> list:
     from repro_torch.core import pq
     from repro_torch.core.modwt import linspace01
@@ -595,38 +1043,8 @@ def kernel_phases(torch, ctx) -> list:
     N, Nq = Xd.shape[0], Qd.shape[0]
     rows = []
 
-    def phase(name, shapes, kernel_fn, plain_fn, library_fn, nbytes, ops,
-              launch_fn=None, table=True):
-        """``launch_fn``: the launch alone, returning its output, where the
-        wrapper does more than launch (the ADC range check); ``table=False``: a second shape of a
-        kernel already in the table, printed as a phase line only."""
-        got = kernel_fn()
-        torch.cuda.synchronize()
-        want, plain_ms = _sync_ms(torch, plain_fn)
-        max_abs, max_rel, ok = _errors(torch, got, want)
-        wrapper_ms = _mean_ms(torch, kernel_fn, REPS)
-        ms = wrapper_ms
-        if launch_fn is not None:
-            check(torch.equal(launch_fn(), got),
-                  f"{name}: the launch alone equals the wrapper's result")
-            ms = _mean_ms(torch, launch_fn, REPS)
-        library_ms = (None if library_fn is None
-                      else _mean_ms(torch, library_fn, REPS))
-        bound_ms, bound_by = bound(nbytes, ops)
-        row = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": TPU_SITES[name],
-               "launches": ctx["launches"][name], "max_abs_err": max_abs,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
-        emit({"phase": "kernel", **row, "shapes": shapes,
-              "wrapper_ms": wrapper_ms, "max_rel_err": max_rel,
-              "agrees": ok, "in_table": table,
-              "tolerance": ("identical" if got.dtype == torch.int32
-                            else {"rtol": RTOL, "atol": ATOL})})
-        check(ok, f"{name} {shapes} agrees with its plain version")
-        if table:
-            rows.append(row)
-        return got
+    def phase(*args, **kw):
+        return kernel_row(torch, ctx["launches"], rows, *args, **kw)
 
     # 1. zipped pairs: the LB-filtered encode's refine batch
     _, _, qs, cs = pq.lb_filter_pairs(segs, cb, cfg.refine_t())

@@ -23,9 +23,16 @@ into the observability registry as a persistent ``dispatch_total``
 counter labeled ``kind="call"``: the port runs eagerly and counts each
 call, where the reference counts each *trace* (``kind="trace"``).
 
-Not ported yet (later slices): ``band="adaptive"`` (the adaptive
-corridors of ``elastic_pairwise`` and ``lb_refine``) and quantised LUTs
-(``lut_dtype != "float32"``).
+Opt-in layers, ledgered under their own names: ``band="adaptive"``
+(``elastic_pairwise_adaptive``, ``lb_refine_adaptive``) sweeps per-pair
+corridors from :mod:`.corridor`, an approximate upper bound of the static
+cost that is exact where the corridor holds the static optimal path;
+``lut_dtype="int8"`` / ``"bfloat16"`` (``adc_cdist_quant``,
+``adc_lookup_quant``) scans quantised tables from
+:func:`repro_torch.kernels.pq_adc.ops.quantize_lut`.  The adaptive
+register width is the reference's lane-8 width on every device
+(:func:`repro_torch.kernels.tune.adaptive_width`): a clipped corridor
+depends on it.
 
 Window contract: ``window=None`` means unbanded, i.e. a band of ``L - 1``;
 :func:`effective_window` clamps every materialised window to
@@ -87,21 +94,62 @@ def _count(op: str, route: str,
                                    **labels).inc()
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
+def _bad_band(band: str):
+    return ValueError(f"unknown band mode {band!r}; "
+                      "expected 'static' or 'adaptive'")
+
+
+def _adaptive_corridor(A: torch.Tensor, B: torch.Tensor,
+                       window: Optional[int], spec: MeasureSpec,
+                       corridor, width: Optional[int], factor: int,
+                       radius: int):
+    """The clipped corridor ``(lo, hi)`` and the register width of an
+    adaptive sweep: the corridor is built from a coarse pass unless given,
+    the width is the tuned lane-8 cap unless given."""
+    from ..kernels import tune
+    from . import corridor as corr
+    if width is None:
+        width = tune.adaptive_width(A.shape[-1], window, 8,
+                                    measure=spec.name, backend=_route(A),
+                                    factor=factor, radius=radius)
+    if corridor is None:
+        corridor = corr.build_corridor(A, B, window, factor=factor,
+                                       radius=radius)
+    return corr.clip_to_width(*corridor, width), width
 
 
 def elastic_pairwise(A: torch.Tensor, B: torch.Tensor,
                      window: Optional[int] = None, *,
                      measure: MeasureArg = None,
-                     band: str = "static") -> torch.Tensor:
-    """Elastic cost over zipped pairs: ``(N, L) x (N, L) -> (N,)``."""
-    from ..kernels.dtw_band.ops import dtw_band
-    if band != "static":
-        raise _not_ported(f"band={band!r}")
+                     band: str = "static",
+                     corridor: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                     corridor_factor: int = 8, corridor_radius: int = 2,
+                     width: Optional[int] = None) -> torch.Tensor:
+    """Elastic cost over zipped pairs: ``(N, L) x (N, L) -> (N,)``.
+
+    ``band="adaptive"`` sweeps each pair's own corridor (built here from a
+    coarse PAA pass unless ``corridor=(lo, hi)`` is given): bit-identical
+    to the static band where the corridor contains the static optimal
+    path, a documented approximate upper bound elsewhere.
+
+    >>> A, B = torch.zeros(2, 8), torch.ones(2, 8)
+    >>> elastic_pairwise(A, B, 2).tolist()              # 8 unit squares
+    [8.0, 8.0]
+    >>> elastic_pairwise(A, B, 2, band="adaptive").tolist()
+    [8.0, 8.0]
+    """
+    from ..kernels.dtw_band.ops import dtw_band, dtw_band_adaptive
     spec = measures.resolve(measure)
-    _count("elastic_pairwise", _route(A), spec)
-    return dtw_band(A, B, window, spec)
+    if band == "static":
+        _count("elastic_pairwise", _route(A), spec)
+        return dtw_band(A, B, window, spec)
+    if band != "adaptive":
+        raise _bad_band(band)
+    _count("elastic_pairwise_adaptive", _route(A), spec)
+    cor, width = _adaptive_corridor(A, B, window, spec, corridor, width,
+                                    corridor_factor, corridor_radius)
+    return dtw_band_adaptive(A, B, cor, width, window, spec)
 
 
 def elastic_cdist(A: torch.Tensor, B: torch.Tensor,
@@ -117,10 +165,26 @@ def elastic_cdist(A: torch.Tensor, B: torch.Tensor,
 def adc_cdist(codes_a: torch.Tensor, codes_b: torch.Tensor,
               lut: torch.Tensor, *,
               lut_dtype: str = "float32") -> torch.Tensor:
-    """Symmetric PQ distance matrix ``sqrt(sum_m LUT[m, a^m, b^m])``."""
-    from ..kernels.pq_adc.ops import adc_sym_cdist
+    """Symmetric PQ distance matrix ``sqrt(sum_m LUT[m, a^m, b^m])``.
+
+    ``lut_dtype="int8"`` / ``"bfloat16"`` quantises the table per subspace
+    (:func:`~repro_torch.kernels.pq_adc.ops.quantize_lut`) and scans it;
+    the result stays within the quantisation step of float32.
+
+    >>> codes = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
+    >>> lut = torch.stack([1.0 - torch.eye(2)] * 2)   # (M=2, K=2, K=2)
+    >>> [round(x, 3) for x in adc_cdist(codes, codes, lut).flatten().tolist()]
+    [0.0, 1.414, 1.414, 0.0]
+    >>> Dq = adc_cdist(codes, codes, lut, lut_dtype="int8")
+    >>> [round(x, 2) for x in Dq.flatten().tolist()]
+    [0.0, 1.41, 1.41, 0.0]
+    """
+    from ..kernels.pq_adc.ops import (adc_sym_cdist, adc_sym_cdist_quant,
+                                      quantize_lut)
     if lut_dtype != "float32":
-        raise _not_ported(f"lut_dtype={lut_dtype!r}")
+        _count("adc_cdist_quant", _route(lut))
+        q, scale, zero = quantize_lut(lut, lut_dtype)
+        return adc_sym_cdist_quant(codes_a, codes_b, q, scale, zero)
     _count("adc_cdist", _route(lut))
     return adc_sym_cdist(codes_a, codes_b, lut)
 
@@ -128,10 +192,23 @@ def adc_cdist(codes_a: torch.Tensor, codes_b: torch.Tensor,
 def adc_lookup(codes: torch.Tensor, qlut: torch.Tensor, *,
                lut_dtype: str = "float32") -> torch.Tensor:
     """Asymmetric ADC scan: ``codes (N, M)`` against ``qlut (M, K)`` ->
-    ``(N,)``, or against ``(Nq, M, K)`` query tables -> ``(Nq, N)``."""
+    ``(N,)``, or against ``(Nq, M, K)`` query tables -> ``(Nq, N)``.
+
+    ``lut_dtype`` as in :func:`adc_cdist`; each query's ``(M, K)`` table
+    is quantised on its own, as the reference quantises one query's.
+    """
     from ..kernels.pq_adc.ops import adc_lookup as _adc_lookup
+    from ..kernels.pq_adc.ops import adc_lookup_quant, quantize_lut
     if lut_dtype != "float32":
-        raise _not_ported(f"lut_dtype={lut_dtype!r}")
+        _count("adc_lookup_quant", _route(qlut))
+        if qlut.dim() == 3:
+            Nq, M, K = qlut.shape
+            q, scale, zero = quantize_lut(qlut.reshape(Nq * M, K), lut_dtype)
+            q = q.reshape(Nq, M, K)
+            scale, zero = scale.reshape(Nq, M, 1), zero.reshape(Nq, M, 1)
+        else:
+            q, scale, zero = quantize_lut(qlut, lut_dtype)
+        return adc_lookup_quant(codes, q, scale, zero)
     _count("adc_lookup", _route(qlut))
     return _adc_lookup(codes, qlut)
 
@@ -152,7 +229,11 @@ def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
               lower: torch.Tensor, thresh: torch.Tensor,
               window: Optional[int] = None, *,
               measure: MeasureArg = None,
-              band: str = "static") -> Tuple[torch.Tensor, torch.Tensor]:
+              band: str = "static",
+              corridor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              corridor_factor: int = 8, corridor_radius: int = 2,
+              width: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused cascade bound + conditional banded refine over zipped pairs:
     ``A (N, L)`` queries, ``B (N, L)`` candidates, ``upper``/``lower
     (N, L)`` Keogh envelopes of ``A``, ``thresh (N,)``.
@@ -163,6 +244,12 @@ def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
     band.  Only sound for measures with ``has_keogh_lb`` (a hard error
     otherwise: :func:`repro_torch.core.lb_search.filtered_topk` takes the
     exact dense path for them before reaching here).
+
+    ``band="adaptive"`` refines inside each pair's corridor (built here
+    unless ``corridor=(lo, hi)`` is given): the bound is unchanged, the
+    refined value is the corridor-restricted cost, an upper bound of the
+    static cost, so the adaptive cascade is approximate (ledgered as
+    ``lb_refine_adaptive``).
 
     >>> A, B = torch.zeros(2, 8), torch.ones(2, 8)
     >>> env = torch.zeros(2, 8)                    # degenerate envelopes
@@ -177,13 +264,16 @@ def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
         raise ValueError(
             f"measure {spec.name!r} has no sound Keogh/Kim lower bound; "
             "lb_refine would prune incorrectly — use the exact dense path")
-    if band == "adaptive":
-        raise _not_ported("band='adaptive'")
-    if band != "static":
-        raise ValueError(f"unknown band mode {band!r}; "
-                         "expected 'static' or 'adaptive'")
-    _count("lb_refine", _route(A), spec)
-    return _lb_refine(A, B, upper, lower, thresh, window, spec)
+    if band == "static":
+        _count("lb_refine", _route(A), spec)
+        return _lb_refine(A, B, upper, lower, thresh, window, spec)
+    if band != "adaptive":
+        raise _bad_band(band)
+    _count("lb_refine_adaptive", _route(A), spec)
+    cor, width = _adaptive_corridor(A, B, window, spec, corridor, width,
+                                    corridor_factor, corridor_radius)
+    return _lb_refine(A, B, upper, lower, thresh, window, spec,
+                      corridor=cor, width=width)
 
 
 def two_level_coarse(Q: torch.Tensor, top: torch.Tensor,

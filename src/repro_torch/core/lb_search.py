@@ -108,7 +108,8 @@ def filtered_topk(Q: torch.Tensor, X: torch.Tensor, window: Optional[int],
                   max_iters: Optional[int] = None,
                   measure: MeasureArg = None,
                   q_valid: Optional[torch.Tensor] = None,
-                  with_stats: bool = False, band: str = "static"):
+                  with_stats: bool = False, band: str = "static",
+                  corridor_factor: int = 8, corridor_radius: int = 2):
     """Exact banded elastic top-k of ``Q (Nq, L)`` against ``X (N, L)``
     (tensors on one device).
 
@@ -122,7 +123,14 @@ def filtered_topk(Q: torch.Tensor, X: torch.Tensor, window: Optional[int],
     ``with_stats=True`` swaps the third return for the pruning telemetry:
     ``n_bounded``, ``n_refined``, ``n_waves`` (device scalars) and
     ``refined_per_wave`` (per-wave counts, zero-padded to the wave cap).
-    ``band="adaptive"`` is not ported (the dispatch raises).
+    ``band="adaptive"`` runs every refine wave inside per-pair alignment
+    corridors (``dispatch.lb_refine(band="adaptive")``, built per wave
+    with ``corridor_factor`` / ``corridor_radius``).  The phase-1 bounds
+    stay lower bounds of the static-band cost and the loop ends as for
+    the static band, but refined distances are corridor-restricted costs
+    (>= static), so the top-k is the documented approximate contract, not
+    the certified-exact one.  Measures without pruning capability take
+    the exact dense path whatever the band.
     """
     if band not in ("static", "adaptive"):
         raise ValueError(f"unknown band mode {band!r}; "
@@ -181,7 +189,9 @@ def filtered_topk(Q: torch.Tensor, X: torch.Tensor, window: Optional[int],
             fresh = fresh & valid[c_idx]
         th = torch.where(fresh, thresh[q_idx], -_INF)
         d, refined = lb_refine(Q[q_idx], X[c_idx], up[q_idx], lo[q_idx], th,
-                               window, measure=spec, band=band)
+                               window, measure=spec, band=band,
+                               corridor_factor=corridor_factor,
+                               corridor_radius=corridor_radius)
         refined = refined & fresh
         # (q, c) pairs are unique within a wave
         d_exact[q_idx, c_idx] = torch.minimum(

@@ -315,6 +315,9 @@ def encode_with_stats(X, cb: PQCodebook, cfg: PQConfig, *,
 def cdist_sym(codes_a, codes_b, lut, *, lut_dtype: str = "float32",
               device: _device.DeviceArg = None) -> torch.Tensor:
     """Symmetric PQ distance matrix: ``(Na, M) x (Nb, M) -> (Na, Nb)``.
+    ``lut_dtype`` selects the table's precision: ``"float32"`` (exact) or
+    the quantised route, ``"int8"`` / ``"bfloat16"`` (see
+    :func:`repro_torch.core.dispatch.adc_cdist`).
 
     >>> codes = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
     >>> lut = torch.stack([1.0 - torch.eye(2)] * 2)

@@ -52,9 +52,14 @@ class IndexConfig:
     ``n_shards`` is the data-partition count of the sealed layout (the
     list-sharded planner is not ported; ``n_shards == 1`` is the plain
     layout).  ``n_top_lists > 0`` enables the hierarchical (two-level)
-    coarse quantizer with an ``n_probe_top`` fan-out.  ``band`` selects the
-    hot-scan band: ``"static"`` (the certified-exact cascade) or
-    ``"adaptive"`` (not ported: its search raises).
+    coarse quantizer with an ``n_probe_top`` fan-out.
+
+    ``band="adaptive"`` switches the hot-buffer elastic scan to per-pair
+    alignment corridors (:mod:`repro_torch.core.corridor`): narrower
+    registers, documented *approximate* results (each refined distance is
+    an upper bound of the static one, equal where the corridor holds the
+    optimal path); the certified-exact LB cascade applies to the default
+    ``"static"`` band only.
 
     >>> cfg = IndexConfig(PQConfig(n_sub=2, codebook_size=4), n_lists=4)
     >>> cfg.coarse_window(48)

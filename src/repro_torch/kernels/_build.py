@@ -45,7 +45,8 @@ FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", ARCH,
          "-Xptxas=-v")
 
 KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
-           "prealign_encode", "lb_refine")
+           "prealign_encode", "lb_refine", "dtw_band_adaptive",
+           "lb_refine_adaptive", "adc_sym_quant", "adc_lookup_quant")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -61,6 +62,10 @@ _SIGNATURES = {
                            _I, _I, _F, _I, _P],
     "pq_lb_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
+    "pq_dtw_band_adaptive": [_P] * 7 + [_I] * 6 + [_P],
+    "pq_lb_refine_adaptive": [_P] * 10 + [_I] * 5 + [_P],
+    "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],
+    "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 

@@ -3,7 +3,9 @@
 // Replaces repro/kernels/dtw_band/kernel.py::dtw_band_compressed_kernel as
 // launched by make_dtw_band_call (mode="compressed", zipped pairs
 // (N,L) x (N,L) -> (N,)) and by make_dtw_band_cdist_call (broadcast_b,
-// all pairs (N,L) x (M,L) -> (N,M)).
+// all pairs (N,L) x (M,L) -> (N,M)), and dtw_band_adaptive_kernel
+// (mode="adaptive": zipped pairs inside per-pair corridors lo, hi
+// (N, 2L-1) int32 with a register cap W -> (N,)).
 //
 // One thread sweeps one pair with pqdtw::band_cost (wavefront.cuh, which
 // says what bounds the DP and why).  Threads walk the pairs grid-stride,
@@ -56,6 +58,27 @@ __global__ void dtw_band_cdist_kernel(const float* __restrict__ A,
     const long long j = q / N;
     out[i * M + j] =
         band_cost<MEAS>(A + i * L, B + j * L, L, w, p, wt, row, stride);
+  }
+}
+
+template <int MEAS>
+__global__ void dtw_band_adaptive_kernel(const float* __restrict__ A,
+                                         const float* __restrict__ B,
+                                         const int* __restrict__ lo,
+                                         const int* __restrict__ hi,
+                                         float* __restrict__ out,
+                                         const float* __restrict__ wt,
+                                         float* scratch, int n, int L,
+                                         int W) {
+  float* row;
+  int stride;
+  band_row(scratch, &row, &stride);
+  const long long D = 2LL * L - 1;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n;
+       q += step) {
+    out[q] = pqdtw::corridor_cost<MEAS>(A + q * L, B + q * L, lo + q * D,
+                                        hi + q * D, L, W, wt, row, stride);
   }
 }
 
@@ -113,6 +136,27 @@ int pq_dtw_band_cdist(const float* A, const float* B, float* out,
     case pqdtw::kMSM:
       dtw_band_cdist_kernel<pqdtw::kMSM><<<blocks, threads, smem, s>>>(
           A, B, out, wt, scratch, N, M, L, w, p);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int pq_dtw_band_adaptive(const float* A, const float* B, const int* lo,
+                         const int* hi, float* out, const float* wt,
+                         float* scratch, int n, int L, int width, int measure,
+                         int threads, int blocks, void* stream) {
+  const size_t smem = pqdtw::state_smem_bytes(scratch, threads, 3 * width);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (measure) {
+    case pqdtw::kDTW:
+      dtw_band_adaptive_kernel<pqdtw::kDTW><<<blocks, threads, smem, s>>>(
+          A, B, lo, hi, out, wt, scratch, n, L, width);
+      break;
+    case pqdtw::kWDTW:
+      dtw_band_adaptive_kernel<pqdtw::kWDTW><<<blocks, threads, smem, s>>>(
+          A, B, lo, hi, out, wt, scratch, n, L, width);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // Banded elastic DP shared by every kernel of the port that sweeps an
 // alignment table: dtw_band.cu (zipped pairs and all pairs),
 // lb_cascade.cu (the refine step of the LB cascade) and prealign_encode.cu
-// (segment x centroid 1-NN).
+// (segment x centroid 1-NN).  corridor_cost, at the end, is the same DP
+// inside a per-pair adaptive corridor (dtw_band.cu and lb_cascade.cu).
 //
 // Replaces repro/kernels/dtw_band/kernel.py::wavefront_compressed, the
 // band-compressed anti-diagonal sweep of the TPU kernels.  On the TPU one
@@ -143,9 +144,99 @@ __device__ __forceinline__ void band_row(float* scratch, float** row,
 }
 
 // Dynamic shared memory for band_row: none when the rows live in scratch.
+inline size_t state_smem_bytes(const float* scratch, int threads,
+                               int floats) {
+  return scratch != nullptr ? 0 : (size_t)threads * floats * sizeof(float);
+}
+
 inline size_t band_smem_bytes(const float* scratch, int threads, int w) {
-  return scratch != nullptr ? 0
-                            : (size_t)threads * (2 * w + 2) * sizeof(float);
+  return state_smem_bytes(scratch, threads, 2 * w + 2);
+}
+
+// ---------------------------------------------------------------------------
+// Adaptive corridor
+// ---------------------------------------------------------------------------
+//
+// Replaces the corridor form of wavefront_compressed
+// (repro/kernels/dtw_band/kernel.py, corridor=(lo, hi)), the sweep of
+// dtw_band_adaptive_kernel and lb_cascade_adaptive_kernel.  The pair's
+// corridor gives each anti-diagonal d its live rows i in [lo[d], hi[d]];
+// diagonal d holds W slots, slot t being cell (i, j) = (lo[d] + t,
+// d - lo[d] - t), live iff t <= hi[d] - lo[d] (slots t >= W do not
+// exist: W caps the corridor).  Predecessors sit at slots shifted by the
+// base drift, as in the reference:
+//
+//   (i,   j-1) on d-1 -> t + sign(s1),      s1 = lo[d] - lo[d-1]
+//   (i-1, j  ) on d-1 -> t + sign(s1 - 1)
+//   (i-1, j-1) on d-2 -> t + sign(s2),      s2 = lo[d] - lo[d-2] - 1
+//
+// (lo[-1] and lo[-2] read lo[0]), a slot outside [0, W) reading +inf.  A
+// slot that is not live holds +inf, so a predecessor outside the corridor
+// reads +inf whichever slot it maps to.  Each live cell is the float32
+// expression of band_cost: __fmaf_rn for the dtw/wdtw cell, the 3e38
+// clamp after it.  So with the static band as the corridor and W at
+// least its widest diagonal, the cost equals band_cost's to the bit.
+//
+// Storage: diagonals d, d-1 and d-2, W floats each, at diag[(k*W + t) *
+// stride] (shared memory column of this thread, or global scratch, as
+// band_row gives it); the three buffers rotate.  The DP reads lo[d] and
+// hi[d] once per diagonal.  A pair costs (2L-1) * W slot updates, against
+// band_cost's L * (2w+1) cells.  Only DTW and WDTW are swept (the
+// shared-cost cell); the wrappers raise for other measures on the card.
+//
+// Indices into a, b and wt are clamped, so a corridor that breaks the
+// structural invariants gives a wrong cost, never a fault.
+
+template <int MEAS>
+__device__ float corridor_cost(const float* __restrict__ a,
+                               const float* __restrict__ b,
+                               const int* __restrict__ lo,
+                               const int* __restrict__ hi, int L, int W,
+                               const float* __restrict__ wt, float* diag,
+                               int stride) {
+  int o_cur = 0, o_p1 = W, o_p2 = 2 * W;  // slot offsets of the buffers
+  for (int k = W; k < 3 * W; ++k) diag[k * stride] = kInf;
+  int lo_1 = lo[0], lo_2 = lo[0];  // lo[max(d-1, 0)], lo[max(d-2, 0)]
+  for (int d = 0; d < 2 * L - 1; ++d) {
+    const int l = lo[d];
+    const int live = min(hi[d] - l, W - 1);
+    const int s1 = l - lo_1;
+    const int s2 = l - lo_2 - 1;
+    const int sh = (s1 > 0) - (s1 < 0);
+    const int sv = (s1 - 1 > 0) - (s1 - 1 < 0);
+    const int sd = (s2 > 0) - (s2 < 0);
+    for (int t = 0; t < W; ++t) {
+      float cell = kInf;
+      if (t <= live) {
+        const int kh = t + sh, kv = t + sv, kd = t + sd;
+        const float h =
+            (kh >= 0 && kh < W) ? diag[(o_p1 + kh) * stride] : kInf;
+        const float v =
+            (kv >= 0 && kv < W) ? diag[(o_p1 + kv) * stride] : kInf;
+        float dg = (kd >= 0 && kd < W) ? diag[(o_p2 + kd) * stride] : kInf;
+        const int i = l + t, j = d - i;
+        if (i == 0 && j == 0) dg = 0.f;  // (0, 0) starts from 0 diagonally
+        const float x = a[min(max(i, 0), L - 1)];
+        const float y = b[min(max(j, 0), L - 1)];
+        const float df = x - y;
+        if (MEAS == kDTW) {
+          cell = __fmaf_rn(df, df, fminf(fminf(dg, h), v));
+        } else {
+          cell = __fmaf_rn(wt[min(abs(i - j), L - 1)], df * df,
+                           fminf(fminf(dg, h), v));
+        }
+        cell = fminf(cell, kInf);
+      }
+      diag[(o_cur + t) * stride] = cell;
+    }
+    const int spare = o_p2;
+    o_p2 = o_p1;
+    o_p1 = o_cur;
+    o_cur = spare;
+    lo_2 = lo_1;
+    lo_1 = l;
+  }
+  return diag[o_p1 * stride];  // diagonal 2L-2: cell (L-1, L-1) in slot 0
 }
 
 }  // namespace pqdtw

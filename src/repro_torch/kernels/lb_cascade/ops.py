@@ -7,6 +7,11 @@ follow :func:`..dtw_band.ops.band_geometry`: shared memory up to
 ``w = 190``, a device scratch buffer beyond.  The kernel sweeps the DTW
 cell only (the one measure with a Keogh cascade); other measures raise on
 the card.
+
+With ``corridor=(lo, hi)`` the refine runs inside each pair's corridor
+(``csrc/lb_cascade.cu``'s adaptive entry, counted as
+``lb_refine_adaptive``): the bound is the same, the refined value the
+corridor-restricted cost, an upper bound of the static one.
 """
 
 from __future__ import annotations
@@ -19,10 +24,10 @@ from .. import _build
 from ...core import measures
 from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
-from ..dtw_band.ops import band_geometry
+from ..dtw_band.ops import band_geometry, check_corridor, row_geometry
 from .ref import lb_refine_ref
 
-__all__ = ["lb_refine", "launch_lb_refine"]
+__all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive"]
 
 _INT_MAX = 2 ** 31 - 1
 
@@ -37,7 +42,8 @@ def _rows(x: torch.Tensor, name: str, shape) -> torch.Tensor:
 
 def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
               lower: torch.Tensor, thresh: torch.Tensor,
-              window: Optional[int] = None, measure: MeasureArg = None
+              window: Optional[int] = None, measure: MeasureArg = None,
+              corridor=None, width: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cascaded bound + conditional banded refine over zipped pairs.
 
@@ -46,6 +52,8 @@ def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
     of the band), ``thresh (N,)``.  Returns ``(d (N,), refined (N,)
     bool)``: ``d`` is the exact squared banded DTW where
     ``max(LB_Kim, LB_Keogh) < thresh`` and that bound elsewhere.
+    ``corridor=(lo, hi)`` int32 ``(N, 2L-1)`` with the register ``width``
+    refines inside the per-pair corridors instead.
     """
     spec = measures.resolve(measure)
     if A.dim() != 2:
@@ -55,15 +63,24 @@ def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
     B, upper, lower = (_rows(t, name, (n, L)) for t, name in
                        ((B, "B"), (upper, "upper"), (lower, "lower")))
     thresh = _rows(thresh, "thresh", (n,))
-    dev = _build.kernel_device(A, B, upper, lower, thresh)
+    cor = () if corridor is None else check_corridor(corridor, n, L)
+    if cor and (width is None or int(width) < 1):
+        raise ValueError(f"a corridor needs a register width >= 1, got "
+                         f"{width}")
+    dev = _build.kernel_device(A, B, upper, lower, thresh, *cor)
     if dev is None:
-        return lb_refine_ref(A, B, upper, lower, thresh, window, spec)
+        return lb_refine_ref(A, B, upper, lower, thresh, window, spec,
+                             cor or None, width)
     if measures.kernel_measure_id(spec) != measures.DTW_KERNEL_ID:
         raise ValueError(f"the lb_refine kernel sweeps dtw only, got "
                          f"{spec.name!r}")
     d = torch.empty(n, dtype=torch.float32, device=dev)
     flag = torch.empty(n, dtype=torch.int32, device=dev)
-    launch_lb_refine(A, B, upper, lower, thresh, window, d, flag)
+    if cor:
+        launch_lb_refine_adaptive(A, B, upper, lower, thresh, *cor,
+                                  int(width), d, flag)
+    else:
+        launch_lb_refine(A, B, upper, lower, thresh, window, d, flag)
     return d, flag.bool()
 
 
@@ -87,3 +104,26 @@ def launch_lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
         _build.ptr(scratch), n, L, w, threads, blocks, _build.stream(A.device))
     _build.check(status, "lb_refine")
     _build.count_launch("lb_refine")
+
+
+def launch_lb_refine_adaptive(A: torch.Tensor, B: torch.Tensor,
+                              upper: torch.Tensor, lower: torch.Tensor,
+                              thresh: torch.Tensor, lo: torch.Tensor,
+                              hi: torch.Tensor, width: int, d: torch.Tensor,
+                              flag: torch.Tensor) -> None:
+    """The adaptive launch alone (corridors ``lo, hi`` int32 ``(N, 2L-1)``,
+    register ``width``), into ``d`` and ``flag``, for inputs
+    :func:`lb_refine` has checked."""
+    n, L = A.shape
+    if n > _INT_MAX:
+        raise ValueError(f"{n} pairs exceed one launch")
+    if n == 0:
+        return
+    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+    status = _build.lib().pq_lb_refine_adaptive(
+        A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+        thresh.data_ptr(), lo.data_ptr(), hi.data_ptr(), d.data_ptr(),
+        flag.data_ptr(), _build.ptr(scratch), n, L, width, threads, blocks,
+        _build.stream(A.device))
+    _build.check(status, "lb_refine_adaptive")
+    _build.count_launch("lb_refine_adaptive")

@@ -1,11 +1,17 @@
 """Plain PyTorch versions of the PQ-ADC kernels: gathers summed over the
-subspaces in the kernels' order (``acc = 0; acc += table[m, ...]``)."""
+subspaces in the kernels' order (``acc = 0; acc += table[m, ...]``).  The
+quantised versions dequantise the table first, then gather; the kernels
+apply the same affine to each selected entry, which gives the same
+float32 values."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["adc_sym_cdist_ref", "adc_lookup_ref"]
+from ...core.measures import fma
+
+__all__ = ["adc_sym_cdist_ref", "adc_lookup_ref", "dequantize",
+           "adc_sym_cdist_quant_ref", "adc_lookup_quant_ref"]
 
 
 def adc_sym_cdist_ref(codes_a: torch.Tensor, codes_b: torch.Tensor,
@@ -34,3 +40,32 @@ def adc_lookup_ref(codes: torch.Tensor, qlut: torch.Tensor) -> torch.Tensor:
         acc = acc + q[:, m, :][:, c[:, m]]
     out = torch.sqrt(torch.clamp(acc, min=0.0))
     return out[0] if single else out
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               zero: torch.Tensor) -> torch.Tensor:
+    """``q * scale + zero`` back to float32, with one rounding (the
+    reference's compiler contracts it into a fused multiply-add).
+    ``scale``/``zero`` have the shape of ``q`` up to its last axis (or
+    last two, for a ``(M, K, K)`` table) with a trailing 1."""
+    sc = scale.to(torch.float32)
+    zp = zero.to(torch.float32)
+    while sc.dim() < q.dim():
+        sc, zp = sc[..., None], zp[..., None]
+    return fma(q.to(torch.float32), sc, zp)
+
+
+def adc_sym_cdist_quant_ref(codes_a: torch.Tensor, codes_b: torch.Tensor,
+                            q: torch.Tensor, scale: torch.Tensor,
+                            zero: torch.Tensor) -> torch.Tensor:
+    """Symmetric ADC over a quantised ``(M, K, K)`` table with ``scale``/
+    ``zero (M, 1)``."""
+    return adc_sym_cdist_ref(codes_a, codes_b, dequantize(q, scale, zero))
+
+
+def adc_lookup_quant_ref(codes: torch.Tensor, q: torch.Tensor,
+                         scale: torch.Tensor,
+                         zero: torch.Tensor) -> torch.Tensor:
+    """Asymmetric scan over a quantised ``(M, K)`` table (``scale``/``zero
+    (M, 1)``) or a batch ``(Nq, M, K)`` (``(Nq, M, 1)``)."""
+    return adc_lookup_ref(codes, dequantize(q, scale, zero))

@@ -9,21 +9,33 @@ Distances within ``rtol=1e-5, atol=1e-4`` (ERP's prefix sums are
 sequential in the kernel and a parallel scan in ``torch.cumsum``); codes
 identical.  ``lb_refine`` sums its bound sequentially where ``torch.sum``
 makes a tree, so its cases use thresholds that no bound comes near; then
-the refined flags are identical too.
+the refined flags are identical too.  The adaptive corridor kernels
+(``dtw_band_adaptive``, ``lb_refine_adaptive``) are bit-identical to their
+plain versions, and to ``dtw_band`` under the static-band corridor; the
+quantised ADC kernels equal theirs (int8 and bfloat16).
 """
 
 import pytest
 import torch
 
+from repro_torch.core import corridor as tcorr
 from repro_torch.core import lb as tlb
 from repro_torch.core import lb_search
-from repro_torch.kernels import _build
-from repro_torch.kernels.dtw_band.ops import dtw_band, dtw_band_cdist
-from repro_torch.kernels.dtw_band.ref import dtw_band_cdist_ref, dtw_band_ref
+from repro_torch.kernels import _build, tune
+from repro_torch.kernels.dtw_band.ops import (band_width, dtw_band,
+                                              dtw_band_adaptive,
+                                              dtw_band_cdist)
+from repro_torch.kernels.dtw_band.ref import (dtw_band_adaptive_ref,
+                                              dtw_band_cdist_ref, dtw_band_ref)
 from repro_torch.kernels.lb_cascade.ops import lb_refine
 from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
-from repro_torch.kernels.pq_adc.ops import adc_lookup, adc_sym_cdist
-from repro_torch.kernels.pq_adc.ref import adc_lookup_ref, adc_sym_cdist_ref
+from repro_torch.kernels.pq_adc.ops import (adc_lookup, adc_lookup_quant,
+                                           adc_sym_cdist,
+                                           adc_sym_cdist_quant, quantize_lut)
+from repro_torch.kernels.pq_adc.ref import (adc_lookup_quant_ref,
+                                           adc_lookup_ref,
+                                           adc_sym_cdist_quant_ref,
+                                           adc_sym_cdist_ref)
 from repro_torch.kernels.prealign_encode.ops import prealign_encode
 from repro_torch.kernels.prealign_encode.ref import prealign_encode_ref
 
@@ -146,3 +158,97 @@ def test_filtered_topk_card_equals_cpu(gen, k):
     assert torch.equal(got_i.cpu(), want_i)
     torch.testing.assert_close(got_d.cpu(), want_d, **TOL)
     assert 0 < int(n_ref) < 37 * 500
+
+
+def _corridor(gen, n, L, window, width=None):
+    A = torch.cumsum(_randn(gen, n, L), 1)
+    B = torch.cumsum(_randn(gen, n, L), 1)
+    width = width or tune.adaptive_width(L, window)
+    lo, hi = tcorr.clip_to_width(*tcorr.build_corridor(A, B, window), width)
+    return A, B, lo, hi, width
+
+
+@pytest.mark.parametrize("measure", ["dtw", "wdtw:g=0.1"])
+@pytest.mark.parametrize("L,window", [(64, 6), (128, 12), (512, 51),
+                                      (300, None)])
+def test_dtw_band_adaptive_matches_plain(gen, measure, L, window):
+    A, B, lo, hi, width = _corridor(gen, 203, L, window)
+    before = _build.LAUNCHES["dtw_band_adaptive"]
+    got = dtw_band_adaptive(A, B, (lo, hi), width, window, measure)
+    assert _build.LAUNCHES["dtw_band_adaptive"] == before + 1
+    assert torch.equal(got, dtw_band_adaptive_ref(A, B, lo, hi, window,
+                                                  width, measure))
+    # the dilated corridor at width + 2 (certify_adaptive's second sweep)
+    lo_d, hi_d = tcorr.dilate(lo, hi, L, window)
+    wide = dtw_band_adaptive_ref(A, B, lo_d, hi_d, window, width + 2,
+                                 measure)
+    assert torch.equal(
+        dtw_band_adaptive(A, B, (lo_d, hi_d), width + 2, window, measure),
+        wide)
+    assert torch.equal(
+        tcorr.certify_adaptive(A, B, lo, hi, window=window, width=width,
+                               measure=measure), got == wide)
+
+
+@pytest.mark.parametrize("measure", ["dtw", "wdtw:g=0.1"])
+@pytest.mark.parametrize("L,window", [(74, 7), (512, 51), (200, None)])
+def test_dtw_band_adaptive_static_corridor_equals_dtw_band(gen, measure, L,
+                                                           window):
+    n = 150
+    A, B = _randn(gen, n, L), _randn(gen, n, L)
+    lo, hi = tcorr.static_band(L, window, A.device)
+    got = dtw_band_adaptive(A, B, (lo.expand(n, -1), hi.expand(n, -1)),
+                            band_width(L, window), window, measure)
+    assert torch.equal(got, dtw_band(A, B, window, measure))
+
+
+def test_dtw_band_adaptive_rejects_other_measures(gen):
+    A, B, lo, hi, width = _corridor(gen, 4, 64, 6)
+    with pytest.raises(ValueError, match="dtw and wdtw only"):
+        dtw_band_adaptive(A, B, (lo, hi), width, 6, "erp")
+
+
+@pytest.mark.parametrize("L,window", [(64, 6), (512, 51)])
+def test_lb_refine_adaptive_mixed_wave(gen, L, window):
+    """A wave of refined, pruned and filler pairs: flags identical (no
+    threshold near its bound), refined distances bit-identical."""
+    n = 301
+    A, B, clo, chi, width = _corridor(gen, n, L, window)
+    up, lo = tlb.keogh_envelope(A, window)
+    lb = tlb.cascade_bound(B, A, up, lo)
+    th = torch.where(torch.arange(n, device="cuda") % 2 == 0, lb * 1.5 + 0.1,
+                     lb * 0.5 - 0.1)
+    th[3::7] = -float("inf")
+    th[5::7] = float("inf")
+    before = _build.LAUNCHES["lb_refine_adaptive"]
+    d, f = lb_refine(A, B, up, lo, th, window, corridor=(clo, chi),
+                     width=width)
+    assert _build.LAUNCHES["lb_refine_adaptive"] == before + 1
+    want_d, want_f = lb_refine_ref(A, B, up, lo, th, window,
+                                   corridor=(clo, chi), width=width)
+    assert torch.equal(f, want_f)
+    assert 0 < int(f.sum()) < n
+    assert torch.equal(d[f], want_d[f])
+    torch.testing.assert_close(d[~f], want_d[~f], **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("M,K,na,nb", [(8, 256, 77, 301), (3, 16, 9, 5)])
+def test_adc_quant_matches_plain(gen, dtype, M, K, na, nb):
+    lut = _randn(gen, M, K, K).abs()
+    q, scale, zero = quantize_lut(lut, dtype)
+    ca = torch.randint(0, K, (na, M), device="cuda", dtype=torch.int32)
+    cb = torch.randint(0, K, (nb, M), device="cuda", dtype=torch.int32)
+    before = dict(_build.LAUNCHES)
+    got = adc_sym_cdist_quant(ca, cb, q, scale, zero)
+    assert torch.equal(got, adc_sym_cdist_quant_ref(ca, cb, q, scale, zero))
+    qluts = _randn(gen, na, M, K).abs()
+    qq, qs, qz = quantize_lut(qluts.reshape(na * M, K), dtype)
+    qq, qs, qz = (x.reshape(na, M, -1) for x in (qq, qs, qz))
+    got = adc_lookup_quant(cb, qq, qs, qz)
+    assert got.shape == (na, nb)
+    assert torch.equal(got, adc_lookup_quant_ref(cb, qq, qs, qz))
+    single = adc_lookup_quant(cb, qq[0], qs[0], qz[0])
+    assert torch.equal(single, got[0])
+    for name, n in (("adc_sym_quant", 1), ("adc_lookup_quant", 2)):
+        assert _build.LAUNCHES[name] == before[name] + n

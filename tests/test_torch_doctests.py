@@ -7,11 +7,15 @@ import importlib
 import pytest
 
 MODULES = (
+    "repro_torch.core.corridor",
     "repro_torch.core.dispatch",
     "repro_torch.core.measures",
     "repro_torch.core.pq",
     "repro_torch.core.topk",
     "repro_torch.index.streaming",
+    "repro_torch.kernels.dtw_band.ops",
+    "repro_torch.kernels.pq_adc.ops",
+    "repro_torch.kernels.tune",
     "repro_torch.obs",
 )
 

@@ -93,15 +93,26 @@ def test_ledger_counts_torch_route():
 
 
 def test_unported_options_raise():
-    A = torch.zeros((1, 8))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdispatch.elastic_pairwise(A, A, 2, band="adaptive")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdispatch.lb_refine(A, A, A, A, torch.zeros(1), band="adaptive")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdispatch.adc_cdist(torch.zeros((1, 2), dtype=torch.int32),
-                            torch.zeros((1, 2), dtype=torch.int32),
-                            torch.zeros((2, 4, 4)), lut_dtype="int8")
+    """The opt-in options that once raised as not ported now run (the
+    adaptive band, quantised tables); unknown values still raise."""
+    A, B = (torch.from_numpy(x) for x in _pairs(2, 3, 3, 8))
+    codes = torch.zeros((1, 2), dtype=torch.int32)
+    lut = torch.ones((2, 4, 4))
+    assert torch.equal(tdispatch.elastic_pairwise(A, B, 2, band="adaptive"),
+                       tdispatch.elastic_pairwise(A, B, 2))   # Lc < 4
+    d, refined = tdispatch.lb_refine(A, B, A, A, torch.full((3,), 1e9), 2,
+                                     band="adaptive")
+    assert bool(refined.all())
+    assert torch.equal(d, tdispatch.elastic_pairwise(A, B, 2))
+    assert torch.allclose(tdispatch.adc_cdist(codes, codes, lut,
+                                              lut_dtype="int8"),
+                          torch.full((1, 1), 2 ** 0.5))
+    with pytest.raises(ValueError, match="band"):
+        tdispatch.elastic_pairwise(A, B, 2, band="wavy")
+    with pytest.raises(ValueError, match="band"):
+        tdispatch.lb_refine(A, B, A, A, torch.zeros(3), band="wavy")
+    with pytest.raises(ValueError, match="dtype"):
+        tdispatch.adc_cdist(codes, codes, lut, lut_dtype="fp4")
 
 
 def test_measure_registry_mirrors_reference():

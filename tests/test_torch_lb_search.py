@@ -102,9 +102,11 @@ def test_lb_refine_counts_and_rejects():
     assert tdispatch.stats[("lb_refine[dtw]", "torch")] == 1
     with pytest.raises(ValueError, match="no sound Keogh"):
         tdispatch.lb_refine(*map(_t, (A, B, up, lo, th)), 2, measure="erp")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdispatch.lb_refine(*map(_t, (A, B, up, lo, th)), 2,
-                            band="adaptive")
+    tdispatch.lb_refine(*map(_t, (A, B, up, lo, th)), 2, band="adaptive")
+    assert tdispatch.stats[("lb_refine_adaptive", "torch")] == 1
+    assert tdispatch.stats[("lb_refine", "torch")] == 1
+    with pytest.raises(ValueError, match="band"):
+        tdispatch.lb_refine(*map(_t, (A, B, up, lo, th)), 2, band="wavy")
 
 
 def _search_data(seed, N=64, Nq=7, L=32):
