@@ -27,7 +27,22 @@ window 7), then the search paths beyond 1-NN on the same data:
 - ``quant_path``: ``pq.cdist_sym`` and ``dispatch.adc_lookup`` of the 768
   query codes / tables against the 6144 training codes with int8 and
   bfloat16 tables, each within 2% of the float32 maximum, with their 1-NN
-  accuracy and agreement with float32.
+  accuracy and agreement with float32;
+- ``full_baseline``: the full-width DTW sweep (``dtw_band(mode="full")``,
+  the reference's benchmark baseline) on the adaptive path's 7680 pairs,
+  equal to the band-compressed sweep bit for bit;
+- ``lm_path``: PQ-KV decode serving of internlm2-1.8b at full width (24
+  layers, d_model 2048, vocab 92544) from seeded random weights: batched
+  prefill of 8 prompts of 2048 random tokens, 31 exact greedy decode
+  steps, ``compress_cache`` at position 2048 with ``PQKVConfig()`` (M=8,
+  K=256, W=128), and the same 31 steps with the PQ cache, whose attention
+  runs the ``pq_attn`` kernel over the coded tail in every layer of every
+  step (24 x 31 launches).  On the first PQ step every layer's kernel
+  route is held against its plain route; the exact decode's first step
+  against ``forward`` over the prompt and its token; and on the reduced
+  config the card against the CPU route (prefill, exact and PQ decode).
+  One more step of each decode runs under ``torch.profiler`` (device
+  busy time, idle share, top kernels).
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
@@ -56,7 +71,9 @@ never printed.  Without a CUDA device the script exits non-zero at once.
 launches, CUDA events); ``wrapper_ms`` in the phase line is the whole
 wrapper call, checks included.  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
-tensor cores.
+tensor cores.  ``library_ms`` of ``pq_attn`` is
+``scaled_dot_product_attention`` over the keys reconstructed from the
+codes (exact attention over a cache of the same length), timed only.
 """
 
 from __future__ import annotations
@@ -92,6 +109,12 @@ DELETE_FRAC = 0.05
 ADAPTIVE_WIDTH = 32       # tune.adaptive_width(512, 51) at lane 8
 WARPED_PAIRS = 512        # time-warped pairs for the certificate's check
 QUANT_MAX_REL = 0.02      # quantised ADC: the reference's bound against f32
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+PQ_ROUTE_TOL = 2e-2       # pq_attention_decode kernel vs plain route (bf16)
+PQ_ATTN_TOL = 2e-4        # pq_attn vs its plain version / the oracle
+LOGIT_ATOL = 2e-2         # LM logits, reduced config: card vs CPU route
+LOGIT_CORR = 0.999        # full width: decode step vs forward
 # the slice-1 main path's kernels (each must launch there)
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
@@ -106,6 +129,8 @@ TPU_SITES = {
     "lb_refine_adaptive": "src/repro/kernels/lb_cascade/kernel.py:138",
     "adc_sym_quant": "src/repro/kernels/pq_adc/kernel.py:151",
     "adc_lookup_quant": "src/repro/kernels/pq_adc/kernel.py:170",
+    "pq_attn": "src/repro/kernels/pq_attn/kernel.py:97",
+    "dtw_band_full": "src/repro/kernels/dtw_band/kernel.py:384",
 }
 SOURCES = {
     "dtw_band": "src/repro_torch/kernels/csrc/dtw_band.cu",
@@ -118,6 +143,8 @@ SOURCES = {
     "lb_refine_adaptive": "src/repro_torch/kernels/csrc/lb_cascade.cu",
     "adc_sym_quant": "src/repro_torch/kernels/csrc/pq_adc.cu",
     "adc_lookup_quant": "src/repro_torch/kernels/csrc/pq_adc.cu",
+    "pq_attn": "src/repro_torch/kernels/csrc/pq_attn.cu",
+    "dtw_band_full": "src/repro_torch/kernels/csrc/dtw_band.cu",
 }
 
 _records = []
@@ -177,11 +204,16 @@ def main() -> int:
     ctx["index_launches"] = index_path(torch, _build, ctx, waves)
     ctx["adaptive_launches"] = adaptive_path(torch, _build, ctx, waves)
     ctx["quant_launches"] = quant_path(torch, _build, ctx)
+    ctx["full_launches"] = full_baseline(torch, _build, ctx)
+    ctx["lm"] = lm_path(torch, _build)
     small_reference(torch)
+    small_lm_reference(torch)
     kernels = kernel_phases(torch, ctx)
     kernels.append(lb_refine_phases(torch, ctx, waves))
     kernels += adaptive_kernel_phases(torch, ctx, waves)
     kernels += quant_kernel_phases(torch, ctx)
+    kernels.append(pq_attn_phase(torch, ctx["lm"]))
+    kernels.append(full_kernel_phase(torch, ctx))
     measure_sweep(torch)
     emit({"kernels": kernels})
 
@@ -900,6 +932,388 @@ def quant_kernel_phases(torch, ctx) -> list:
                 codes, qq, qsv, qzv, lookup_out), lookup_out)[1],
             table=table, exact=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The full-width DTW baseline and PQ-KV decode serving of the LM stack
+# ---------------------------------------------------------------------------
+
+def full_baseline(torch, _build, ctx) -> dict:
+    """The reference's benchmark baseline through its entry point, the
+    ops wrapper (``benchmarks/dtw_kernel_bench.py`` calls
+    ``dtw_band(mode="full")`` beside the default sweep): the adaptive
+    path's 7680 pairs at L=512, w=51, both sweeps, equal bit for bit."""
+    from repro_torch.kernels.dtw_band.ops import dtw_band
+    qq, xx, _, _, w, _ = ctx["adaptive_pairs"]
+    seconds = {}
+    _build.reset_launches()
+    for mode in ("full", "compressed"):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        d = dtw_band(qq, xx, w, mode=mode)
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - start
+        ctx[f"baseline_{mode}"] = d
+    launches = dict(_build.LAUNCHES)
+    equal = bool(torch.equal(ctx["baseline_full"], ctx["baseline_compressed"]))
+    check(equal, "full-width sweep equals the band-compressed sweep")
+    check(launches["dtw_band_full"] == 1 and launches["dtw_band"] == 1,
+          f"the baseline path launched both sweeps: {launches}")
+    emit({"phase": "full_baseline", "pairs": list(qq.shape), "window": w,
+          "seconds": seconds, "identical": equal, "launches": launches})
+    return launches
+
+
+def _profile(torch, fn) -> dict:
+    """One call under ``torch.profiler``: its wall time, the device's busy
+    time (kernel durations; one stream, so they do not overlap), the idle
+    share, and the five kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if by_name else None,
+            "idle_share": 1.0 - busy / wall_ms if by_name else None,
+            "kernels": sum(n for _, n in by_name.values()),
+            "top": [{"name": k[:80], "ms": ms, "count": n}
+                    for k, (ms, n) in top]}
+
+
+def _corr(torch, a, b) -> float:
+    return float(torch.corrcoef(torch.stack([a.flatten().double(),
+                                             b.flatten().double()]))[0, 1])
+
+
+def _greedy(torch, logits):
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+
+def lm_path(torch, _build) -> dict:
+    """PQ-KV serving of internlm2-1.8b at full width (module docstring).
+    Returns the launch counts and the first PQ step's layer-0 tensors for
+    the kernel record."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import pqkv
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.prefill import prefill
+
+    cfg = get_config(LM_ARCH)
+    check(cfg.n_layers == 24 and cfg.d_model == 2048, "full width")
+    B, S, n_steps = LM_BATCH, LM_PROMPT, LM_GEN - 1
+    pqc = pqkv.PQKVConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, gen)
+    cache = init_cache(cfg, B, S + LM_GEN)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    seconds, step_ms = {}, {"exact": [], "pq": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    _build.reset_launches()
+    logits, cache = timed("prefill", lambda: prefill(
+        params, cfg, cache, {"tokens": prompt}))
+    check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+    first = _greedy(torch, logits)
+    exact_toks, tok, exact_first = [first], first, None
+    for g in range(n_steps):
+        logits, cache = timed("step", lambda: serve_step(
+            params, cfg, cache, tok, S + g))
+        step_ms["exact"].append(seconds.pop("step") * 1e3)
+        check(bool(torch.isfinite(logits).all()), f"exact step {g} finite")
+        if g == 0:
+            exact_first = logits.clone()
+        tok = _greedy(torch, logits)
+        exact_toks.append(tok)
+    # the exact decode is over: the PQ cache may take its value tensor
+    pq_cache = timed("compress", lambda: pqkv.compress_cache(
+        cache, cfg, pqc, pos=S, generator=torch.Generator().manual_seed(1)))
+
+    # every pq_attention_decode call is counted; on the first PQ step each
+    # layer's kernel route is held against its plain route
+    inner = pqkv.pq_attention_decode
+    calls, route_err, captured = [0], [], {}
+
+    def hooked(q, layer_cache, pos, **kw):
+        out = inner(q, layer_cache, pos, **kw)
+        calls[0] += 1
+        if pos == S:
+            plain = inner(q, layer_cache, pos, route="plain", **kw)
+            diff = (out.float() - plain.float()).abs()
+            route_err.append(float(diff.max()))
+            check(bool((diff <= PQ_ROUTE_TOL
+                        + PQ_ROUTE_TOL * plain.float().abs()).all()),
+                  f"pq_attention_decode layer {len(route_err) - 1}: kernel "
+                  "route within the tolerance of the plain route")
+            if not captured:
+                captured.update(q=q.clone(), pos=pos, layer=pqkv.PQKVCache(
+                    *(t.clone() for t in layer_cache)))
+                # layer 0 sees the exact decode's input: exact attention
+                # over its keys measures what the PQ keys cost
+                keys = cache["k"][0, :, :pos + 1].float()
+                p = torch.softmax(torch.einsum(
+                    "bgrh,bsgh->bgrs", q.float(), keys) * q.shape[-1] ** -0.5,
+                    dim=-1)
+                exact = torch.einsum("bgrs,bsgh->bgrh", p,
+                                     layer_cache.v[:, :pos + 1].float())
+                captured["layer0_rel_err"] = float(
+                    (out.float() - exact).norm() / exact.norm())
+        return out
+
+    pqkv.pq_attention_decode = hooked
+    try:
+        pq_toks, tok, pq_first = [first], first, None
+        for g in range(n_steps):
+            logits, pq_cache = timed("step", lambda: pqkv.pq_serve_step(
+                params, cfg, pq_cache, tok, S + g, pqc=pqc))
+            step_ms["pq"].append(seconds.pop("step") * 1e3)
+            check(bool(torch.isfinite(logits).all()), f"PQ step {g} finite")
+            if g == 0:
+                pq_first = logits.clone()
+            tok = _greedy(torch, logits)
+            pq_toks.append(tok)
+    finally:
+        pqkv.pq_attention_decode = inner
+    launches = dict(_build.LAUNCHES)
+    # one more step of each, profiled: where the device time goes
+    pos = S + n_steps
+    profiles = {
+        "exact": _profile(torch, lambda: serve_step(params, cfg, cache,
+                                                    exact_toks[-1], pos)),
+        "pq": _profile(torch, lambda: pqkv.pq_serve_step(
+            params, cfg, pq_cache, pq_toks[-1], pos, pqc=pqc))}
+    check(len(route_err) == cfg.n_layers, "every layer checked on step 1")
+    check(launches["pq_attn"] == cfg.n_layers * n_steps == calls[0],
+          f"pq_attn launched in every layer of every PQ step: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k != "pq_attn"),
+          f"no other kernel on the LM path: {launches}")
+
+    # exact decode's first step against one forward pass over prompt +
+    # token.  cuBLAS sums an 8-row product in another order than a
+    # 16392-row one, so some bf16 products differ by an ulp, and 24 random
+    # layers amplify that (on the CPU the two are bit-identical): the check
+    # is the logits' correlation, the max difference is printed.
+    full = torch.cat([prompt, first], dim=1)
+    fwd = lm.forward(params, cfg, {"tokens": full}, return_hidden=True)
+    fwd_last = lm.logits_from_hidden(params, cfg, fwd[:, -1:])
+    del fwd
+    fwd_err = float((fwd_last - exact_first).abs().max())
+    fwd_corr = _corr(torch, fwd_last, exact_first)
+    fwd_top1 = float((_greedy(torch, fwd_last)
+                      == _greedy(torch, exact_first)).float().mean())
+    check(fwd_corr >= LOGIT_CORR, f"decode step agrees with forward "
+          f"(logit correlation {fwd_corr})")
+
+    exact_t, pq_t = torch.cat(exact_toks, 1), torch.cat(pq_toks, 1)
+    corr = _corr(torch, pq_first, exact_first)
+    ms = {k: sum(v[1:]) / len(v[1:]) for k, v in step_ms.items()}
+    mem = pqkv.pqkv_memory(cfg, pqc, B, S + LM_GEN)
+    emit({"phase": "lm_path", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": B, "prompt": S,
+          "generated": LM_GEN, "pqkv": dataclasses.asdict(pqc),
+          "seconds": seconds, "decode_ms_per_step": ms,
+          "first_step_ms": {k: v[0] for k, v in step_ms.items()},
+          "decode_tok_per_s": {k: B * 1e3 / v for k, v in ms.items()},
+          "pqkv_memory": mem, "greedy_agreement":
+              float((pq_t == exact_t).float().mean()),
+          "first_step_logit_corr": corr,
+          "decode_vs_forward": {"max_abs_err": fwd_err, "corr": fwd_corr,
+                                "top1_agreement": fwd_top1},
+          "route_max_abs_err": max(route_err),
+          "layer0_pq_attention_rel_err": captured["layer0_rel_err"],
+          "profiled_step": profiles,
+          "routes": {"pq_attention_decode_calls": calls[0],
+                     "pq_attn_launches": launches["pq_attn"]},
+          "launches": launches, "tolerance": {
+              "route": {"rtol": PQ_ROUTE_TOL, "atol": PQ_ROUTE_TOL},
+              "decode_vs_forward": {"corr": LOGIT_CORR}},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return dict(launches=launches, **captured)
+
+
+def small_lm_reference(torch) -> None:
+    """internlm2's reduced config with weights made on the CPU and carried
+    to the card: prefill, 3 exact and 3 PQ decode steps (books fit on the
+    CPU) give the CPU route's tokens, logits within ``LOGIT_ATOL`` and the
+    same PQ codes."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve import pqkv
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.prefill import prefill
+    cfg = get_reduced(LM_ARCH)
+    pqc = pqkv.PQKVConfig(n_sub=4, codebook_size=16, recent_window=8)
+    B, S = 2, 24
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(torch, p_cpu, dev)
+        logits, cache = prefill(params, cfg, init_cache(cfg, B, S + 4, dev),
+                                {"tokens": tokens.to(dev)})
+        if dev == "cpu":
+            books = pqkv.fit_kv_books(cache["k"], pqc,
+                                      torch.Generator().manual_seed(5), S)
+        pq_cache = pqkv.compress_cache(
+            {"k": cache["k"], "v": cache["v"].clone()}, cfg, pqc, pos=S,
+            books=books)
+        out = [logits]
+        tok = pq_tok = _greedy(torch, logits)
+        for g in range(3):
+            logits, cache = serve_step(params, cfg, cache, tok, S + g)
+            pq_logits, pq_cache = pqkv.pq_serve_step(
+                params, cfg, pq_cache, pq_tok, S + g, pqc=pqc)
+            out += [logits, pq_logits]
+            tok, pq_tok = _greedy(torch, logits), _greedy(torch, pq_logits)
+        runs[dev] = ([t.cpu() for t in out], pq_cache.k_codes.cpu())
+    errs = [float((a - b).abs().max())
+            for a, b in zip(runs["cpu"][0], runs["cuda"][0])]
+    codes_equal = bool(torch.equal(runs["cpu"][1], runs["cuda"][1]))
+    emit({"phase": "small_lm_reference", "arch": cfg.name,
+          "logits_max_abs_err": max(errs), "pq_codes_identical": codes_equal,
+          "tolerance": {"atol": LOGIT_ATOL}})
+    check(max(errs) <= LOGIT_ATOL, "small LM: card logits within the "
+          "tolerance of the CPU route")
+    check(codes_equal, "small LM: PQ codes identical on card and CPU")
+
+
+def _to(torch, x, dev):
+    """A parameter tree (NamedTuples and tuples of tensors) on ``dev``."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.to(dev)
+    if hasattr(x, "_fields"):
+        return type(x)(*(_to(torch, f, dev) for f in x))
+    return tuple(_to(torch, f, dev) for f in x)
+
+
+def pq_attn_phase(torch, lm) -> dict:
+    """Row 11 on the first PQ step's layer-0 tensors (B=8, tail 1921,
+    G=8, R=2, M=8, K=256, Dv=128): with the serving path's bf16 table,
+    uint8 codes and bf16 values against its plain version (timed), and
+    with a float32 table and values against the reference's oracle
+    (dequantise, then exact softmax), both within ``PQ_ATTN_TOL``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.pq_attn.ops import (launch_pq_attn, pq_attn,
+                                                 pq_attn_decode)
+    from repro_torch.kernels.pq_attn.ref import (pq_attn_decode_ref,
+                                                 pq_attn_lut_ref,
+                                                 reconstruct_keys)
+    from repro_torch.serve import pqkv
+    q, pos, layer = lm["q"], lm["pos"], lm["layer"]
+    B, G, R, hd = q.shape
+    codes, books, v = layer.k_codes, layer.k_books, layer.v
+    M, K = books.shape[1], books.shape[2]
+    H, W = G * R, layer.k_recent.shape[1]
+    n = pos - W + 1
+    scale = hd ** -0.5
+    qlut = pqkv._query_table(q, books).reshape(B, H, M, K).contiguous()
+    got = pq_attn(qlut, codes, v, n, scale)
+    torch.cuda.synchronize()
+    want, plain_ms = _sync_ms(torch, lambda: pq_attn_lut_ref(
+        qlut, codes, v, n, scale))
+    serve_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    serve_ok = all(bool(torch.allclose(a, b, rtol=PQ_ATTN_TOL,
+                                       atol=PQ_ATTN_TOL))
+                   for a, b in zip(got, want))
+    q32 = q.float().reshape(B, H, hd)
+    codes32, v32 = codes.to(torch.int32), v.float()
+    got32 = pq_attn_decode(q32, codes32, books, v32, valid_len=n)
+    want32 = pq_attn_decode_ref(q32, codes32, books, v32, valid_len=n)
+    max_abs = float((got32 - want32).abs().max())
+    ok32 = bool(torch.allclose(got32, want32, rtol=PQ_ATTN_TOL,
+                               atol=PQ_ATTN_TOL))
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    ms = _mean_ms(torch, lambda: launch_pq_attn(qlut, codes, v, n, scale,
+                                                out, m, l), REPS)
+    check(torch.equal(out, got[0]), "pq_attn: the launch alone equals the "
+          "wrapper")
+    wrapper_ms = _mean_ms(torch, lambda: pq_attn(qlut, codes, v, n, scale),
+                          REPS)
+    keys = reconstruct_keys(codes[:, :n], books).to(torch.bfloat16)
+    kh = keys.permute(0, 2, 1, 3).contiguous()            # (B, G, n, hd)
+    vh = v[:, :n].permute(0, 2, 1, 3).contiguous()
+    qh = q.reshape(B, H, 1, hd)
+    library_ms = _mean_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, enable_gqa=True), REPS)
+    nbytes = (B * n * G * (M + hd * v.element_size())
+              + qlut.numel() * qlut.element_size() + B * H * (hd + 2) * 4)
+    ops = B * H * n * (M + 4 + 2 * hd)
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = {"name": "pq_attn", "route": "cuda", "source": SOURCES["pq_attn"],
+           "replaces": TPU_SITES["pq_attn"],
+           "launches": lm["launches"]["pq_attn"], "max_abs_err": max_abs,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "kernel", **row, "shapes": {
+              "batch": B, "tail": n, "groups": G, "reps": R, "M": M, "K": K,
+              "Dv": hd, "table": str(qlut.dtype), "codes": str(codes.dtype),
+              "values": str(v.dtype)},
+          "wrapper_ms": wrapper_ms, "serving_types_max_abs_err": serve_err,
+          "agrees": ok32 and serve_ok, "in_table": True,
+          "tolerance": {"rtol": PQ_ATTN_TOL, "atol": PQ_ATTN_TOL}})
+    check(serve_ok, "pq_attn (bf16 table, uint8 codes, bf16 values) agrees "
+          "with its plain version")
+    check(ok32, "pq_attn (float32) agrees with the dequantise-then-softmax "
+          "oracle")
+    return row
+
+
+def full_kernel_phase(torch, ctx) -> dict:
+    """Row 12 on the 7680 pairs at L=512, w=51: identical to its plain
+    version (the reference kernel's sweep) and to row 1 on the same pairs;
+    its bound is row 1's (the same banded function)."""
+    from repro_torch.kernels.dtw_band.ops import launch_dtw_band_full
+    from repro_torch.kernels.dtw_band.ref import dtw_band_full_ref
+    qq, xx, _, _, w, _ = ctx["adaptive_pairs"]
+    n, L = qq.shape
+    got = ctx["baseline_full"]
+    want, plain_ms = _sync_ms(torch, lambda: dtw_band_full_ref(qq, xx, w))
+    ok = bool(torch.equal(got, want))
+    out = torch.empty(n, dtype=torch.float32, device=qq.device)
+    ms = _mean_ms(torch, lambda: launch_dtw_band_full(qq, xx, w, out), REPS)
+    check(torch.equal(out, got), "dtw_band_full: the launch alone equals "
+          "the wrapper")
+    bound_ms, bound_by = bound((2 * n * L + n) * 4,
+                               n * band_cells(L, w) * DTW_OPS_PER_CELL)
+    row = {"name": "dtw_band_full", "route": "cuda",
+           "source": SOURCES["dtw_band_full"],
+           "replaces": TPU_SITES["dtw_band_full"],
+           "launches": ctx["full_launches"]["dtw_band_full"],
+           "max_abs_err": float((got - want).abs().max()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    emit({"phase": "kernel", **row, "shapes": {"pairs": [n, L], "window": w},
+          "equals_dtw_band": bool(torch.equal(got,
+                                              ctx["baseline_compressed"])),
+          "agrees": ok, "in_table": True, "tolerance": "identical"})
+    check(ok, "dtw_band_full equals its plain version")
+    return row
 
 
 # ---------------------------------------------------------------------------

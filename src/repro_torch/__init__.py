@@ -11,11 +11,18 @@ Entry points (``fit``, ``encode``, ``cdist_sym``, ``cdist_asym``,
 passes ``device="cpu"``; with no card and no explicit CPU request they
 raise.
 
+The LM stack (``models``, ``serve``, ``launch.serve``) runs the dense
+family and its PQ-compressed KV cache on the card, its decode attention
+through the ``pq_attn`` kernel.
+
 Float32 products on the card stay in full float32: TF32 would break the
-parity of ``euclidean_sq`` and of every ADC sum with the reference.
+parity of ``euclidean_sq`` and of every ADC sum with the reference.  bf16
+products accumulate in float32 without reduced-precision partial sums,
+as the reference's ``preferred_element_type`` products do.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

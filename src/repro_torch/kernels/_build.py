@@ -46,7 +46,8 @@ FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", ARCH,
 
 KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
            "prealign_encode", "lb_refine", "dtw_band_adaptive",
-           "lb_refine_adaptive", "adc_sym_quant", "adc_lookup_quant")
+           "lb_refine_adaptive", "adc_sym_quant", "adc_lookup_quant",
+           "pq_attn", "dtw_band_full")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -66,6 +67,8 @@ _SIGNATURES = {
     "pq_lb_refine_adaptive": [_P] * 10 + [_I] * 5 + [_P],
     "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],
     "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
+    "pq_attn": [_P] * 6 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
+    "pq_dtw_band_full": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 
@@ -159,6 +162,8 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.pq_error_string.argtypes = [ctypes.c_int]
         handle.pq_error_string.restype = ctypes.c_char_p
+        handle.pq_attn_smem_bytes.argtypes = [ctypes.c_int] * 5
+        handle.pq_attn_smem_bytes.restype = ctypes.c_size_t
         _lib = handle
     return _lib
 

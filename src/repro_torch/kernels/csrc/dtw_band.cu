@@ -3,9 +3,10 @@
 // Replaces repro/kernels/dtw_band/kernel.py::dtw_band_compressed_kernel as
 // launched by make_dtw_band_call (mode="compressed", zipped pairs
 // (N,L) x (N,L) -> (N,)) and by make_dtw_band_cdist_call (broadcast_b,
-// all pairs (N,L) x (M,L) -> (N,M)), and dtw_band_adaptive_kernel
+// all pairs (N,L) x (M,L) -> (N,M)), dtw_band_adaptive_kernel
 // (mode="adaptive": zipped pairs inside per-pair corridors lo, hi
-// (N, 2L-1) int32 with a register cap W -> (N,)).
+// (N, 2L-1) int32 with a register cap W -> (N,)), and dtw_band_kernel
+// (mode="full", the DTW-only full-width baseline, below).
 //
 // One thread sweeps one pair with pqdtw::band_cost (wavefront.cuh, which
 // says what bounds the DP and why).  Threads walk the pairs grid-stride,
@@ -79,6 +80,63 @@ __global__ void dtw_band_adaptive_kernel(const float* __restrict__ A,
        q += step) {
     out[q] = pqdtw::corridor_cost<MEAS>(A + q * L, B + q * L, lo + q * D,
                                         hi + q * D, L, W, wt, row, stride);
+  }
+}
+
+// Full-width sweep: replaces dtw_band_kernel (repro/kernels/dtw_band/
+// kernel.py:92, make_dtw_band_call(mode="full")), the reference's legacy
+// benchmark baseline.  As there, every anti-diagonal d is swept over all
+// L rows i, and the band |i - j| <= w is only a mask: a pair costs
+// (2L-1) * L cell updates against band_cost's L * (2w+1), which is the
+// point of keeping it (the baseline the band-compressed sweep is measured
+// against).  One thread owns one pair and keeps diagonals d-1 and d-2
+// (L floats each, addressed as in band_row); diagonal d overwrites d-2
+// with i descending, so cell i still reads d-2's slot i-1 and d-1's
+// slots i and i-1.  The cell is the reference's, contracted by XLA as
+// dtw's is: __fmaf_rn(diff, diff, min(diag, horizontal, vertical)),
+// clamped at 3e38, so the result equals band_cost's to the bit.  It
+// reads each cell's predecessors from memory, so it is bound by that
+// latency, not by HBM.
+__global__ void dtw_band_full_kernel(const float* __restrict__ A,
+                                     const float* __restrict__ B,
+                                     float* __restrict__ out, float* scratch,
+                                     int n, int L, int w) {
+  float* row;
+  int stride;
+  band_row(scratch, &row, &stride);
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n;
+       q += step) {
+    const float* a = A + q * L;
+    const float* b = B + q * L;
+    float* prev1 = row;                         // diagonal d-1
+    float* prev2 = row + (size_t)L * stride;    // d-2, overwritten by d
+    for (int i = 0; i < L; ++i) {
+      prev1[(size_t)i * stride] = pqdtw::kInf;
+      prev2[(size_t)i * stride] = pqdtw::kInf;
+    }
+    for (int d = 0; d < 2 * L - 1; ++d) {
+      float h = prev1[(size_t)(L - 1) * stride];  // (i, j-1): d-1, slot i
+      for (int i = L - 1; i >= 0; --i) {
+        const int j = d - i;
+        const float v = i > 0 ? prev1[(size_t)(i - 1) * stride]
+                              : pqdtw::kInf;      // (i-1, j): d-1, slot i-1
+        const float dg = i > 0 ? prev2[(size_t)(i - 1) * stride]
+                               : pqdtw::kInf;     // (i-1, j-1): d-2
+        float cell = pqdtw::kInf;
+        if (j >= 0 && j < L && abs(i - j) <= w) {
+          const float best = (d == 0) ? 0.f : fminf(fminf(dg, h), v);
+          const float df = a[i] - b[j];
+          cell = fminf(__fmaf_rn(df, df, best), pqdtw::kInf);
+        }
+        prev2[(size_t)i * stride] = cell;
+        h = v;
+      }
+      float* t = prev1;
+      prev1 = prev2;
+      prev2 = t;
+    }
+    out[q] = prev1[(size_t)(L - 1) * stride];
   }
 }
 
@@ -161,6 +219,16 @@ int pq_dtw_band_adaptive(const float* A, const float* B, const int* lo,
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+int pq_dtw_band_full(const float* A, const float* B, float* out,
+                     float* scratch, int n, int L, int w, int threads,
+                     int blocks, void* stream) {
+  const size_t smem = pqdtw::state_smem_bytes(scratch, threads, 2 * L);
+  dtw_band_full_kernel<<<blocks, threads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      A, B, out, scratch, n, L, w);
   return (int)cudaGetLastError();
 }
 

@@ -22,11 +22,12 @@ from .. import _build
 from ...core import measures
 from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
-from .ref import dtw_band_adaptive_ref, dtw_band_cdist_ref, dtw_band_ref
+from .ref import (dtw_band_adaptive_ref, dtw_band_cdist_ref,
+                  dtw_band_full_ref, dtw_band_ref)
 
 __all__ = ["dtw_band", "dtw_band_cdist", "dtw_band_adaptive",
-           "launch_dtw_band_adaptive", "band_geometry", "band_width",
-           "check_corridor"]
+           "launch_dtw_band_adaptive", "launch_dtw_band_full",
+           "band_geometry", "band_width", "check_corridor"]
 
 _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
@@ -87,14 +88,27 @@ def _measure_args(spec: measures.MeasureSpec, L: int, dev: torch.device):
 
 
 def dtw_band(A: torch.Tensor, B: torch.Tensor, window: Optional[int] = None,
-             measure: MeasureArg = None) -> torch.Tensor:
+             measure: MeasureArg = None,
+             mode: str = "compressed") -> torch.Tensor:
     """Banded elastic cost over zipped pairs: ``A (N, L)``, ``B (N, L)`` ->
-    ``(N,)`` (squared banded DTW under the default measure)."""
+    ``(N,)`` (squared banded DTW under the default measure).
+
+    ``mode="full"`` runs the reference's full-width sweep instead (every
+    anti-diagonal over all ``L`` rows, the band only a mask): its
+    DTW-only benchmark baseline, equal to the default sweep to the bit."""
     spec = measures.resolve(measure)
     A, B = _series(A, "A"), _series(B, "B")
     if A.shape != B.shape:
         raise ValueError(f"zipped pairs need equal shapes, got "
                          f"{tuple(A.shape)} and {tuple(B.shape)}")
+    if mode == "full":
+        if spec.name != "dtw":
+            raise ValueError(
+                "mode='full' is the legacy DTW-only benchmark baseline; "
+                f"measure {spec.name!r} requires mode='compressed'")
+        return _dtw_band_full(A, B, window)
+    if mode != "compressed":
+        raise ValueError(f"unknown dtw_band mode: {mode!r}")
     dev = _build.kernel_device(A, B)
     if dev is None:
         return dtw_band_ref(A, B, window, spec)
@@ -114,6 +128,35 @@ def dtw_band(A: torch.Tensor, B: torch.Tensor, window: Optional[int] = None,
     _build.check(status, "dtw_band")
     _build.count_launch("dtw_band")
     return out
+
+
+def _dtw_band_full(A: torch.Tensor, B: torch.Tensor,
+                   window: Optional[int]) -> torch.Tensor:
+    dev = _build.kernel_device(A, B)
+    if dev is None:
+        return dtw_band_full_ref(A, B, window)
+    out = torch.empty(A.shape[0], dtype=torch.float32, device=dev)
+    launch_dtw_band_full(A, B, effective_window(A.shape[1], window), out)
+    return out
+
+
+def launch_dtw_band_full(A: torch.Tensor, B: torch.Tensor, w: int,
+                         out: torch.Tensor) -> None:
+    """The full-width launch alone, into ``out (N,)``, for contiguous
+    float32 ``A, B (N, L)`` on one CUDA device and the effective band
+    ``w``.  Each thread keeps two diagonals (``2L`` floats), in shared
+    memory or device scratch as :func:`row_geometry` decides."""
+    n, L = A.shape
+    if n > _INT_MAX:
+        raise ValueError(f"{n} pairs exceed one launch")
+    if n == 0:
+        return
+    threads, blocks, scratch = row_geometry(n, 2 * L, A.device)
+    status = _build.lib().pq_dtw_band_full(
+        A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(scratch), n,
+        L, w, threads, blocks, _build.stream(A.device))
+    _build.check(status, "dtw_band_full")
+    _build.count_launch("dtw_band_full")
 
 
 def dtw_band_cdist(A: torch.Tensor, B: torch.Tensor,

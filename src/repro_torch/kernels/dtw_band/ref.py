@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ``dtw_band`` kernels: the batched
 anti-diagonal sweep of :mod:`repro_torch.core.dtw` for the static band,
-and the corridor sweep of the reference's ``wavefront_compressed`` for
-the adaptive one."""
+the corridor sweep of the reference's ``wavefront_compressed`` for the
+adaptive one, and the reference's full-width DTW sweep (``mode="full"``)
+for its baseline."""
 
 from __future__ import annotations
 
@@ -10,11 +11,12 @@ from typing import Optional
 import torch
 
 from ...core import measures
+from ...core.dispatch import effective_window
 from ...core.dtw import dtw_batch, dtw_cdist
 from ...core.measures import MeasureArg
 
 __all__ = ["dtw_band_ref", "dtw_band_cdist_ref", "dtw_band_adaptive_ref",
-           "prefix_sum"]
+           "dtw_band_full_ref", "prefix_sum"]
 
 INF_STANDIN = 3.0e38  # the reference's finite +inf of the compressed sweep
 
@@ -29,6 +31,42 @@ def dtw_band_cdist_ref(A: torch.Tensor, B: torch.Tensor,
                        window: Optional[int] = None,
                        measure: MeasureArg = None) -> torch.Tensor:
     return dtw_cdist(A, B, window, measure=measure)
+
+
+def dtw_band_full_ref(A: torch.Tensor, B: torch.Tensor,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Squared banded DTW of zipped pairs ``A, B (N, L)`` -> ``(N,)`` by
+    the reference's full-width sweep (``dtw_band_kernel``): every
+    anti-diagonal ``d`` holds all ``L`` rows, slot ``i`` being cell
+    ``(i, d - i)``, and the band is only a mask.  The cell is
+    ``fma(x - y, x - y, min(diag, horizontal, vertical))`` (the reference's
+    compiler contracts it), with the finite ``3e38`` for +inf, clamped."""
+    A = A.to(torch.float32)
+    B = B.to(torch.float32)
+    N, L = A.shape
+    w = effective_window(L, window)
+    dev = A.device
+    idx = torch.arange(L, device=dev)[None, :]
+    zeros = torch.zeros((N, L), dtype=torch.float32, device=dev)
+    b_big = torch.cat([zeros, B.flip(1), zeros], dim=1)
+    inf = torch.tensor(INF_STANDIN, dtype=torch.float32, device=dev)
+    prev1 = torch.full((N, L), INF_STANDIN, dtype=torch.float32, device=dev)
+    prev2 = prev1
+    inf_col = torch.full((N, 1), INF_STANDIN, dtype=torch.float32,
+                         device=dev)
+    for d in range(2 * L - 1):
+        j = d - idx
+        valid = (j >= 0) & (j < L) & ((idx - j).abs() <= w)
+        v = b_big[:, 2 * L - 1 - d:3 * L - 1 - d]          # b[d - i]
+        shift1 = torch.cat([inf_col, prev1[:, :-1]], dim=1)
+        shift2 = torch.cat([inf_col, prev2[:, :-1]], dim=1)
+        best = torch.minimum(torch.minimum(shift2, prev1), shift1)
+        if d == 0:
+            best = torch.where(idx == 0, 0.0, best)
+        diff = A - v
+        cell = torch.where(valid, measures.fma(diff, diff, best), inf)
+        prev1, prev2 = torch.minimum(cell, inf), prev1
+    return prev1[:, L - 1]
 
 
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:

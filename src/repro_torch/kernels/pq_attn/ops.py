@@ -1,0 +1,158 @@
+"""Wrappers of the PQ attention CUDA kernel (``csrc/pq_attn.cu``).
+
+A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+the kernel or raises.  :func:`pq_attn` is the kernel's own interface (a
+query table, codes, values, ``valid_len``) and returns the running max and
+denominator beside the output, so a caller can merge another softmax piece
+(the PQ-KV cache's exact ring).  :func:`pq_attn_decode` keeps the
+reference's signature (a query and codebooks) and builds the float32 table
+itself.  :func:`launch_pq_attn` is the launch alone, on checked inputs;
+it counts as ``pq_attn``.
+
+The kernel reads the table as float32 or bf16, codes as uint8 or int32,
+values as float32 or bf16, each in the type given.  Codes must lie in
+``[0, K)`` (the kernel clamps, so a bad code gives a wrong score, never a
+fault); they come from :func:`encode_keys` or the cache, so they are not
+read back to check.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .ref import pq_attn_lut_ref
+
+__all__ = ["build_qlut", "encode_keys", "pq_attn", "launch_pq_attn",
+           "pq_attn_decode"]
+
+_SMEM_MAX = 227 * 1024
+_MAX_REPS = 8        # heads per KV group (pq_attn.cu: kMaxR)
+_TABLE_TYPES = (torch.float32, torch.bfloat16)
+_CODE_TYPES = (torch.uint8, torch.int32)
+_VALUE_TYPES = (torch.float32, torch.bfloat16)
+
+
+def build_qlut(q: torch.Tensor, k_books: torch.Tensor) -> torch.Tensor:
+    """ADC tables: ``q (..., H, D)``, ``k_books (G, M, K, D/M)`` ->
+    ``(..., H, M, K)`` with ``qlut[h, m, k] = q[h, m-th slice] .
+    k_books[group(h), m, k]``."""
+    G, M, K, Ds = k_books.shape
+    *lead, H, D = q.shape
+    qr = q.reshape(*lead, G, H // G, M, Ds)
+    return torch.einsum("...grmd,gmkd->...grmk", qr,
+                        k_books).reshape(*lead, H, M, K)
+
+
+def encode_keys(k: torch.Tensor, k_books: torch.Tensor) -> torch.Tensor:
+    """Quantise keys: ``k (S, G, D)``, books ``(G, M, K, D/M)`` ->
+    ``(S, G, M)`` int32, the Euclidean nearest codeword per subspace
+    (first index on ties)."""
+    S, G, D = k.shape
+    _, M, K, Ds = k_books.shape
+    ks = k.reshape(S, G, M, Ds)
+    d2 = ((ks ** 2).sum(-1)[..., None]
+          - 2.0 * torch.einsum("sgmd,gmkd->sgmk", ks, k_books)
+          + (k_books ** 2).sum(-1)[None])
+    return torch.argmin(d2, dim=-1).to(torch.int32)
+
+
+def _check(qlut, codes, v, valid_len):
+    if qlut.dim() != 4 or codes.dim() != 4 or v.dim() != 4:
+        raise ValueError("pq_attn takes qlut (B, H, M, K), codes (B, S, G, "
+                         "M) and v (B, S, G, Dv)")
+    B, H, M, K = qlut.shape
+    _, S, G, _ = codes.shape
+    if (codes.shape[0] != B or codes.shape[3] != M or v.shape[:3] != (B, S, G)
+            or H % G):
+        raise ValueError(f"pq_attn shapes disagree: qlut {tuple(qlut.shape)}, "
+                         f"codes {tuple(codes.shape)}, v {tuple(v.shape)}")
+    if not 0 <= valid_len <= S:
+        raise ValueError(f"valid_len={valid_len} outside [0, {S}]")
+
+
+def launch_pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
+                   valid_len: int, scale: float, out: torch.Tensor,
+                   m: torch.Tensor, l: torch.Tensor) -> None:
+    """Launch the kernel into ``out (B, H, Dv)``, ``m, l (B, H)`` float32:
+    contiguous inputs of the kernel's types on one CUDA device, checked by
+    :func:`pq_attn`."""
+    B, H, M, K = qlut.shape
+    _, S, G, _ = codes.shape
+    Dv = v.shape[-1]
+    status = _build.lib().pq_attn(
+        qlut.data_ptr(), codes.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), B, S, G, H // G, M, K, Dv,
+        int(valid_len), float(scale), int(qlut.dtype == torch.bfloat16),
+        int(codes.dtype == torch.uint8), int(v.dtype == torch.bfloat16),
+        _build.stream(out.device))
+    _build.check(status, "pq_attn")
+    _build.count_launch("pq_attn")
+
+
+def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
+            valid_len: int, scale: float):
+    """Softmax attention of the table's heads over the first ``valid_len``
+    coded positions: ``qlut (B, H, M, K)``, ``codes (B, S, G, M)``, ``v
+    (B, S, G, Dv)`` -> ``(out (B, H, Dv), m (B, H), l (B, H))`` float32,
+    ``m`` the largest score and ``l = sum exp(score - m)``."""
+    valid_len = int(valid_len)
+    _check(qlut, codes, v, valid_len)
+    dev = _build.kernel_device(qlut, codes, v)
+    if dev is None:
+        return pq_attn_lut_ref(qlut, codes, v, valid_len, scale)
+    if (qlut.dtype not in _TABLE_TYPES or codes.dtype not in _CODE_TYPES
+            or v.dtype not in _VALUE_TYPES):
+        raise ValueError(f"pq_attn kernel takes float32/bf16 tables, "
+                         f"uint8/int32 codes and float32/bf16 values, got "
+                         f"{qlut.dtype}, {codes.dtype}, {v.dtype}")
+    B, H, M, K = qlut.shape
+    G, Dv = codes.shape[2], v.shape[-1]
+    if H // G > _MAX_REPS or Dv % 4 or not 4 <= Dv <= 512:
+        raise ValueError(f"pq_attn kernel takes at most {_MAX_REPS} heads "
+                         f"per group and a value width in [4, 512] divisible "
+                         f"by 4, got {H // G} and {Dv}")
+    smem = _build.lib().pq_attn_smem_bytes(
+        H // G, M, K, Dv, int(qlut.dtype == torch.bfloat16))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"pq_attn needs {smem} bytes of shared memory per "
+                         f"block, over the card's {_SMEM_MAX}")
+    qlut, codes, v = qlut.contiguous(), codes.contiguous(), v.contiguous()
+    if v.data_ptr() % (4 * v.element_size()):
+        raise ValueError("pq_attn reads values 4 at a time: their storage "
+                         "must be aligned to 4 elements")
+    out = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, H), dtype=torch.float32, device=dev)
+    if B * G:
+        launch_pq_attn(qlut, codes, v, valid_len, scale, out, m, l)
+    return out, m, l
+
+
+def pq_attn_decode(q: torch.Tensor, k_codes: torch.Tensor,
+                   k_books: torch.Tensor, v: torch.Tensor,
+                   valid_len: Optional[int] = None,
+                   return_stats: bool = False):
+    """Approximate decode attention against a PQ-compressed key cache.
+
+    ``q ([B,] H, D)``, ``k_codes ([B,] S, G, M)`` (uint8 or int32),
+    ``k_books (G, M, K, D/M)``, ``v ([B,] S, G, Dv)``; ``valid_len`` real
+    cache entries (default ``S``).  Returns ``([B,] H, Dv)`` float32 and,
+    with ``return_stats``, the running max and denominator ``([B,] H)``.
+    The query table is built in float32."""
+    batched = q.dim() == 3
+    if not batched:
+        q, k_codes, v = q[None], k_codes[None], v[None]
+    D = q.shape[-1]
+    S = k_codes.shape[1]
+    qlut = build_qlut(q.float(), k_books.float())
+    codes = (k_codes if k_codes.dtype in _CODE_TYPES
+             else k_codes.to(torch.int32))
+    out, m, l = pq_attn(qlut, codes, v, S if valid_len is None else valid_len,
+                        1.0 / (D ** 0.5))
+    if not batched:
+        out, m, l = out[0], m[0], l[0]
+    return (out, m, l) if return_stats else out

@@ -1,0 +1,268 @@
+"""Transformer building blocks, dense subset (counterpart of
+:mod:`repro.models.layers`).
+
+Numerics follow the reference op by op, because its values are what the
+port is held to:
+
+* every weight product is bf16 x bf16 accumulated in float32 and rounded
+  once to bf16 (:func:`_dot`); a bias is added to that in float32 and the
+  sum rounded again;
+* attention scores are the bf16 operands' products summed in float32
+  (bf16 values are exact in float32, so a float32 product of the upcast
+  operands is the same sum), softmax runs on float32 scores, and the
+  probabilities are rounded to bf16 before the value product;
+* ``rms_norm`` reduces in float32 and multiplies in the input dtype, one
+  rounding per op;
+* RoPE tables: the frequencies are ``theta ** -(t / half)`` rounded once
+  from float64 (the reference's ``pow`` is correctly rounded, and it turns
+  ``/ half`` into ``* (1 / half)``); ``cos`` and ``sin`` are float64
+  rounded to float32.  The reference's compiler approximates ``cos`` and
+  ``sin``, one float32 ulp off the correctly rounded value on some table
+  entries, which stays below a bf16 ulp of the rotated activations almost
+  always.
+
+Parameters are NamedTuples of tensors with the reference's field names;
+weight matrices and norm scales may be stored in bf16 (every use in the
+reference casts them to bf16 first), biases stay float32 (the reference
+adds them in float32).  Attention activations keep the GQA layout
+``(B, S, G, R, hd)``.  The sharding hints of the reference have no
+counterpart on one card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+__all__ = ["rms_norm", "softcap", "rotary", "apply_rope", "AttnParams",
+           "init_attn", "attention", "attention_decode", "MlpParams",
+           "init_mlp", "mlp", "normal_weight"]
+
+_NEG_INF = -2.0e38
+BF16 = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm: float32 variance, then ``x * inv * (1 + scale)`` in the
+    input dtype, rounded after every op as the reference is."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + scale.to(x.dtype))
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping: ``cap * tanh(x / cap)``."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def rotary(positions: torch.Tensor, head_dim: int, theta: float
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables: ``positions (..., S)`` -> ``(..., S, hd/2)`` each."""
+    half = head_dim // 2
+    dev = positions.device
+    expo = -(torch.arange(half, dtype=torch.float32, device=dev)
+             * torch.tensor(1.0 / half, dtype=torch.float32))
+    base = torch.tensor(theta, dtype=torch.float32).double()
+    freqs = torch.pow(base, expo.double()).float()
+    ang = positions.float()[..., None] * freqs
+    ang = ang.double()
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """``x (B, S, ..., hd)`` rotated by position tables ``(B, S, hd/2)``."""
+    half = x.shape[-1] // 2
+    for _ in range(x.dim() - cos.dim()):
+        cos = cos[..., None, :]
+        sin = sin[..., None, :]
+    xf1 = x[..., :half].float()
+    xf2 = x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor            # (d, H*hd)
+    wk: torch.Tensor            # (d, G*hd)
+    wv: torch.Tensor            # (d, G*hd)
+    wo: torch.Tensor            # (H*hd, d)
+    bq: Optional[torch.Tensor]  # (H*hd,) float32 or None
+    bk: Optional[torch.Tensor]
+    bv: Optional[torch.Tensor]
+
+
+def normal_weight(generator: torch.Generator, shape, device: torch.device,
+                  dtype: torch.dtype = BF16) -> torch.Tensor:
+    """``N(0, 1) * 0.02`` drawn in float32 on the generator's device, as
+    the reference's initialiser, stored in ``dtype`` on ``device``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device).mul_(0.02)
+    return w.to(device=device, dtype=dtype)
+
+
+def init_attn(generator: torch.Generator, cfg: ModelConfig,
+              device: torch.device) -> AttnParams:
+    d = cfg.d_model
+    hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+
+    def bias(n):
+        return (torch.zeros(n, dtype=torch.float32, device=device)
+                if cfg.qkv_bias else None)
+
+    return AttnParams(
+        wq=normal_weight(generator, (d, H * hd), device),
+        wk=normal_weight(generator, (d, G * hd), device),
+        wv=normal_weight(generator, (d, G * hd), device),
+        wo=normal_weight(generator, (H * hd, d), device),
+        bq=bias(H * hd), bk=bias(G * hd), bv=bias(G * hd))
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bf16 product, float32 accumulation, one rounding to bf16 (the
+    reference's ``preferred_element_type=bf16``).  A float32 bias is added
+    to that bf16 result in float32 (the reference's type promotion), and
+    the sum is rounded to bf16 again."""
+    y = torch.matmul(x.to(BF16), w.to(BF16))
+    if bias is not None:
+        y = (y.float() + bias).to(BF16)
+    return y
+
+
+def _qkv(p: AttnParams, cfg: ModelConfig, x: torch.Tensor, cos, sin):
+    B, S, _ = x.shape
+    hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    R = H // G
+    q = _dot(x, p.wq, p.bq).reshape(B, S, G, R, hd)
+    k = _dot(x, p.wk, p.bk).reshape(B, S, G, hd)
+    v = _dot(x, p.wv, p.bv).reshape(B, S, G, hd)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _attend_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float, cap: float, mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """``q_blk (B, Qc, G, R, hd)``, ``k/v (B, S, G, hd)``, ``mask (Qc, S)``
+    or ``(B, Qc, S)`` -> ``(B, Qc, G, R, hd)``."""
+    scores = torch.einsum("bqgrh,bkgh->bgrqk", q_blk.to(BF16).float(),
+                          k.to(BF16).float()) * scale
+    scores = softcap(scores, cap)
+    mask_b = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+    scores.masked_fill_(~mask_b, _NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(BF16)
+    del scores
+    return torch.einsum("bgrqk,bkgh->bqgrh", p, v.to(BF16))
+
+
+def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, q_chunk: int = 512,
+              cos_sin: Optional[Tuple] = None,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Causal full-sequence attention (prefill), query-chunked: each chunk
+    of ``q_chunk`` queries attends to all ``S`` keys under the causal mask,
+    so one chunk's float32 scores ``(B, G, R, q_chunk, S)`` are the largest
+    transient.  ``kv=(k, v)`` passes keys (roped) and values already
+    projected from ``x``, as prefill does to fill its cache."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    if cfg.local_global or cfg.sliding_window:
+        raise NotImplementedError(
+            "gemma2-style local/global attention is not ported")
+    scale = hd ** -0.5
+    if cos_sin is None:
+        cos_sin = rotary(positions, hd, cfg.rope_theta)
+    cos, sin = cos_sin
+    if kv is None:
+        q, k, v = _qkv(p, cfg, x, cos, sin)
+    else:
+        G = cfg.n_kv_heads
+        q = _dot(x, p.wq, p.bq).reshape(B, S, G, cfg.n_heads // G, hd)
+        q = apply_rope(q, cos, sin)
+        k, v = kv
+    nc = S // q_chunk if (S % q_chunk == 0 and S > q_chunk) else 1
+    qc = S // nc
+    kpos = torch.arange(S, device=x.device)
+    outs = []
+    for c in range(nc):
+        qpos = c * qc + torch.arange(qc, device=x.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        outs.append(_attend_block(q[:, c * qc:(c + 1) * qc], k, v,
+                                  scale=scale, cap=cfg.attn_softcap,
+                                  mask=mask))
+    out = torch.cat(outs, dim=1) if nc > 1 else outs[0]
+    return _dot(out.reshape(B, S, cfg.n_heads * hd), p.wo)
+
+
+def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int, *, cos_sin: Optional[Tuple] = None
+                     ) -> torch.Tensor:
+    """One-token decode: ``x (B, 1, d)``; caches ``(B, Smax, G, hd)``,
+    written at ``pos`` in place (the reference's one-hot select exists only
+    for its sharded cache).  Returns ``out (B, 1, d)``."""
+    B = x.shape[0]
+    hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    Smax = k_cache.shape[1]
+    if cos_sin is None:
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        cos_sin = rotary(positions, hd, cfg.rope_theta)
+    cos, sin = cos_sin
+    q = apply_rope(_dot(x, p.wq, p.bq).reshape(B, 1, G, H // G, hd),
+                   cos, sin)
+    k_new = apply_rope(_dot(x, p.wk, p.bk).reshape(B, 1, G, hd), cos, sin)
+    v_new = _dot(x, p.wv, p.bv).reshape(B, 1, G, hd)
+    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    mask = torch.arange(Smax, device=x.device) <= pos
+    out = _attend_block(q, k_cache, v_cache, scale=hd ** -0.5,
+                        cap=cfg.attn_softcap, mask=mask[None, :])
+    return _dot(out.reshape(B, 1, H * hd), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+class MlpParams(NamedTuple):
+    w_gate: torch.Tensor   # (d, f)
+    w_up: torch.Tensor     # (d, f)
+    w_down: torch.Tensor   # (f, d)
+
+
+def init_mlp(generator: torch.Generator, d: int, f: int,
+             device: torch.device) -> MlpParams:
+    return MlpParams(w_gate=normal_weight(generator, (d, f), device),
+                     w_up=normal_weight(generator, (d, f), device),
+                     w_down=normal_weight(generator, (f, d), device))
+
+
+def mlp(p: MlpParams, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    g = _act(_dot(x, p.w_gate).float(), act).to(BF16)
+    u = _dot(x, p.w_up)
+    return _dot(g * u, p.w_down)

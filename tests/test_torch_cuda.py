@@ -12,7 +12,12 @@ makes a tree, so its cases use thresholds that no bound comes near; then
 the refined flags are identical too.  The adaptive corridor kernels
 (``dtw_band_adaptive``, ``lb_refine_adaptive``) are bit-identical to their
 plain versions, and to ``dtw_band`` under the static-band corridor; the
-quantised ADC kernels equal theirs (int8 and bfloat16).
+quantised ADC kernels equal theirs (int8 and bfloat16).  The full-width
+``dtw_band(mode="full")`` equals its plain version and ``dtw_band`` bit
+for bit.  ``pq_attn`` is held against its plain version at ``rtol=atol=
+2e-4`` (the reference's tolerance for its kernel; the online softmax
+rescales in another order), and the PQ-KV decode attention's kernel route
+against its plain route at the PQ-KV tolerance ``2e-2``.
 """
 
 import pytest
@@ -36,6 +41,9 @@ from repro_torch.kernels.pq_adc.ref import (adc_lookup_quant_ref,
                                            adc_lookup_ref,
                                            adc_sym_cdist_quant_ref,
                                            adc_sym_cdist_ref)
+from repro_torch.kernels.pq_attn.ops import pq_attn, pq_attn_decode
+from repro_torch.kernels.pq_attn.ref import (pq_attn_decode_ref,
+                                             pq_attn_lut_ref)
 from repro_torch.kernels.prealign_encode.ops import prealign_encode
 from repro_torch.kernels.prealign_encode.ref import prealign_encode_ref
 
@@ -252,3 +260,79 @@ def test_adc_quant_matches_plain(gen, dtype, M, K, na, nb):
     assert torch.equal(single, got[0])
     for name, n in (("adc_sym_quant", 1), ("adc_lookup_quant", 2)):
         assert _build.LAUNCHES[name] == before[name] + n
+
+
+@pytest.mark.parametrize("L,window", [(33, 3), (74, 7), (512, 51),
+                                      (40, None)])
+def test_dtw_band_full_matches_plain_and_compressed(gen, L, window):
+    A, B = _randn(gen, 300, L), _randn(gen, 300, L)
+    before = _build.LAUNCHES["dtw_band_full"]
+    got = dtw_band(A, B, window, mode="full")
+    assert _build.LAUNCHES["dtw_band_full"] == before + 1
+    assert torch.equal(got, dtw_band_ref(A, B, window))
+    assert torch.equal(got, dtw_band(A, B, window))
+    from repro_torch.kernels.dtw_band.ref import dtw_band_full_ref
+    assert torch.equal(got, dtw_band_full_ref(A, B, window))
+    with pytest.raises(ValueError, match="DTW-only"):
+        dtw_band(A, B, window, "wdtw", mode="full")
+
+
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codes_t", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("values", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,valid,G,R,M,K,Dv", [
+    (2080, 1921, 8, 2, 8, 256, 128),      # the serving path's shape
+    (300, 0, 2, 4, 4, 16, 32),            # empty prefix
+    (300, 77, 2, 4, 4, 16, 32),           # a partial tile
+    (256, 256, 1, 8, 8, 64, 64),          # full tiles, 8 heads per group
+    (50, 50, 4, 1, 2, 32, 8)])            # narrow values (32 lanes)
+def test_pq_attn_matches_plain(gen, table, codes_t, values, S, valid, G, R,
+                               M, K, Dv):
+    B = 3
+    qlut = _randn(gen, B, G * R, M, K).to(table)
+    codes = torch.randint(0, K, (B, S, G, M), generator=gen,
+                          device="cuda").to(codes_t)
+    v = _randn(gen, B, S, G, Dv).to(values)
+    before = _build.LAUNCHES["pq_attn"]
+    out, m, l = pq_attn(qlut, codes, v, valid, 0.125)
+    assert _build.LAUNCHES["pq_attn"] == before + 1
+    want = pq_attn_lut_ref(qlut, codes, v, valid, 0.125)
+    for got, w in zip((out, m, l), want):
+        torch.testing.assert_close(got, w, rtol=2e-4, atol=2e-4)
+
+
+def test_pq_attn_decode_matches_reference_oracle(gen):
+    """The reference signature (float32 table built from the query) against
+    the dequantise-then-softmax oracle."""
+    S, G, H, M, K, Ds = 1000, 4, 8, 8, 64, 16
+    q = _randn(gen, H, M * Ds)
+    books = _randn(gen, G, M, K, Ds)
+    codes = torch.randint(0, K, (S, G, M), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    v = _randn(gen, S, G, M * Ds)
+    for valid in (None, 600):
+        torch.testing.assert_close(
+            pq_attn_decode(q, codes, books, v, valid_len=valid),
+            pq_attn_decode_ref(q, codes, books, v, valid_len=valid),
+            rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("pos", [40, 127, 700])
+def test_pq_attention_decode_kernel_route_matches_plain(gen, pos):
+    from repro_torch.serve import pqkv
+    B, S, G, R, hd, M, K, W = 4, 800, 4, 2, 64, 8, 32, 128
+    k = _randn(gen, B, S, G, hd).to(torch.bfloat16)
+    books = _randn(gen, G, M, K, hd // M)
+    cache = pqkv.PQKVCache(
+        k_codes=pqkv.encode_kv(k, books), k_books=books,
+        v=_randn(gen, B, S, G, hd).to(torch.bfloat16),
+        k_recent=_randn(gen, B, W, G, hd).to(torch.bfloat16),
+        v_recent=_randn(gen, B, W, G, hd).to(torch.bfloat16))
+    q = _randn(gen, B, G, R, hd).to(torch.bfloat16)
+    pqc = pqkv.PQKVConfig(n_sub=M, codebook_size=K, recent_window=W)
+    before = _build.LAUNCHES["pq_attn"]
+    got = pqkv.pq_attention_decode(q, cache, pos, pqc=pqc)
+    assert _build.LAUNCHES["pq_attn"] == before + 1
+    want = pqkv.pq_attention_decode(q, cache, pos, pqc=pqc, route="plain")
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

@@ -80,6 +80,26 @@ def test_pairwise_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("L,window", [(24, 3), (33, None), (17, 0)])
+def test_full_width_sweep_matches_reference(L, window):
+    """``dtw_band(mode="full")``, the reference's DTW-only full-width
+    baseline, against its Pallas kernel in interpret mode: bit for bit
+    (both contract the cell into an FMA), and equal to the compressed
+    sweep.  Other measures raise, as in the reference."""
+    from repro.kernels.dtw_band.ops import dtw_band as j_dtw_band
+    from repro_torch.kernels.dtw_band.ops import dtw_band
+    A, B = _pairs(L, 20, 20, L)
+    want = np.asarray(j_dtw_band(A, B, window, mode="full", interpret=True))
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+    got = dtw_band(At, Bt, window, mode="full")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, dtw_band(At, Bt, window))
+    with pytest.raises(ValueError, match="DTW-only"):
+        dtw_band(At, Bt, window, measure="erp", mode="full")
+    with pytest.raises(ValueError, match="mode"):
+        dtw_band(At, Bt, window, mode="diagonal")
+
+
 def test_ledger_counts_torch_route():
     tdispatch.reset_stats()
     A, B = _pairs(1, 2, 2, 8)

@@ -1,0 +1,164 @@
+"""The ``pq_attn`` kernel's plain version (CPU route of
+``repro_torch.kernels.pq_attn.ops``) held against the JAX package: its
+Pallas kernel in interpret mode and its oracle, at the shapes of
+``tests/test_kernels.py``, with the reference's tolerance there
+(``rtol=atol=2e-4``: the ADC scores sum the table in another order than
+the reconstructed keys' dot products).  Then what the kernel adds to the
+reference's interface: the running max and denominator (two halves merged
+through them equal the whole), and uint8 codes / bf16 tables and values
+read as given (bit-equal to int32 codes and float32 copies)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.pq_attn.ops import build_qlut as j_build_qlut
+from repro.kernels.pq_attn.ops import encode_keys as j_encode_keys
+from repro.kernels.pq_attn.ops import pq_attn_decode as j_pq_attn_decode
+from repro.kernels.pq_attn.ref import pq_attn_decode_ref as j_ref
+from repro.kernels.pq_attn.ref import reconstruct_keys as j_reconstruct
+from repro_torch.kernels.pq_attn import ops, ref
+
+RTOL = ATOL = 2e-4
+SHAPES = [(16, 1, 1, 2, 4, 4), (64, 2, 4, 4, 16, 8), (100, 2, 8, 2, 32, 16),
+          (256, 4, 8, 8, 64, 8)]   # S, G, H, M, K, Ds
+
+
+def _setup(S, G, H, M, K, Ds, seed=0):
+    rng = np.random.default_rng(seed)
+    D = M * Ds
+    q = rng.standard_normal((H, D)).astype(np.float32)
+    k_books = rng.standard_normal((G, M, K, Ds)).astype(np.float32)
+    k_codes = rng.integers(0, K, (S, G, M)).astype(np.int32)
+    v = rng.standard_normal((S, G, D)).astype(np.float32)
+    return q, k_codes, k_books, v
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("valid", [None, "partial"])
+@pytest.mark.parametrize("S,G,H,M,K,Ds", SHAPES)
+def test_plain_matches_reference_kernel_and_oracle(S, G, H, M, K, Ds, valid):
+    q, k_codes, k_books, v = _setup(S, G, H, M, K, Ds, seed=S)
+    valid_len = None if valid is None else (2 * S) // 3
+    got = ops.pq_attn_decode(*_t(q, k_codes, k_books, v),
+                             valid_len=valid_len).numpy()
+    want_kernel = np.asarray(j_pq_attn_decode(
+        q, k_codes, k_books, v, valid_len=valid_len, block_s=32,
+        interpret=True))
+    want_oracle = np.asarray(j_ref(q, k_codes, k_books, v,
+                                   valid_len=valid_len))
+    np.testing.assert_allclose(got, want_kernel, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want_oracle, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        ref.pq_attn_decode_ref(*_t(q, k_codes, k_books, v),
+                               valid_len=valid_len).numpy(),
+        want_oracle, rtol=RTOL, atol=ATOL)
+
+
+def test_tables_keys_and_reconstruction_match_reference():
+    q, k_codes, k_books, v = _setup(64, 2, 4, 4, 16, 8, seed=3)
+    np.testing.assert_allclose(
+        ops.build_qlut(*_t(q, k_books)).numpy(),
+        np.asarray(j_build_qlut(q, k_books)), rtol=1e-6, atol=1e-6)
+    keys = np.asarray(j_reconstruct(jnp.asarray(k_codes),
+                                    jnp.asarray(k_books)))
+    np.testing.assert_array_equal(
+        ref.reconstruct_keys(*_t(k_codes, k_books)).numpy(), keys)
+    noisy = (keys + 0.05 * np.random.default_rng(4).standard_normal(
+        keys.shape)).astype(np.float32)
+    got = ops.encode_keys(*_t(noisy, k_books)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_encode_keys(noisy,
+                                                                k_books)))
+    np.testing.assert_array_equal(got, k_codes)
+
+
+def test_batched_and_stats():
+    """A leading batch axis equals the rows one by one; the stats are the
+    largest score and the softmax denominator."""
+    B, S, G, H, M, K, Ds = 3, 40, 2, 4, 4, 16, 8
+    rows = [_setup(S, G, H, M, K, Ds, seed=10 + b) for b in range(B)]
+    q, codes, _, v = (np.stack([r[i] for r in rows]) for i in range(4))
+    books = torch.from_numpy(rows[0][2])
+    out, m, l = ops.pq_attn_decode(*_t(q, codes), books, torch.from_numpy(v),
+                                   valid_len=33, return_stats=True)
+    assert out.shape == (B, H, M * Ds) and m.shape == l.shape == (B, H)
+    for b in range(B):
+        one = ops.pq_attn_decode(*_t(q[b], codes[b]), books,
+                                 torch.from_numpy(v[b]), valid_len=33)
+        np.testing.assert_allclose(out[b].numpy(), one.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    keys = ref.reconstruct_keys(torch.from_numpy(codes[:, :33]), books)
+    scores = torch.einsum("bgrd,bsgd->bgrs",
+                          torch.from_numpy(q).reshape(B, G, H // G, -1),
+                          keys) / (M * Ds) ** 0.5
+    want_m = scores.amax(-1)
+    want_l = torch.exp(scores - want_m[..., None]).sum(-1)
+    np.testing.assert_allclose(m.numpy(), want_m.reshape(B, H).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), want_l.reshape(B, H).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("split", [0, 1, 57, 100])
+def test_two_halves_merged_through_stats_equal_the_whole(split):
+    B, S, G, R, M, K, Dv = 2, 100, 2, 2, 4, 16, 8
+    rng = np.random.default_rng(split)
+    qlut = torch.from_numpy(rng.standard_normal((B, G * R, M, K)).astype(
+        np.float32))
+    codes = torch.from_numpy(rng.integers(0, K, (B, S, G, M)).astype(
+        np.uint8))
+    v = torch.from_numpy(rng.standard_normal((B, S, G, Dv)).astype(
+        np.float32))
+    whole, _, _ = ops.pq_attn(qlut, codes, v, S, 0.5)
+    o1, m1, l1 = ops.pq_attn(qlut, codes, v, split, 0.5)
+    o2, m2, l2 = ops.pq_attn(qlut, codes[:, split:].contiguous(),
+                             v[:, split:].contiguous(), S - split, 0.5)
+    m = torch.maximum(m1, m2)
+    w1 = (l1 * torch.exp(m1 - m))[..., None]
+    w2 = (l2 * torch.exp(m2 - m))[..., None]
+    merged = (o1 * w1 + o2 * w2) / (w1 + w2)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_empty_prefix():
+    qlut = torch.ones((1, 2, 2, 4))
+    codes = torch.zeros((1, 5, 1, 2), dtype=torch.uint8)
+    v = torch.ones((1, 5, 1, 8))
+    out, m, l = ops.pq_attn(qlut, codes, v, 0, 1.0)
+    assert torch.equal(out, torch.zeros((1, 2, 8)))
+    assert torch.equal(m, torch.full((1, 2), ref.NEG_INIT))
+    assert torch.equal(l, torch.zeros((1, 2)))
+
+
+def test_storage_types_read_as_given():
+    """uint8 codes equal int32 codes; a bf16 table and bf16 values equal
+    float32 copies of the same (rounded) numbers, bit for bit."""
+    B, S, G, R, M, K, Dv = 2, 70, 2, 2, 4, 16, 8
+    rng = np.random.default_rng(7)
+    table = torch.from_numpy(rng.standard_normal((B, G * R, M, K)).astype(
+        np.float32)).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, K, (B, S, G, M)).astype(
+        np.uint8))
+    v = torch.from_numpy(rng.standard_normal((B, S, G, Dv)).astype(
+        np.float32)).to(torch.bfloat16)
+    want = ops.pq_attn(table.float(), codes.to(torch.int32), v.float(), 61,
+                       0.3)
+    got = ops.pq_attn(table, codes, v, 61, 0.3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bad_shapes_raise():
+    qlut = torch.ones((1, 2, 2, 4))
+    v = torch.ones((1, 5, 1, 8))
+    with pytest.raises(ValueError, match="valid_len"):
+        ops.pq_attn(qlut, torch.zeros((1, 5, 1, 2), dtype=torch.uint8), v,
+                    6, 1.0)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.pq_attn(qlut, torch.zeros((1, 5, 1, 3), dtype=torch.uint8), v,
+                    5, 1.0)
