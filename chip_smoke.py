@@ -49,7 +49,10 @@ own tensors and times both.  ``lb_refine`` is checked twice over: on every
 wave of both searches (a second, untimed run of each) its flags and
 unrefined outputs are held against the plain bound, and on the first wave
 and the first mixed wave (refined and pruned pairs) of each search its
-whole output is held against the plain version.  ``lb_refine_adaptive``
+whole output is held against the plain version, its refined distances
+against ``dtw_band``'s bit for bit, and the thread-per-pair form (the
+wrapper's choice beyond ``w = 255``) is timed beside the warp form on the
+same wave.  ``lb_refine_adaptive``
 is held the same way on the adaptive hot scan, its refined distances bit
 for bit; ``dtw_band_adaptive`` and the quantised ADC kernels must equal
 their plain versions exactly.
@@ -68,8 +71,12 @@ Any failed check raises, so the exit code is non-zero and that line is
 never printed.  Without a CUDA device the script exits non-zero at once.
 
 ``ms`` is the kernel's launch alone (mean of ``REPS`` back-to-back
-launches, CUDA events); ``wrapper_ms`` in the phase line is the whole
-wrapper call, checks included.  Bounds (``bound_ms``) use the H100 SXM's
+launches, CUDA events, so a launch shorter than the host's launch overhead
+reads that overhead); ``wrapper_ms`` in the phase line is the whole
+wrapper call, checks included.  ``prev_ms`` of ``lb_refine`` is the
+thread-per-pair form, the kernel's design before its redesign and the
+wrapper's choice beyond ``w = 255``, launched on the same wave in the same
+run.  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
 tensor cores.  ``library_ms`` of ``pq_attn`` is
 ``scaled_dot_product_attention`` over the keys reconstructed from the
@@ -131,6 +138,13 @@ TPU_SITES = {
     "adc_lookup_quant": "src/repro/kernels/pq_adc/kernel.py:170",
     "pq_attn": "src/repro/kernels/pq_attn/kernel.py:97",
     "dtw_band_full": "src/repro/kernels/dtw_band/kernel.py:384",
+}
+# rows redesigned for the H100 after their first port
+DESIGNS = {
+    "lb_refine": "one warp per pair, band anti-diagonals across the lanes "
+                 "(thread per pair beyond w = 255)",
+    "pq_attn": "split-K flash-decoding over the tail, merged in the same "
+               "launch by the last CTA of each (row, group)",
 }
 SOURCES = {
     "dtw_band": "src/repro_torch/kernels/csrc/dtw_band.cu",
@@ -1218,7 +1232,8 @@ def pq_attn_phase(torch, lm) -> dict:
     (dequantise, then exact softmax), both within ``PQ_ATTN_TOL``."""
     import torch.nn.functional as F
     from repro_torch.kernels.pq_attn.ops import (launch_pq_attn, pq_attn,
-                                                 pq_attn_decode)
+                                                 pq_attn_decode,
+                                                 split_geometry)
     from repro_torch.kernels.pq_attn.ref import (pq_attn_decode_ref,
                                                  pq_attn_lut_ref,
                                                  reconstruct_keys)
@@ -1251,8 +1266,9 @@ def pq_attn_phase(torch, lm) -> dict:
     l = torch.empty_like(m)
     ms = _mean_ms(torch, lambda: launch_pq_attn(qlut, codes, v, n, scale,
                                                 out, m, l), REPS)
-    check(torch.equal(out, got[0]), "pq_attn: the launch alone equals the "
-          "wrapper")
+    check(torch.equal(out, got[0]) and torch.equal(m, got[1])
+          and torch.equal(l, got[2]), "pq_attn: the launch alone equals the "
+          "wrapper, bit for bit (the split merge is in a fixed order)")
     wrapper_ms = _mean_ms(torch, lambda: pq_attn(qlut, codes, v, n, scale),
                           REPS)
     keys = reconstruct_keys(codes[:, :n], books).to(torch.bfloat16)
@@ -1265,15 +1281,18 @@ def pq_attn_phase(torch, lm) -> dict:
               + qlut.numel() * qlut.element_size() + B * H * (hd + 2) * 4)
     ops = B * H * n * (M + 4 + 2 * hd)
     bound_ms, bound_by = bound(nbytes, ops)
+    chunk, n_split = split_geometry(n, B * G)
     row = {"name": "pq_attn", "route": "cuda", "source": SOURCES["pq_attn"],
            "replaces": TPU_SITES["pq_attn"],
            "launches": lm["launches"]["pq_attn"], "max_abs_err": max_abs,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms,
+           "design": DESIGNS["pq_attn"], "variant": f"{n_split} splits"}
     emit({"phase": "kernel", **row, "shapes": {
               "batch": B, "tail": n, "groups": G, "reps": R, "M": M, "K": K,
               "Dv": hd, "table": str(qlut.dtype), "codes": str(codes.dtype),
-              "values": str(v.dtype)},
+              "values": str(v.dtype), "chunk": chunk, "n_split": n_split,
+              "ctas": B * G * n_split},
           "wrapper_ms": wrapper_ms, "serving_types_max_abs_err": serve_err,
           "agrees": ok32 and serve_ok, "in_table": True,
           "tolerance": {"rtol": PQ_ATTN_TOL, "atol": PQ_ATTN_TOL}})
@@ -1538,14 +1557,19 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
     others are pruned at their threshold (one with filler pairs at
     ``thresh = -inf`` where a wave had them).
 
-    The kernel sums LB_Keogh sequentially and the plain version as a tree,
-    so a bound within an ulp of its threshold may flip its flag: flags must
+    The kernel's warp form (the path's, at ``w <= 255``) sums LB_Keogh in
+    lane-strided partial sums and a shuffle tree, its thread form left to
+    right, and the plain version as a tree, so a bound within an ulp of its
+    threshold may flip its flag: flags must
     be identical apart from pairs whose bound lies within ``FLAG_TIE_REL``
     (relative) of a finite threshold, which are counted; distances are
     held to ``rtol=1e-5, atol=1e-4`` where the flags agree."""
+    from repro_torch.core.dispatch import effective_window
     from repro_torch.core.lb import cascade_bound
+    from repro_torch.kernels.dtw_band.ops import dtw_band
     from repro_torch.kernels.lb_cascade.ops import (launch_lb_refine,
-                                                    lb_refine)
+                                                    lb_refine,
+                                                    refine_variant)
     from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
     launches = (ctx["pruned_launches"]["lb_refine"]
                 + ctx["index_launches"]["lb_refine"])
@@ -1583,6 +1607,10 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
             if which == "mixed":
                 check(0 < n_refined < n and n_pruned > 0,
                       f"lb_refine {name}: the mixed wave refines and prunes")
+            # row 1 on the refined pairs: the same DP, bit for bit
+            check(torch.equal(d[f], dtw_band(A[f], B[f], w)),
+                  f"lb_refine {name} {which}: refined distances equal "
+                  "dtw_band's bit for bit")
             d_out = torch.empty_like(d)
             flag = torch.empty(n, dtype=torch.int32, device=A.device)
             ms = _mean_ms(torch, lambda: launch_lb_refine(
@@ -1592,6 +1620,8 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
                   "wrapper")
             wrapper_ms = _mean_ms(
                 torch, lambda: lb_refine(A, B, up, lo, th, w), REPS)
+            variant = refine_variant(effective_window(L, w))
+            thread_ms = _thread_form_ms(torch, args, d, f)
             bound_ms, bound_by = bound(
                 n * (16 * L + 12),
                 n * 5 * L + n_refined * DTW_OPS_PER_CELL * band_cells(L, w))
@@ -1600,21 +1630,57 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
                    "replaces": TPU_SITES["lb_refine"], "launches": launches,
                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
+                   "library_ms": None, "design": DESIGNS["lb_refine"],
+                   "variant": variant, "prev_ms": thread_ms}
             emit({"phase": "kernel", **row, "wave": f"{name} {which}",
                   "shapes": {"pairs": [n, L], "window": w},
                   "n_refined": n_refined, "n_pruned": n_pruned,
                   "n_filler": n_filler, "flag_ties": int(flips.sum()),
                   "near_threshold": int(near.sum()),
-                  "wrapper_ms": wrapper_ms, "max_rel_err": max_rel,
+                  "wrapper_ms": wrapper_ms, "thread_form_ms": thread_ms,
+                  "max_rel_err": max_rel, "refined_equal_dtw_band": True,
                   "agrees": ok, "in_table": table,
                   "tolerance": {"rtol": RTOL, "atol": ATOL,
                                 "flag_tie_rel": FLAG_TIE_REL}})
+            if name == "pruned_nn" and which == "first":
+                emit({"phase": "lb_refine_pruned_wave", "pairs": [n, L],
+                      "window": w, "n_refined": n_refined, "ms": ms,
+                      "thread_form_ms": thread_ms, "variant": variant,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
             if table:
                 record = row
     check(sum(waves[k]["totals"]["filler"] for k in waves) > 0,
           "some wave carried filler pairs (thresh = -inf)")
     return record
+
+
+def _thread_form_ms(torch, args, d, f):
+    """The thread-per-pair form of ``lb_refine`` (the wrapper's choice
+    beyond ``w = 255``, PR 14's design at every band) launched directly on
+    the same wave: timed for comparison within this run, its refined
+    distances equal to the wrapper's.  Not a launch of the path."""
+    from repro_torch.core.dispatch import effective_window
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band.ops import band_geometry
+    A, B, up, lo, th, window = args
+    n, L = A.shape
+    w = effective_window(L, window)
+    threads, blocks, scratch = band_geometry(n, w, A.device)
+    d_out = torch.empty_like(d)
+    flag = torch.empty(n, dtype=torch.int32, device=A.device)
+
+    def launch():
+        _build.check(_build.lib().pq_lb_refine(
+            A.data_ptr(), B.data_ptr(), up.data_ptr(), lo.data_ptr(),
+            th.data_ptr(), d_out.data_ptr(), flag.data_ptr(),
+            _build.ptr(scratch), n, L, w, threads, blocks,
+            _build.stream(A.device)), "lb_refine (thread form)")
+
+    ms = _mean_ms(torch, launch, REPS)
+    both = flag.bool() & f
+    check(torch.equal(d_out[both], d[both]), "lb_refine: the thread form's "
+          "refined distances equal the warp form's")
+    return ms
 
 
 def measure_sweep(torch) -> None:

@@ -63,11 +63,12 @@ _SIGNATURES = {
                            _I, _I, _F, _I, _P],
     "pq_lb_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
+    "pq_lb_refine_warp": [_P] * 7 + [_I] * 6 + [_P],
     "pq_dtw_band_adaptive": [_P] * 7 + [_I] * 6 + [_P],
     "pq_lb_refine_adaptive": [_P] * 10 + [_I] * 5 + [_P],
     "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],
     "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
-    "pq_attn": [_P] * 6 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
+    "pq_attn": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 3 + [_P],
     "pq_dtw_band_full": [_P] * 4 + [_I] * 5 + [_P],
 }
 
@@ -162,7 +163,7 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.pq_error_string.argtypes = [ctypes.c_int]
         handle.pq_error_string.restype = ctypes.c_char_p
-        handle.pq_attn_smem_bytes.argtypes = [ctypes.c_int] * 5
+        handle.pq_attn_smem_bytes.argtypes = [ctypes.c_int] * 7
         handle.pq_attn_smem_bytes.restype = ctypes.c_size_t
         _lib = handle
     return _lib

@@ -239,4 +239,132 @@ __device__ float corridor_cost(const float* __restrict__ a,
   return diag[o_p1 * stride];  // diagonal 2L-2: cell (L-1, L-1) in slot 0
 }
 
+// ---------------------------------------------------------------------------
+// One warp per pair: the band's anti-diagonals across the lanes
+// ---------------------------------------------------------------------------
+//
+// The same banded DTW as band_cost<kDTW>, swept by the 32 lanes of one
+// warp together, so that one pair costs 2L-1 dependent diagonal steps
+// instead of L*(2w+1) dependent cells.  Diagonal d holds the band cells
+// (i, d-i) with |2i - d| <= w; slot s of d is row i = i0(d) + s with
+// base row i0(d) = ceil((d-w)/2), so a diagonal has w+1 slots when d-w
+// is even and w when it is odd.  Lane l keeps slots l*C .. l*C+C-1 in
+// registers (C cells a lane, 32*C >= w+1).
+//
+// The base row moves by delta = (d-w) & 1 from d-1 to d, and by exactly
+// one from d-2 to d, so the predecessors of slot s are
+//
+//   (i,   j-1) on d-1: slot s + delta
+//   (i-1, j  ) on d-1: slot s + delta - 1
+//   (i-1, j-1) on d-2: slot s
+//
+// delta alternates with d, so the sweep takes diagonals in pairs with
+// delta a template constant in each: one shuffle a diagonal brings the
+// one neighbouring slot that lies in another lane (left for delta 0,
+// right for delta 1), and no select depends on it.  Diagonal d overwrites
+// d-2 in place (slot s reads d-2 only at slot s), so two register arrays
+// alternate and nothing is copied.  A slot outside the band or the table
+// holds +inf (3e38), as band_cost's sentinel and initial rows do; cell
+// (0, 0) starts from 0, planted in diagonal -2.  Every cell is
+// band_cost's float32 expression, fminf(__fmaf_rn(df, df, fminf(fminf(
+// dg, h), v)), kInf); fminf is exact and order-free, so the cost equals
+// band_cost's to the bit.
+//
+// PADDED: a and b point into rows padded with NaN on both sides by
+// warp_pad(C) floats (the caller stages them so in shared memory).  A cell
+// outside the table then reads a NaN, its fused multiply-add is NaN, and
+// fminf(NaN, 3e38) = 3e38: the table's edge costs no test.  Otherwise a
+// and b are the bare rows (device memory) and the indices are clamped and
+// tested.  Every lane returns the cost of cell (L-1, L-1), on diagonal
+// 2L-2.  Needs w <= L-1 and w + 1 <= 32 * C.
+
+// NaN floats the caller stages on each side of a row for PADDED sweeps.
+__host__ __device__ constexpr int warp_pad(int C) { return 32 * C; }
+
+template <int C, int DELTA, bool PADDED>
+__device__ __forceinline__ void warp_diag(float* cur, const float* nb,
+                                          const float* a, const float* b,
+                                          int L, int w, int d, int i0, int s0,
+                                          int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  // the neighbour slot in the next lane: s0 - 1 (delta 0) or s0 + C
+  float edge;
+  if (DELTA == 0) {
+    edge = __shfl_up_sync(kFull, nb[C - 1], 1);
+    if (lane == 0) edge = kInf;
+  } else {
+    edge = __shfl_down_sync(kFull, nb[0], 1);
+    if (lane == 31) edge = kInf;
+  }
+  const int i_base = i0 + s0;
+  const int j_base = d - i_base;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float h, v;
+    if (DELTA == 0) {
+      h = nb[c];
+      v = (c > 0) ? nb[c > 0 ? c - 1 : 0] : edge;
+    } else {
+      h = (c < C - 1) ? nb[c < C - 1 ? c + 1 : 0] : edge;
+      v = nb[c];
+    }
+    const int i = i_base + c;
+    const int j = j_base - c;
+    float x, y;
+    bool in_table = true;
+    if (PADDED) {
+      x = a[i];
+      y = b[j];
+    } else {
+      in_table = i >= 0 && i < L && j >= 0 && j < L;
+      x = a[min(max(i, 0), L - 1)];
+      y = b[min(max(j, 0), L - 1)];
+    }
+    const float df = x - y;
+    const float cell =
+        fminf(__fmaf_rn(df, df, fminf(fminf(cur[c], h), v)), kInf);
+    const bool live = in_table && s0 + c < w + 1 - DELTA;
+    cur[c] = live ? cell : kInf;
+  }
+}
+
+// Diagonals 0 .. 2L-2 in pairs (even d: delta DE, odd d: DO = 1 - DE);
+// x ends holding diagonal 2L-2.
+template <int C, int DE, bool PADDED>
+__device__ __forceinline__ void warp_sweep(float* x, float* y,
+                                           const float* a, const float* b,
+                                           int L, int w, int s0, int lane) {
+  int i0 = (1 - w) >> 1;  // i0(0) = ceil(-w/2), arithmetic shift
+  int d = 0;
+  for (; d < 2 * L - 2; d += 2, ++i0) {
+    warp_diag<C, DE, PADDED>(x, y, a, b, L, w, d, i0, s0, lane);
+    warp_diag<C, 1 - DE, PADDED>(y, x, a, b, L, w, d + 1, i0 + 1 - DE, s0,
+                                 lane);
+  }
+  warp_diag<C, DE, PADDED>(x, y, a, b, L, w, d, i0, s0, lane);
+}
+
+template <int C, bool PADDED>
+__device__ float band_cost_warp(const float* a, const float* b, int L, int w,
+                                int lane) {
+  const int s0 = lane * C;  // this lane's first slot
+  float x[C], y[C];  // even and odd diagonals
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    x[c] = (s0 + c == (w >> 1)) ? 0.f : kInf;  // diagonal -2: (0, 0)'s start
+    y[c] = kInf;                               // diagonal -1
+  }
+  if (w & 1)
+    warp_sweep<C, 1, PADDED>(x, y, a, b, L, w, s0, lane);
+  else
+    warp_sweep<C, 0, PADDED>(x, y, a, b, L, w, s0, lane);
+  // cell (L-1, L-1): slot L-1 - i0(2L-2) of the last diagonal
+  const int s_end = (L - 1) - ((2 * L - 1 - w) >> 1);
+  float mine = kInf;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (s0 + c == s_end) mine = x[c];
+  return __shfl_sync(0xffffffffu, mine, s_end / C);
+}
+
 }  // namespace pqdtw

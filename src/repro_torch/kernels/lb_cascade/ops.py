@@ -2,11 +2,14 @@
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises.  The launch is counted in
-:data:`repro_torch.kernels._build.LAUNCHES` as ``lb_refine``.  Band rows
-follow :func:`..dtw_band.ops.band_geometry`: shared memory up to
-``w = 190``, a device scratch buffer beyond.  The kernel sweeps the DTW
-cell only (the one measure with a Keogh cascade); other measures raise on
-the card.
+:data:`repro_torch.kernels._build.LAUNCHES` as ``lb_refine``, one launch
+per call.  Its form follows from the band alone (:func:`refine_variant`):
+up to ``w = 255`` one warp per pair sweeps the band's anti-diagonals
+across its lanes (:func:`warp_geometry`: 4 warps a CTA, each staging its
+pair in shared memory); beyond, one thread per pair sweeps the band row
+by row, its rows laid out as :func:`..dtw_band.ops.band_geometry` says.
+The kernel sweeps the DTW cell only (the one measure with a Keogh
+cascade); other measures raise on the card.
 
 With ``corridor=(lo, hi)`` the refine runs inside each pair's corridor
 (``csrc/lb_cascade.cu``'s adaptive entry, counted as
@@ -27,9 +30,54 @@ from ...core.measures import MeasureArg
 from ..dtw_band.ops import band_geometry, check_corridor, row_geometry
 from .ref import lb_refine_ref
 
-__all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive"]
+__all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive",
+           "refine_variant", "warp_cells", "warp_geometry"]
 
 _INT_MAX = 2 ** 31 - 1
+WARP_MAX_W = 255          # lb_cascade.cu: at most 8 band cells a lane
+_WARPS = 4                # warps (pairs) per CTA of the warp form
+_SMEM_MAX = 227 * 1024
+
+
+def refine_variant(w: int) -> str:
+    """The kernel form for an effective band ``w``: ``"warp"`` (one warp
+    per pair, the band's anti-diagonals across the lanes) up to
+    :data:`WARP_MAX_W`, ``"thread"`` (one thread per pair) beyond.
+
+    >>> refine_variant(51), refine_variant(255), refine_variant(256)
+    ('warp', 'warp', 'thread')
+    """
+    return "warp" if int(w) <= WARP_MAX_W else "thread"
+
+
+def warp_cells(w: int) -> int:
+    """Band cells each lane of the warp form keeps: ``ceil((w+1)/32)``
+    rounded up to 1, 2, 4 or 8 (``lb_cascade.cu``'s template ``C``).
+
+    >>> [warp_cells(w) for w in (0, 31, 32, 51, 64, 255)]
+    [1, 1, 2, 2, 4, 8]
+    """
+    need = -(-(int(w) + 1) // 32)
+    return next(c for c in (1, 2, 4, 8) if c >= need)
+
+
+def warp_geometry(n_pairs: int, L: int, w: int) -> Tuple[int, int, int]:
+    """``(warps, blocks, smem_bytes)`` of the warp form for ``n_pairs``
+    pairs of length ``L`` at band ``w``: :data:`_WARPS` warps a CTA, each
+    staging its pair's two rows with ``32 * C`` NaNs on each side
+    (``2 (L + 64 C)`` floats) in shared memory; fewer warps where that
+    exceeds the card's 227 KB, and ``smem_bytes = 0`` (rows read from
+    device memory) where even one warp's rows do not fit.
+
+    >>> warp_geometry(512, 512, 51), warp_geometry(7, 8000, 51)
+    ((4, 128, 20480), (3, 3, 195072))
+    >>> warp_geometry(3, 40000, 7)
+    (1, 3, 0)
+    """
+    per_warp = 2 * (L + 2 * 32 * warp_cells(w)) * 4
+    warps = max(1, min(_WARPS, _SMEM_MAX // per_warp))
+    smem = warps * per_warp if per_warp <= _SMEM_MAX else 0
+    return warps, max(1, -(-n_pairs // warps)), smem
 
 
 def _rows(x: torch.Tensor, name: str, shape) -> torch.Tensor:
@@ -97,11 +145,19 @@ def launch_lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
     if n == 0:
         return
     w = effective_window(L, window)
-    threads, blocks, scratch = band_geometry(n, w, A.device)
-    status = _build.lib().pq_lb_refine(
-        A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
-        thresh.data_ptr(), d.data_ptr(), flag.data_ptr(),
-        _build.ptr(scratch), n, L, w, threads, blocks, _build.stream(A.device))
+    if refine_variant(w) == "warp":
+        warps, blocks, smem = warp_geometry(n, L, w)
+        status = _build.lib().pq_lb_refine_warp(
+            A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+            thresh.data_ptr(), d.data_ptr(), flag.data_ptr(), n, L, w, warps,
+            blocks, smem, _build.stream(A.device))
+    else:
+        threads, blocks, scratch = band_geometry(n, w, A.device)
+        status = _build.lib().pq_lb_refine(
+            A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+            thresh.data_ptr(), d.data_ptr(), flag.data_ptr(),
+            _build.ptr(scratch), n, L, w, threads, blocks,
+            _build.stream(A.device))
     _build.check(status, "lb_refine")
     _build.count_launch("lb_refine")
 

@@ -9,6 +9,12 @@ reference's signature (a query and codebooks) and builds the float32 table
 itself.  :func:`launch_pq_attn` is the launch alone, on checked inputs;
 it counts as ``pq_attn``.
 
+The kernel splits the valid prefix over CTAs (:func:`split_geometry`, from
+the shapes alone) and merges the splits inside the same launch: one launch
+per call.  The merge's workspace (:func:`workspace_floats`) is allocated
+per call; its tickets are an int32 counter per (row, group), zeroed once
+per device and grown with ``B * G``, which every launch leaves at 0.
+
 The kernel reads the table as float32 or bf16, codes as uint8 or int32,
 values as float32 or bf16, each in the type given.  Codes must lie in
 ``[0, K)`` (the kernel clamps, so a bad code gives a wrong score, never a
@@ -19,7 +25,7 @@ read back to check.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,13 +33,71 @@ from .. import _build
 from .ref import pq_attn_lut_ref
 
 __all__ = ["build_qlut", "encode_keys", "pq_attn", "launch_pq_attn",
-           "pq_attn_decode"]
+           "pq_attn_decode", "split_geometry", "workspace_floats",
+           "value_vector"]
 
 _SMEM_MAX = 227 * 1024
 _MAX_REPS = 8        # heads per KV group (pq_attn.cu: kMaxR)
 _TABLE_TYPES = (torch.float32, torch.bfloat16)
 _CODE_TYPES = (torch.uint8, torch.int32)
 _VALUE_TYPES = (torch.float32, torch.bfloat16)
+_TARGET_CTAS = 4 * 132   # about 4 CTAs on each of the H100's 132 SMs
+_CHUNK_STEP = 64         # positions: a chunk is a multiple of this
+_CHUNK_MAX = 1024
+_MAX_SPLITS = 65535      # the grid's y extent
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_geometry(valid_len: int, rows: int) -> Tuple[int, int]:
+    """``(chunk, n_split)`` for ``valid_len`` positions in each of ``rows =
+    B * G`` (row, group) pairs: chunks of a multiple of 64 positions (at
+    most 1024 unless more than 65535 splits would be needed), sized so that
+    ``rows * n_split`` comes near 4 CTAs a SM; ``n_split = ceil(valid_len /
+    chunk)``, so no split is empty and none lies beyond ``valid_len``.  An
+    empty prefix takes one split, which writes the empty result.
+
+    >>> split_geometry(1921, 64), split_geometry(77, 6), split_geometry(0, 8)
+    ((256, 8), (64, 2), (64, 1))
+    """
+    valid_len, rows = int(valid_len), max(1, int(rows))
+    if valid_len <= 0:
+        return _CHUNK_STEP, 1
+    per_cta = -(-valid_len * rows // _TARGET_CTAS)
+    chunk = min(max(-(-per_cta // _CHUNK_STEP) * _CHUNK_STEP, _CHUNK_STEP),
+                _CHUNK_MAX)
+    least = -(-valid_len // _MAX_SPLITS)
+    chunk = max(chunk, -(-least // _CHUNK_STEP) * _CHUNK_STEP)
+    return chunk, -(-valid_len // chunk)
+
+
+def workspace_floats(rows: int, n_split: int, reps: int, Dv: int) -> int:
+    """float32 elements of the merge's workspace: each split's ``acc (R,
+    Dv)`` and ``(m, l)`` per head, none with a single split.
+
+    >>> workspace_floats(64, 8, 2, 128), workspace_floats(64, 1, 2, 128)
+    (133120, 0)
+    """
+    return 0 if n_split <= 1 else rows * n_split * reps * (Dv + 2)
+
+
+def value_vector(v: torch.Tensor) -> int:
+    """Values per load: 8 (16 bytes) for bf16 values whose width divides by
+    8 and whose storage is 16-byte aligned, else 4 (16 bytes of float32, 8
+    of bf16)."""
+    ok8 = (v.dtype == torch.bfloat16 and v.shape[-1] % 8 == 0
+           and v.data_ptr() % 16 == 0)
+    return 8 if ok8 else 4
+
+
+def _counters(device: torch.device, rows: int) -> torch.Tensor:
+    """The merge's ticket counters on ``device``: at least ``rows`` int32,
+    zeroed when made (every launch leaves them at 0)."""
+    t = _COUNTERS.get(device)
+    if t is None or t.numel() < rows:
+        size = max(rows, 2 * t.numel() if t is not None else rows)
+        t = torch.zeros(size, dtype=torch.int32, device=device)
+        _COUNTERS[device] = t
+    return t
 
 
 def build_qlut(q: torch.Tensor, k_books: torch.Tensor) -> torch.Tensor:
@@ -82,11 +146,17 @@ def launch_pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     :func:`pq_attn`."""
     B, H, M, K = qlut.shape
     _, S, G, _ = codes.shape
-    Dv = v.shape[-1]
+    Dv, R = v.shape[-1], H // G
+    chunk, n_split = split_geometry(valid_len, B * G)
+    n_ws = workspace_floats(B * G, n_split, R, Dv)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=out.device)
+          if n_ws else None)
+    counters = _counters(out.device, B * G) if n_ws else None
     status = _build.lib().pq_attn(
         qlut.data_ptr(), codes.data_ptr(), v.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), B, S, G, H // G, M, K, Dv,
-        int(valid_len), float(scale), int(qlut.dtype == torch.bfloat16),
+        m.data_ptr(), l.data_ptr(), _build.ptr(ws), _build.ptr(counters),
+        B, S, G, R, M, K, Dv, int(valid_len), chunk, n_split,
+        value_vector(v), float(scale), int(qlut.dtype == torch.bfloat16),
         int(codes.dtype == torch.uint8), int(v.dtype == torch.bfloat16),
         _build.stream(out.device))
     _build.check(status, "pq_attn")
@@ -115,15 +185,17 @@ def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"pq_attn kernel takes at most {_MAX_REPS} heads "
                          f"per group and a value width in [4, 512] divisible "
                          f"by 4, got {H // G} and {Dv}")
-    smem = _build.lib().pq_attn_smem_bytes(
-        H // G, M, K, Dv, int(qlut.dtype == torch.bfloat16))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"pq_attn needs {smem} bytes of shared memory per "
-                         f"block, over the card's {_SMEM_MAX}")
     qlut, codes, v = qlut.contiguous(), codes.contiguous(), v.contiguous()
     if v.data_ptr() % (4 * v.element_size()):
         raise ValueError("pq_attn reads values 4 at a time: their storage "
                          "must be aligned to 4 elements")
+    chunk, _ = split_geometry(valid_len, B * G)
+    smem = _build.lib().pq_attn_smem_bytes(
+        H // G, M, K, Dv, chunk, value_vector(v),
+        int(qlut.dtype == torch.bfloat16))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"pq_attn needs {smem} bytes of shared memory per "
+                         f"block, over the card's {_SMEM_MAX}")
     out = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     l = torch.empty((B, H), dtype=torch.float32, device=dev)

@@ -18,6 +18,14 @@ for bit.  ``pq_attn`` is held against its plain version at ``rtol=atol=
 2e-4`` (the reference's tolerance for its kernel; the online softmax
 rescales in another order), and the PQ-KV decode attention's kernel route
 against its plain route at the PQ-KV tolerance ``2e-2``.
+
+The redesigned forms: ``lb_refine``'s warp-per-pair sweep (``w <= 255``)
+and its thread-per-pair form beyond give refined distances equal to
+``dtw_band``'s bit for bit, on waves that are all pruned, all refined,
+mixed with filler pairs, and at bound ties (where a flag may flip only
+within ``FLAG_TIE_REL`` of its threshold); ``pq_attn``'s split-K launch
+gives the same bits on every launch, for one split and many, and leaves
+its ticket counters at 0.
 """
 
 import pytest
@@ -32,7 +40,7 @@ from repro_torch.kernels.dtw_band.ops import (band_width, dtw_band,
                                               dtw_band_cdist)
 from repro_torch.kernels.dtw_band.ref import (dtw_band_adaptive_ref,
                                               dtw_band_cdist_ref, dtw_band_ref)
-from repro_torch.kernels.lb_cascade.ops import lb_refine
+from repro_torch.kernels.lb_cascade.ops import lb_refine, refine_variant
 from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
 from repro_torch.kernels.pq_adc.ops import (adc_lookup, adc_lookup_quant,
                                            adc_sym_cdist,
@@ -41,7 +49,9 @@ from repro_torch.kernels.pq_adc.ref import (adc_lookup_quant_ref,
                                            adc_lookup_ref,
                                            adc_sym_cdist_quant_ref,
                                            adc_sym_cdist_ref)
-from repro_torch.kernels.pq_attn.ops import pq_attn, pq_attn_decode
+from repro_torch.kernels.pq_attn import ops as pq_attn_ops
+from repro_torch.kernels.pq_attn.ops import (pq_attn, pq_attn_decode,
+                                             split_geometry)
 from repro_torch.kernels.pq_attn.ref import (pq_attn_decode_ref,
                                              pq_attn_lut_ref)
 from repro_torch.kernels.prealign_encode.ops import prealign_encode
@@ -51,6 +61,8 @@ pytestmark = pytest.mark.cuda
 
 MEASURES = ("dtw", "wdtw:g=0.1", "erp:g=0.3", "msm:c=0.5")
 TOL = dict(rtol=1e-5, atol=1e-4)
+FLAG_TIE_REL = 1e-5   # lb_refine: a flag may flip this near its threshold
+PQ_ATTN_TOL = 2e-4
 
 
 @pytest.fixture
@@ -285,7 +297,8 @@ def test_dtw_band_full_matches_plain_and_compressed(gen, L, window):
     (300, 0, 2, 4, 4, 16, 32),            # empty prefix
     (300, 77, 2, 4, 4, 16, 32),           # a partial tile
     (256, 256, 1, 8, 8, 64, 64),          # full tiles, 8 heads per group
-    (50, 50, 4, 1, 2, 32, 8)])            # narrow values (32 lanes)
+    (50, 50, 4, 1, 2, 32, 8),             # narrow values (32 lanes)
+    (300, 77, 2, 4, 4, 16, 12)])          # Dv % 8 != 0: 4 values a load
 def test_pq_attn_matches_plain(gen, table, codes_t, values, S, valid, G, R,
                                M, K, Dv):
     B = 3
@@ -336,3 +349,150 @@ def test_pq_attention_decode_kernel_route_matches_plain(gen, pos):
     want = pqkv.pq_attention_decode(q, cache, pos, pqc=pqc, route="plain")
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+def _wave_thresholds(lb, kind):
+    """Thresholds for a wave of ``kind``: all pruned, all refined, mixed
+    (with filler pairs at -inf and +inf), or exactly at the bound (ties)."""
+    n = lb.shape[0]
+    if kind == "pruned":
+        return lb * 0.5 - 0.1
+    if kind == "refined":
+        return torch.full_like(lb, float("inf"))
+    if kind == "ties":
+        return lb.clone()
+    th = torch.where(torch.arange(n, device=lb.device) % 2 == 0,
+                     lb * 1.5 + 0.1, lb * 0.5 - 0.1)
+    th[3::7] = -float("inf")
+    th[5::7] = float("inf")
+    return th
+
+
+@pytest.mark.parametrize("w", [0, 7, 31, 32, 51, 63, 64, 255, 256])
+@pytest.mark.parametrize("L", [300, "short"])
+def test_lb_refine_refined_equal_dtw_band(gen, w, L):
+    """Both forms of lb_refine: refined distances bit-identical to
+    dtw_band's on the same pairs; flags equal the plain bound's (apart
+    from ties within FLAG_TIE_REL); unrefined pairs return the bound."""
+    L = max(2, w // 2 + 3) if L == "short" else L   # "short": L < w + 1
+    eff = min(w, L - 1)
+    n = 157
+    A = torch.cumsum(_randn(gen, n, L), 1)
+    B = torch.cumsum(_randn(gen, n, L), 1)
+    up, lo = tlb.keogh_envelope(A, eff)
+    lb = tlb.cascade_bound(B, A, up, lo)
+    want_all = dtw_band(A, B, w)
+    assert refine_variant(eff) == ("thread" if eff > 255 else "warp")
+    for kind in ("pruned", "refined", "mixed", "ties"):
+        th = _wave_thresholds(lb, kind)
+        before = _build.LAUNCHES["lb_refine"]
+        d, f = lb_refine(A, B, up, lo, th, w)
+        assert _build.LAUNCHES["lb_refine"] == before + 1
+        near = torch.isfinite(th) & (
+            (lb - th).abs() <= FLAG_TIE_REL * th.abs())
+        flips = f != (lb < th)
+        assert not bool((flips & ~near).any()), kind
+        if kind != "ties":
+            assert not bool(flips.any()), kind
+        assert not bool((f & (th == -float("inf"))).any())
+        assert torch.equal(d[f], want_all[f]), kind
+        keep = ~f & ~flips
+        torch.testing.assert_close(d[keep], lb[keep], **TOL)
+        if kind == "pruned":
+            assert not bool(f.any())
+        if kind == "refined":
+            assert bool(f.all())
+        if kind == "mixed":
+            assert 0 < int(f.sum()) < n
+
+
+def test_lb_refine_unstaged_long_series(gen):
+    """Rows too long to stage in shared memory (warp_geometry gives 0
+    bytes): the warp form reads them from device memory, clamping its
+    indices, and still equals dtw_band bit for bit."""
+    from repro_torch.kernels.lb_cascade.ops import warp_geometry
+    n, L, w = 5, 30000, 7
+    assert warp_geometry(n, L, w)[2] == 0
+    A = torch.cumsum(_randn(gen, n, L), 1)
+    B = torch.cumsum(_randn(gen, n, L), 1)
+    up, lo = tlb.keogh_envelope(A, w)
+    th = torch.full((n,), float("inf"), device="cuda")
+    th[1] = -float("inf")
+    d, f = lb_refine(A, B, up, lo, th, w)
+    assert f.tolist() == [True, False, True, True, True]
+    assert torch.equal(d[f], dtw_band(A, B, w)[f])
+
+
+def _pq_inputs(gen, B, S, G=8, R=2, M=8, K=256, Dv=128):
+    qlut = _randn(gen, B, G * R, M, K).to(torch.bfloat16)
+    codes = torch.randint(0, K, (B, S, G, M), generator=gen,
+                          device="cuda").to(torch.uint8)
+    v = _randn(gen, B, S, G, Dv).to(torch.bfloat16)
+    return qlut, codes, v
+
+
+@pytest.mark.parametrize("which", ["0", "1", "chunk-1", "chunk", "chunk+1",
+                                   "S"])
+def test_pq_attn_split_valid_lengths(gen, which):
+    """valid_len at and around one chunk, and the whole cache: one split
+    and many, within PQ_ATTN_TOL of the plain version, the same bits on
+    two launches, counters back at 0."""
+    B, S, G = 3, 2080, 8
+    chunk = split_geometry(S, B * G)[0]
+    valid = {"0": 0, "1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+             "chunk+1": chunk + 1, "S": S}[which]
+    qlut, codes, v = _pq_inputs(gen, B, S, G)
+    first = pq_attn(qlut, codes, v, valid, 0.125)
+    again = pq_attn(qlut, codes, v, valid, 0.125)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    want = pq_attn_lut_ref(qlut, codes, v, valid, 0.125)
+    for got, w in zip(first, want):
+        torch.testing.assert_close(got, w, rtol=PQ_ATTN_TOL,
+                                   atol=PQ_ATTN_TOL)
+    counters = pq_attn_ops._COUNTERS.get(qlut.device)
+    if counters is not None:
+        assert int(counters.abs().sum()) == 0
+
+
+def test_pq_attn_split_counts_cover_one_and_many():
+    B, S, G = 3, 2080, 8
+    chunk = split_geometry(S, B * G)[0]
+    n_splits = {split_geometry(n, B * G)[1]
+                for n in (0, 1, chunk - 1, chunk, chunk + 1, S)}
+    assert 1 in n_splits and max(n_splits) > 1
+
+
+def test_pq_attn_counters_reset_and_grow(gen):
+    """Two calls in a row with different B*G: the counters grow to the
+    larger, every launch leaves them at 0, and a call repeated after the
+    other gives its first bits again."""
+    small = _pq_inputs(gen, 2, 1500)
+    large = _pq_inputs(gen, 8, 1500)
+    a = pq_attn(*small, 1400, 0.1)
+    n_small = pq_attn_ops._COUNTERS[small[0].device].numel()
+    b = pq_attn(*large, 1400, 0.1)
+    counters = pq_attn_ops._COUNTERS[small[0].device]
+    assert counters.numel() >= 8 * 8 and counters.numel() >= n_small
+    assert int(counters.abs().sum()) == 0
+    a2 = pq_attn(*small, 1400, 0.1)
+    for x, y in zip(a, a2):
+        assert torch.equal(x, y)
+    for got, w in zip(b, pq_attn_lut_ref(*large, 1400, 0.1)):
+        torch.testing.assert_close(got, w, rtol=PQ_ATTN_TOL,
+                                   atol=PQ_ATTN_TOL)
+
+
+def test_pq_attn_values_aligned_to_8_bytes(gen):
+    """bf16 values whose storage is 8- but not 16-byte aligned take the
+    4-values-a-load form and give what the 8-a-load form gives."""
+    qlut, codes, v = _pq_inputs(gen, 2, 300)
+    buf = torch.empty(v.numel() + 4, dtype=v.dtype, device="cuda")
+    shifted = buf[4:].view(v.shape)
+    shifted.copy_(v)
+    assert pq_attn_ops.value_vector(shifted) == 4
+    assert pq_attn_ops.value_vector(v) == 8
+    got = pq_attn(qlut, codes, shifted, 250, 0.1)
+    want = pq_attn_lut_ref(qlut, codes, v, 250, 0.1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=PQ_ATTN_TOL, atol=PQ_ATTN_TOL)

@@ -14,7 +14,9 @@ MODULES = (
     "repro_torch.core.topk",
     "repro_torch.index.streaming",
     "repro_torch.kernels.dtw_band.ops",
+    "repro_torch.kernels.lb_cascade.ops",
     "repro_torch.kernels.pq_adc.ops",
+    "repro_torch.kernels.pq_attn.ops",
     "repro_torch.kernels.tune",
     "repro_torch.obs",
 )

@@ -230,3 +230,30 @@ def test_pruning_stats_equal_reference_on_cbf(k, window):
         assert int(got[key]) == int(want[key]), key
     np.testing.assert_array_equal(got["refined_per_wave"].numpy(),
                                   np.asarray(want["refined_per_wave"]))
+
+
+# The lb_refine kernel's form and launch geometry (pure Python, from the
+# band and the length alone).
+@pytest.mark.parametrize("w,want", [(0, "warp"), (7, "warp"), (31, "warp"),
+                                    (32, "warp"), (51, "warp"),
+                                    (255, "warp"), (256, "thread"),
+                                    (511, "thread")])
+def test_refine_variant_by_window(w, want):
+    from repro_torch.kernels.lb_cascade.ops import refine_variant
+    assert refine_variant(w) == want
+
+
+@pytest.mark.parametrize("w", [0, 31, 32, 51, 64, 255])
+@pytest.mark.parametrize("n,L", [(1, 16), (512, 512), (7680, 512),
+                                 (301, 33), (9, 8000), (3, 40000)])
+def test_warp_geometry(n, L, w):
+    from repro_torch.kernels.lb_cascade.ops import warp_cells, warp_geometry
+    C = warp_cells(w)
+    assert 32 * C >= w + 1 and (C == 1 or 16 * C < w + 1)
+    warps, blocks, smem = warp_geometry(n, L, w)
+    per_warp = 2 * (L + 64 * C) * 4
+    assert 1 <= warps <= 4 and blocks * warps >= n > (blocks - 1) * warps
+    assert smem in (0, warps * per_warp) and smem <= 227 * 1024
+    assert (smem == 0) == (per_warp > 227 * 1024)
+    if 4 * per_warp <= 227 * 1024:
+        assert warps == 4

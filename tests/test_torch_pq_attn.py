@@ -162,3 +162,48 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="disagree"):
         ops.pq_attn(qlut, torch.zeros((1, 5, 1, 3), dtype=torch.uint8), v,
                     5, 1.0)
+
+
+# The kernel's split over the valid prefix (pure Python, chosen from the
+# shapes alone): every position lies in exactly one split, no split is
+# empty, none starts beyond valid_len.
+@pytest.mark.parametrize("rows", [1, 6, 24, 64, 512, 4096])
+@pytest.mark.parametrize("valid_len", [1, 2, 63, 64, 65, 77, 255, 256, 257,
+                                       1921, 2080, 32768, 200_000])
+def test_split_geometry_covers_valid_len(valid_len, rows):
+    chunk, n_split = ops.split_geometry(valid_len, rows)
+    assert chunk % 64 == 0 and 64 <= chunk
+    assert chunk <= 1024 or n_split == 65535 or chunk * 65535 >= valid_len
+    assert 1 <= n_split <= 65535
+    assert (n_split - 1) * chunk < valid_len <= n_split * chunk
+
+
+def test_split_geometry_serving_shape_and_empty_prefix():
+    # B=8, G=8 rows at the serving tail: 8 splits of 256, 512 CTAs
+    assert ops.split_geometry(1921, 64) == (256, 8)
+    assert ops.split_geometry(0, 64) == (64, 1)
+    # at least 2 CTAs a SM when the prefix allows it, one split when short
+    chunk, n_split = ops.split_geometry(2080, 24)
+    assert (chunk, n_split) == (128, 17) and 24 * n_split >= 2 * 132
+    assert ops.split_geometry(40, 64) == (64, 1)
+    # more splits than the grid allows: the chunk grows past 1024
+    chunk, n_split = ops.split_geometry(100_000_000, 1)
+    assert n_split <= 65535 and chunk > 1024
+
+
+@pytest.mark.parametrize("rows,n_split,reps,Dv", [(64, 8, 2, 128),
+                                                  (6, 2, 4, 32),
+                                                  (24, 17, 8, 64),
+                                                  (8, 1, 2, 128)])
+def test_workspace_floats(rows, n_split, reps, Dv):
+    want = 0 if n_split == 1 else rows * n_split * reps * Dv \
+        + rows * n_split * reps * 2
+    assert ops.workspace_floats(rows, n_split, reps, Dv) == want
+
+
+@pytest.mark.parametrize("dtype,Dv,offset,want", [
+    (torch.bfloat16, 128, 0, 8), (torch.bfloat16, 132, 0, 4),
+    (torch.bfloat16, 128, 4, 4), (torch.float32, 128, 0, 4)])
+def test_value_vector(dtype, Dv, offset, want):
+    v = torch.zeros(2 * Dv + 8, dtype=dtype)[offset:offset + Dv]
+    assert ops.value_vector(v) == want
