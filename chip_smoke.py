@@ -22,8 +22,9 @@ window 7), then the search paths beyond 1-NN on the same data:
   or above its static cost; ``elastic_pairwise(band="adaptive")`` and
   ``certify_adaptive`` (the certified share printed, and how many
   certified pairs equal the static cost)
-  on the 7680 pairs of each query and its static top 10; recall@10
-  against the static search;
+  on the 7680 pairs of each query and its static top 10, and the same
+  sweep under erp and msm in those corridors (at or above their static
+  cost); recall@10 against the static search;
 - ``quant_path``: ``pq.cdist_sym`` and ``dispatch.adc_lookup`` of the 768
   query codes / tables against the 6144 training codes with int8 and
   bfloat16 tables, each within 2% of the float32 maximum, with their 1-NN
@@ -54,8 +55,15 @@ against ``dtw_band``'s bit for bit, and the thread-per-pair form (the
 wrapper's choice beyond ``w = 255``) is timed beside the warp form on the
 same wave.  ``lb_refine_adaptive``
 is held the same way on the adaptive hot scan, its refined distances bit
-for bit; ``dtw_band_adaptive`` and the quantised ADC kernels must equal
-their plain versions exactly.
+for bit, its thread form and its clamped warp sweep timed beside its
+padded warp sweep, the latter equal to it bit for bit; ``dtw_band_adaptive``
+(dtw, and erp and msm as ``dtw_band_adaptive[erp]``, ``[msm]``) and the
+quantised ADC kernels must equal their plain versions exactly.
+``dtw_band_cdist`` is timed in both its forms (the band row in registers,
+the wrapper's choice at these shapes, and in shared memory) at ``fit``'s
+shape and at the exact search's, equal bit for bit; ``pq_attn`` is
+launched on two streams at once, each launch equal to its single-stream
+result, every stream's ticket counters back at 0.
 
     python3 chip_smoke.py
 
@@ -73,10 +81,13 @@ never printed.  Without a CUDA device the script exits non-zero at once.
 ``ms`` is the kernel's launch alone (mean of ``REPS`` back-to-back
 launches, CUDA events, so a launch shorter than the host's launch overhead
 reads that overhead); ``wrapper_ms`` in the phase line is the whole
-wrapper call, checks included.  ``prev_ms`` of ``lb_refine`` is the
-thread-per-pair form, the kernel's design before its redesign and the
-wrapper's choice beyond ``w = 255``, launched on the same wave in the same
-run.  Bounds (``bound_ms``) use the H100 SXM's
+wrapper call, checks included.  ``prev_ms`` of a redesigned row is its
+earlier form launched on the same inputs in the same run: for
+``lb_refine`` and ``lb_refine_adaptive`` the thread-per-pair form (the
+wrapper's choice beyond ``w = 255`` / width 256), for ``dtw_band_cdist``
+the band row in shared memory (the wrapper's choice for wider bands);
+``lb_refine_adaptive``'s phase line also times its warp form with the
+clamped sweep for every pair (``clamped_warp_form_ms``).  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
 tensor cores.  ``library_ms`` of ``pq_attn`` is
 ``scaled_dot_product_attention`` over the keys reconstructed from the
@@ -138,6 +149,8 @@ TPU_SITES = {
     "adc_lookup_quant": "src/repro/kernels/pq_adc/kernel.py:170",
     "pq_attn": "src/repro/kernels/pq_attn/kernel.py:97",
     "dtw_band_full": "src/repro/kernels/dtw_band/kernel.py:384",
+    "dtw_band_adaptive[erp]": "src/repro/kernels/dtw_band/kernel.py:384",
+    "dtw_band_adaptive[msm]": "src/repro/kernels/dtw_band/kernel.py:384",
 }
 # rows redesigned for the H100 after their first port
 DESIGNS = {
@@ -145,7 +158,17 @@ DESIGNS = {
                  "(thread per pair beyond w = 255)",
     "pq_attn": "split-K flash-decoding over the tail, merged in the same "
                "launch by the last CTA of each (row, group)",
+    "lb_refine_adaptive": "one warp per pair, corridor slots across the "
+                          "lanes (thread per pair beyond width 256)",
+    "dtw_band_cdist": "the band row in registers, the B row staged in "
+                      "shared memory (the row in shared memory where 2w+2 "
+                      "exceeds 32 slots, 128 for dtw)",
 }
+# the adaptive sweep's other measures on the card (row 7's op[measure])
+ADAPTIVE_MEASURES = {"erp": "erp:g=0.3", "msm": "msm:c=0.5"}
+# float32 operations per DP cell of the erp and msm moves (three moves,
+# two mins and the clamp; msm's split/merge cost is 10 a move)
+MEASURE_OPS_PER_CELL = {"erp": 12, "msm": 28}
 SOURCES = {
     "dtw_band": "src/repro_torch/kernels/csrc/dtw_band.cu",
     "dtw_band_cdist": "src/repro_torch/kernels/csrc/dtw_band.cu",
@@ -159,6 +182,8 @@ SOURCES = {
     "adc_lookup_quant": "src/repro_torch/kernels/csrc/pq_adc.cu",
     "pq_attn": "src/repro_torch/kernels/csrc/pq_attn.cu",
     "dtw_band_full": "src/repro_torch/kernels/csrc/dtw_band.cu",
+    "dtw_band_adaptive[erp]": "src/repro_torch/kernels/csrc/dtw_band.cu",
+    "dtw_band_adaptive[msm]": "src/repro_torch/kernels/csrc/dtw_band.cu",
 }
 
 _records = []
@@ -647,9 +672,17 @@ def adaptive_path(torch, _build, ctx, waves) -> dict:
     cert, seconds["certify_adaptive"] = _timed(
         torch, lambda: corridor.certify_adaptive(qq, xx, lo, hi, window=w,
                                                  width=width))
+    # the other measures' adaptive sweep on the same pairs and corridors
+    other = {}
+    for key, measure in ADAPTIVE_MEASURES.items():
+        other[key], seconds[f"elastic_pairwise_adaptive_{key}"] = _timed(
+            torch, lambda: dispatch.elastic_pairwise(
+                qq, xx, w, band="adaptive", measure=measure,
+                corridor=(lo, hi)))
     launches = dict(_build.LAUNCHES)
     routes = sorted({r for _, r in dispatch.stats})
-    for k in ("dtw_band_adaptive", "lb_refine_adaptive"):
+    for k in ("dtw_band_adaptive", "lb_refine_adaptive",
+              *(f"dtw_band_adaptive[{m}]" for m in ADAPTIVE_MEASURES)):
         check(launches[k] > 0, f"adaptive path launched {k}: {launches}")
     check(launches["lb_refine"] == 0, "the adaptive search never ran the "
           "static cascade")
@@ -672,6 +705,18 @@ def adaptive_path(torch, _build, ctx, waves) -> dict:
              "median_ratio": float((d_pairs / static).median()),
              "mean_corridor_width": float(corridor.corridor_width(
                  lo, hi).float().mean())}
+
+    # erp and msm: finite, and at or above the static sweep (within the
+    # tolerance of erp's border sums, log-depth here and sequential there)
+    for key, measure in ADAPTIVE_MEASURES.items():
+        st_m = dtw_band(qq, xx, w, measure)
+        got = other[key]
+        check(bool(torch.isfinite(got).all()), f"adaptive {key} finite")
+        check(bool((got >= st_m - (ATOL + RTOL * st_m.abs())).all()),
+              f"adaptive {key} >= static on the 7680 pairs")
+        pairs[key] = {"equal": int((got == st_m).sum()),
+                      "median_ratio": float((got / st_m).median())}
+    ctx["adaptive_other"] = other
 
     # the search again, untimed, with every wave checked
     hot = {"refined": 0, "certified": 0, "certified_equal": 0, "equal": 0}
@@ -792,12 +837,13 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
     pairs), ``lb_refine_adaptive`` on the adaptive hot scan's first wave
     and first mixed wave.  Both bit-identical where they refine; the
     flags of row 8 as for ``lb_refine`` (flips only at bound ties)."""
-    from repro_torch.core import corridor
+    from repro_torch.core import corridor, measures
     from repro_torch.core.lb import cascade_bound
     from repro_torch.kernels.dtw_band.ops import (dtw_band, dtw_band_adaptive,
                                                   launch_dtw_band_adaptive)
     from repro_torch.kernels.dtw_band.ref import dtw_band_adaptive_ref
-    from repro_torch.kernels.lb_cascade.ops import (launch_lb_refine_adaptive,
+    from repro_torch.kernels.lb_cascade.ops import (adaptive_variant,
+                                                    launch_lb_refine_adaptive,
                                                     lb_refine)
     from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
     launches = ctx["adaptive_launches"]
@@ -818,6 +864,30 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
         _live_cells(torch, clo, chi) * DTW_OPS_PER_CELL,
         launch_fn=lambda: (launch_dtw_band_adaptive(
             qq, xx, clo, chi, width, 0, None, out), out)[1], exact=True)
+    # erp and msm through the same sweep (dtw_band_adaptive[erp], [msm]):
+    # bit for bit against the plain version on the same pairs
+    for key, measure in ADAPTIVE_MEASURES.items():
+        spec = measures.resolve(measure)
+        kid, param = (measures.kernel_measure_id(spec),
+                      measures.kernel_param(spec))
+        name = f"dtw_band_adaptive[{key}]"
+        got = kernel_row(
+            torch, launches, rows, name,
+            {"pairs": [n, L], "window": w, "width": width,
+             "measure": measure},
+            lambda: dtw_band_adaptive(qq, xx, (clo, chi), width, w, measure),
+            lambda: dtw_band_adaptive_ref(qq, xx, clo, chi, w, width,
+                                          measure), None,
+            n * (2 * L * 4 + 2 * (2 * L - 1) * 4 + 4),
+            _live_cells(torch, clo, chi) * MEASURE_OPS_PER_CELL[key]
+            + (n * 2 * L * (1 + (L - 1).bit_length()) if key == "erp"
+               else 0),
+            launch_fn=lambda: (launch_dtw_band_adaptive(
+                qq, xx, clo, chi, width, kid, None, out, param), out)[1],
+            exact=True)
+        check(torch.equal(got, ctx["adaptive_other"][key]),
+              f"{name}: the launch equals adaptive_path's "
+              "elastic_pairwise(band='adaptive') result")
 
     log = waves["adaptive_hot"]
     check(log["totals"]["pruned"] > 0, "adaptive hot scan: some wave "
@@ -864,6 +934,10 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
               "wrapper")
         wrapper_ms = _mean_ms(torch, lambda: lb_refine(
             A, B, up, lo_e, th, win, corridor=(cl, ch), width=width), REPS)
+        thread_ms = _adaptive_thread_form_ms(torch, A, B, up, lo_e, th, cl,
+                                             ch, width, d, f)
+        clamped_ms = _adaptive_clamped_warp_ms(torch, A, B, up, lo_e, th,
+                                               cl, ch, width, d, f)
         bound_ms, bound_by = bound(
             n * (16 * L + 12 + 2 * (2 * L - 1) * 4),
             n * 5 * L + _live_cells(torch, cl[f], ch[f]) * DTW_OPS_PER_CELL)
@@ -873,12 +947,16 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
                "launches": launches["lb_refine_adaptive"],
                "max_abs_err": max_abs, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None}
+               "bound_by": bound_by, "library_ms": None,
+               "design": DESIGNS["lb_refine_adaptive"],
+               "variant": adaptive_variant(width), "prev_ms": thread_ms}
         emit({"phase": "kernel", **row, "wave": f"adaptive_hot {which}",
               "shapes": {"pairs": [n, L], "window": win, "width": width},
               "n_refined": n_refined, "n_pruned": n_pruned,
               "n_filler": n_filler, "flag_ties": int(flips.sum()),
               "near_threshold": int(near.sum()), "wrapper_ms": wrapper_ms,
+              "thread_form_ms": thread_ms,
+              "clamped_warp_form_ms": clamped_ms,
               "max_rel_err": max_rel, "agrees": ok,
               "in_table": which == "first",
               "tolerance": {"refined": "identical", "rtol": RTOL,
@@ -886,6 +964,66 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
         if which == "first":
             rows.append(row)
     return rows
+
+
+def _adaptive_thread_form_ms(torch, A, B, up, lo, th, clo, chi, width, d,
+                             f):
+    """The thread-per-pair form of ``lb_refine_adaptive`` (the wrapper's
+    choice beyond width 256, and its first design at every width) launched
+    directly on the same wave: timed for comparison within this run; its
+    flags differ from the plain bound's only at bound ties, and its
+    refined distances equal the warp form's.  Not a launch of the path."""
+    from repro_torch.core.lb import cascade_bound
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band.ops import row_geometry
+    n, L = A.shape
+    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+    d_out = torch.empty_like(d)
+    flag = torch.empty(n, dtype=torch.int32, device=A.device)
+
+    def launch():
+        _build.check(_build.lib().pq_lb_refine_adaptive(
+            A.data_ptr(), B.data_ptr(), up.data_ptr(), lo.data_ptr(),
+            th.data_ptr(), clo.data_ptr(), chi.data_ptr(), d_out.data_ptr(),
+            flag.data_ptr(), _build.ptr(scratch), n, L, width, threads,
+            blocks, _build.stream(A.device)),
+            "lb_refine_adaptive (thread form)")
+
+    ms = _mean_ms(torch, launch, REPS)
+    _flag_flips(torch, flag.bool(), cascade_bound(B, A, up, lo), th,
+                "lb_refine_adaptive (thread form)")
+    both = flag.bool() & f
+    check(torch.equal(d_out[both], d[both]), "lb_refine_adaptive: the "
+          "thread form's refined distances equal the warp form's")
+    return ms
+
+
+def _adaptive_clamped_warp_ms(torch, A, B, up, lo, th, clo, chi, width, d,
+                              f):
+    """The warp form of ``lb_refine_adaptive`` with the clamped sweep for
+    every pair (its first design, and its fallback for a corridor that
+    breaks the invariants) launched directly on the same wave: timed for
+    comparison within this run, and its output equal to the padded
+    sweep's bit for bit, flags included.  Not a launch of the path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lb_cascade.ops import corridor_warp_geometry
+    n, L = A.shape
+    d_out = torch.empty_like(d)
+    flag = torch.empty(n, dtype=torch.int32, device=A.device)
+
+    def launch():
+        _build.check(_build.lib().pq_lb_refine_adaptive_warp(
+            A.data_ptr(), B.data_ptr(), up.data_ptr(), lo.data_ptr(),
+            th.data_ptr(), clo.data_ptr(), chi.data_ptr(), d_out.data_ptr(),
+            flag.data_ptr(), n, L, width,
+            *corridor_warp_geometry(n, L, width), 0,
+            _build.stream(A.device)), "lb_refine_adaptive (clamped warp)")
+
+    ms = _mean_ms(torch, launch, REPS)
+    check(torch.equal(flag.bool(), f) and torch.equal(d_out, d),
+          "lb_refine_adaptive: the clamped warp sweep equals the padded "
+          "sweep bit for bit")
+    return ms
 
 
 def quant_kernel_phases(torch, ctx) -> list:
@@ -1296,6 +1434,7 @@ def pq_attn_phase(torch, lm) -> dict:
           "wrapper_ms": wrapper_ms, "serving_types_max_abs_err": serve_err,
           "agrees": ok32 and serve_ok, "in_table": True,
           "tolerance": {"rtol": PQ_ATTN_TOL, "atol": PQ_ATTN_TOL}})
+    _pq_attn_two_streams(torch, qlut, codes, v, n, scale)
     check(serve_ok, "pq_attn (bf16 table, uint8 codes, bf16 values) agrees "
           "with its plain version")
     check(ok32, "pq_attn (float32) agrees with the dequantise-then-softmax "
@@ -1303,10 +1442,42 @@ def pq_attn_phase(torch, lm) -> dict:
     return row
 
 
+def _pq_attn_two_streams(torch, qlut, codes, v, n, scale) -> None:
+    """Row 11 launched on two streams at once with different inputs (the
+    layer-0 table and its rows reversed): each launch equals its
+    single-stream result bit for bit, and every stream's ticket counters
+    end at 0 (each stream draws its own)."""
+    from repro_torch.kernels.pq_attn import ops
+    inputs = [(qlut, codes, v), (qlut.flip(0).contiguous(), codes, v)]
+    want = [ops.pq_attn(*x, n, scale) for x in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(REPS):
+        for x, st in zip(inputs, streams):
+            with torch.cuda.stream(st):
+                got.append(ops.pq_attn(*x, n, scale))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for k, outs in enumerate(got)
+                for a, b in zip(outs, want[k % 2]))
+    keys = {ops.counter_key(qlut.device, st.cuda_stream) for st in streams}
+    keys.add(ops.counter_key(qlut.device,
+                             torch.cuda.current_stream().cuda_stream))
+    zero = all(int(ops._COUNTERS[k].abs().sum()) == 0 for k in keys)
+    emit({"phase": "pq_attn_two_streams", "launches_per_stream": REPS,
+          "identical": equal, "counters_at_zero": zero,
+          "counter_sets": len(keys)})
+    check(equal, "pq_attn on two streams equals its single-stream results")
+    check(zero and len(keys) == 3, "pq_attn: every stream's counters at 0")
+
+
 def full_kernel_phase(torch, ctx) -> dict:
     """Row 12 on the 7680 pairs at L=512, w=51: identical to its plain
-    version (the reference kernel's sweep) and to row 1 on the same pairs;
-    its bound is row 1's (the same banded function)."""
+    version (the reference kernel's sweep) and to row 1 on the same pairs.
+    It computes banded DTW, so its bound counts the band's cells, as row
+    1's does; ``sweep_bound_ms`` in the phase line is the same bound over
+    all (2L-1) * L slots that the full-width algorithm visits (the band
+    only a mask there): the algorithm's work, not the function's."""
     from repro_torch.kernels.dtw_band.ops import launch_dtw_band_full
     from repro_torch.kernels.dtw_band.ref import dtw_band_full_ref
     qq, xx, _, _, w, _ = ctx["adaptive_pairs"]
@@ -1320,6 +1491,8 @@ def full_kernel_phase(torch, ctx) -> dict:
           "the wrapper")
     bound_ms, bound_by = bound((2 * n * L + n) * 4,
                                n * band_cells(L, w) * DTW_OPS_PER_CELL)
+    sweep_bound_ms, _ = bound((2 * n * L + n) * 4,
+                              n * (2 * L - 1) * L * DTW_OPS_PER_CELL)
     row = {"name": "dtw_band_full", "route": "cuda",
            "source": SOURCES["dtw_band_full"],
            "replaces": TPU_SITES["dtw_band_full"],
@@ -1328,6 +1501,7 @@ def full_kernel_phase(torch, ctx) -> dict:
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None}
     emit({"phase": "kernel", **row, "shapes": {"pairs": [n, L], "window": w},
+          "sweep_bound_ms": sweep_bound_ms,
           "equals_dtw_band": bool(torch.equal(got,
                                               ctx["baseline_compressed"])),
           "agrees": ok, "in_table": True, "tolerance": "identical"})
@@ -1414,12 +1588,14 @@ def _errors(torch, got, want):
 
 def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
                library_fn, nbytes, ops, launch_fn=None, table=True,
-               exact=False):
+               exact=False, extra=None):
     """Hold one kernel against its plain version and time both.
     ``launch_fn``: the launch alone, returning its output, where the
     wrapper does more than launch (a range check); ``table=False``: a
     second shape of a kernel already in the table, printed as a phase line
-    only; ``exact``: the outputs must be identical (max abs error 0)."""
+    only; ``exact``: the outputs must be identical (max abs error 0);
+    ``extra``: more fields of the record (a redesigned row's earlier
+    form)."""
     got = kernel_fn()
     torch.cuda.synchronize()
     want, plain_ms = _sync_ms(torch, plain_fn)
@@ -1439,7 +1615,7 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
            "replaces": TPU_SITES[name], "launches": launches[name],
            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms, **(extra or {})}
     emit({"phase": "kernel", **row, "shapes": shapes,
           "wrapper_ms": wrapper_ms, "max_rel_err": max_rel, "agrees": ok,
           "in_table": table,
@@ -1454,7 +1630,8 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
 def kernel_phases(torch, ctx) -> list:
     from repro_torch.core import pq
     from repro_torch.core.modwt import linspace01
-    from repro_torch.kernels.dtw_band.ops import dtw_band, dtw_band_cdist
+    from repro_torch.kernels.dtw_band.ops import (cdist_bucket, dtw_band,
+                                                  dtw_band_cdist)
     from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
                                                   dtw_band_ref)
     from repro_torch.kernels.pq_adc.ops import (adc_lookup, adc_sym_cdist,
@@ -1487,25 +1664,48 @@ def kernel_phases(torch, ctx) -> list:
           (2 * P * S + P) * 4, P * cells * DTW_OPS_PER_CELL)
     del qs, cs
 
-    # 2. all pairs: a DBA k-means assignment (N segments x K centroids)
+    # 2. all pairs: a DBA k-means assignment (N segments x K centroids),
+    # the register form, with the shared-memory form timed beside it
     A, B = segs[:, 0].contiguous(), cb.centroids[0].contiguous()
-    phase("dtw_band_cdist", {"A": [N, S], "B": [K, S], "window": w},
+    bucket = cdist_bucket(w, 0, S)
+    check(bucket is not None, "fit's assignment takes the register form")
+    forms = _cdist_forms_ms(torch, A, B, w, bucket)
+    phase("dtw_band_cdist", {"A": [N, S], "B": [K, S], "window": w,
+                             "bucket": bucket},
           lambda: dtw_band_cdist(A, B, w),
           lambda: dtw_band_cdist_ref(A, B, w), None,
-          (N * S + K * S + N * K) * 4, N * K * cells * DTW_OPS_PER_CELL)
+          (N * S + K * S + N * K) * 4, N * K * cells * DTW_OPS_PER_CELL,
+          extra={"design": DESIGNS["dtw_band_cdist"],
+                 "variant": f"registers ({bucket} slots)",
+                 "prev_ms": forms["shared_memory_ms"]})
     del A, B
 
-    # 2b. all pairs at the exact 1-NN's geometry (L=512, window 51, where
-    # the band rows take a 64-thread block): the first queries of
-    # nn_dtw_exact against the whole training set
+    # 2b. all pairs at the exact 1-NN's geometry (L=512, window 51, the
+    # register form at 128 slots): the first queries of nn_dtw_exact
+    # against the whole training set, held against the plain version; then
+    # all the exact search's queries timed in both forms, and the same at
+    # L=256, w=26 (64 slots)
     Qn, w_nn = Qd[:EXACT_CHECK_QUERIES].contiguous(), ctx["w_exact"]
     nn_cells = band_cells(D, w_nn)
+    check(cdist_bucket(w_nn, 0, D) == 128, "the exact search's band takes "
+          "the register form at 128 slots")
     phase("dtw_band_cdist", {"A": [EXACT_CHECK_QUERIES, D], "B": [N, D],
                              "window": w_nn},
           lambda: dtw_band_cdist(Qn, Xd, w_nn),
           lambda: dtw_band_cdist_ref(Qn, Xd, w_nn), None,
           (EXACT_CHECK_QUERIES * D + N * D + EXACT_CHECK_QUERIES * N) * 4,
           EXACT_CHECK_QUERIES * N * nn_cells * DTW_OPS_PER_CELL, table=False)
+    for Lf, wf in ((D, w_nn), (D // 2, 26)):
+        Qe = Qd[:EXACT_QUERIES, :Lf].contiguous()
+        Xe = Xd[:, :Lf].contiguous()
+        forms = _cdist_forms_ms(torch, Qe, Xe, wf, cdist_bucket(wf, 0, Lf))
+        bound_ms, bound_by = bound(
+            (EXACT_QUERIES * Lf + N * Lf + EXACT_QUERIES * N) * 4,
+            EXACT_QUERIES * N * band_cells(Lf, wf) * DTW_OPS_PER_CELL)
+        emit({"phase": "dtw_band_cdist_forms", "A": [EXACT_QUERIES, Lf],
+              "B": [N, Lf], "window": wf, **forms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "wrapper_form": "registers"})
+    del Xe
 
     # 3. symmetric ADC: query codes x training codes through the LUT
     lut = cb.lut.contiguous()
@@ -1548,6 +1748,40 @@ def kernel_phases(torch, ctx) -> list:
     check(torch.equal(fused, ctx["codes_fused"]),
           "fused codes equal the main path's exact encode")
     return rows
+
+
+def _cdist_forms_ms(torch, A, B, w, bucket) -> dict:
+    """``dtw_band_cdist`` (dtw) in its two forms launched directly on the
+    same inputs: the band row in registers (``bucket`` slots) and in
+    shared memory; both timed in this run and equal bit for bit.  Not
+    launches of the path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band.ops import band_geometry, reg_grid
+    (N, L), M = A.shape, B.shape[0]
+    outs, ms = {}, {}
+    stream = _build.stream(A.device)
+    swap, blocks_x, blocks_y = reg_grid(N, M)
+    threads, blocks, scratch = band_geometry(N * M, w, A.device)
+    for form in ("registers", "shared_memory"):
+        out = torch.empty((N, M), dtype=torch.float32, device=A.device)
+        if form == "registers":
+            def launch():
+                _build.check(_build.lib().pq_dtw_band_cdist_reg(
+                    A.data_ptr(), B.data_ptr(), out.data_ptr(), None, N, M,
+                    L, w, 0, 0.0, bucket, int(swap), 128, blocks_x,
+                    blocks_y, stream), "dtw_band_cdist (registers)")
+        else:
+            def launch():
+                _build.check(_build.lib().pq_dtw_band_cdist(
+                    A.data_ptr(), B.data_ptr(), out.data_ptr(), None,
+                    _build.ptr(scratch), N, M, L, w, 0, 0.0, threads,
+                    blocks, stream), "dtw_band_cdist (shared memory)")
+        ms[f"{form}_ms"] = _mean_ms(torch, launch, REPS)
+        outs[form] = out
+    check(torch.equal(outs["registers"], outs["shared_memory"]),
+          f"dtw_band_cdist: the register form ({bucket} slots) equals the "
+          "shared-memory form bit for bit")
+    return {**ms, "bucket": bucket, "identical": True}
 
 
 def lb_refine_phases(torch, ctx, waves) -> dict:

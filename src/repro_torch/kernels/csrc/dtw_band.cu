@@ -8,12 +8,27 @@
 // (N, 2L-1) int32 with a register cap W -> (N,)), and dtw_band_kernel
 // (mode="full", the DTW-only full-width baseline, below).
 //
-// One thread sweeps one pair with pqdtw::band_cost (wavefront.cuh, which
-// says what bounds the DP and why).  Threads walk the pairs grid-stride,
-// so the wrapper may cap the grid when the band rows live in a global
-// scratch buffer.  In the all-pairs form consecutive threads take
-// consecutive rows of A against the same row of B, so a warp reads one B
-// row (broadcast) and the N*M pairs are never materialised.
+// One thread sweeps one pair.  The zipped form uses pqdtw::band_cost
+// (wavefront.cuh, which says what bounds the DP and why), the band row in
+// shared memory or a wrapper-allocated scratch buffer; threads walk the
+// pairs grid-stride, so the wrapper may cap the grid.
+//
+// The all-pairs form (the k-means assignments, the symmetric LUT, the
+// coarse search, 1-NN) has two: where the band's 2w + 2 slots fit a
+// register bucket (8, 16 or 32; for dtw also 64 and 128) the band row lives in
+// registers (pqdtw::band_cost_reg, the k-loop unrolled, cells off the band
+// masked by selects) and each block stages its B row in shared memory;
+// there each cell is about its 5-6 arithmetic instructions, where the
+// shared-memory row adds a load, a store and the loop's control to each.
+// Wider bands keep band_cost, consecutive threads taking consecutive rows
+// of A against one row of B (a broadcast read).  The wrapper picks the
+// form from w, the measure and L alone (dtw_band/ops.py::cdist_bucket);
+// both give the same bits.  The N*M pairs are never materialised.
+//
+// The adaptive form sweeps every measure inside the pair's corridor with
+// pqdtw::corridor_cost, one thread a pair (a chain of (2L-1) * W slot
+// updates: latency-bound); for erp it first forms the pair's border sums
+// in the reference's log-depth order into the wrapper's gaps buffer.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +77,53 @@ __global__ void dtw_band_cdist_kernel(const float* __restrict__ A,
   }
 }
 
+// The all-pairs form with the band row in registers (band_cost_reg, for
+// 2w + 2 <= WB): grid (x: rows of one operand in blocks, y: rows of the
+// other, walked grid-stride).  The block stages its y row in shared memory
+// with WB copies of each edge element on both sides (coalesced), so every
+// thread of the block reads it as a broadcast and needs no edge test, and
+// for WDTW the L weights beside it; thread t owns x row blockIdx.x *
+// blockDim.x + t and reads it from device memory (once a row of the table,
+// L1-cached).  The x rows are A's, or with swap B's (the wrapper gives the
+// threads the longer operand, so that few queries against many series
+// still fill the warps); the banded cost is symmetric to the bit (each
+// cell of the swapped table is the same float32 expression of the same
+// predecessors, min and the squared difference being exact under
+// exchange), so either way out[i * M + j] = cost(A[i], B[j]).
+template <int MEAS, int WB>
+__global__ void dtw_band_cdist_reg_kernel(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          float* __restrict__ out,
+                                          const float* __restrict__ wt,
+                                          int N, int M, int L, int w,
+                                          float p, int swap) {
+  extern __shared__ float sb[];  // L + 2 * WB floats (+ L weights)
+  float* sw = sb + L + 2 * WB;
+  if (MEAS == pqdtw::kWDTW)
+    for (int k = threadIdx.x; k < L; k += blockDim.x) sw[k] = wt[k];
+  const float* X = swap ? B : A;
+  const float* Y = swap ? A : B;
+  const int nx = swap ? M : N, ny = swap ? N : M;
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int y = blockIdx.y; y < ny; y += gridDim.y) {
+    const float* b = Y + (long long)y * L;
+    __syncthreads();  // the previous row's readers are done
+    for (int k = threadIdx.x; k < L + 2 * WB; k += blockDim.x)
+      sb[k] = b[min(max(k - WB, 0), L - 1)];
+    __syncthreads();
+    if (x < nx) {
+      const float c = pqdtw::band_cost_reg<MEAS, WB>(X + x * L, sb + WB, L,
+                                                     w, p, sw);
+      out[swap ? (long long)y * M + x : x * M + y] = c;
+    }
+  }
+}
+
+// ERP's border sums live in gaps (2 * L * T floats from the wrapper, T =
+// gridDim.x * blockDim.x): thread g keeps the pair it sweeps at ga =
+// gaps[i * T + g] and gb = gaps[(L + i) * T + g], so a warp's accesses
+// coalesce and the buffer follows the grid, not the pairs; other measures
+// pass none.
 template <int MEAS>
 __global__ void dtw_band_adaptive_kernel(const float* __restrict__ A,
                                          const float* __restrict__ B,
@@ -69,17 +131,29 @@ __global__ void dtw_band_adaptive_kernel(const float* __restrict__ A,
                                          const int* __restrict__ hi,
                                          float* __restrict__ out,
                                          const float* __restrict__ wt,
-                                         float* scratch, int n, int L,
-                                         int W) {
+                                         float* scratch, float* gaps, int n,
+                                         int L, int W, float p) {
   float* row;
   int stride;
   band_row(scratch, &row, &stride);
   const long long D = 2LL * L - 1;
   const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n;
-       q += step) {
-    out[q] = pqdtw::corridor_cost<MEAS>(A + q * L, B + q * L, lo + q * D,
-                                        hi + q * D, L, W, wt, row, stride);
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float* ga = nullptr;
+  float* gb = nullptr;
+  if (MEAS == pqdtw::kERP) {
+    ga = gaps + g;
+    gb = gaps + (size_t)L * step + g;
+  }
+  for (long long q = g; q < n; q += step) {
+    const float* a = A + q * L;
+    const float* b = B + q * L;
+    if (MEAS == pqdtw::kERP) {
+      pqdtw::gap_prefix_sum(a, p, L, ga, step);
+      pqdtw::gap_prefix_sum(b, p, L, gb, step);
+    }
+    out[q] = pqdtw::corridor_cost<MEAS>(a, b, lo + q * D, hi + q * D, L, W,
+                                        p, wt, ga, gb, step, row, stride);
   }
 }
 
@@ -138,6 +212,49 @@ __global__ void dtw_band_full_kernel(const float* __restrict__ A,
     }
     out[q] = prev1[(size_t)(L - 1) * stride];
   }
+}
+
+// The register form of pq_dtw_band_cdist: bucket WB in {8, 16, 32} for
+// every measure (64 and 128 for dtw), 2w + 2 <= WB; grid (blocks_x,
+// blocks_y) with blocks_x * threads >= the threads' operand's rows (B's
+// with swap, else A's).
+template <int MEAS>
+int launch_cdist_reg(const float* A, const float* B, float* out,
+                     const float* wt, int N, int M, int L, int w, float p,
+                     int bucket, int swap, int threads, int blocks_x,
+                     int blocks_y, cudaStream_t s) {
+  const dim3 grid(blocks_x, blocks_y);
+  const size_t smem =
+      (size_t)(L + 2 * bucket + (MEAS == pqdtw::kWDTW ? L : 0)) *
+      sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  switch (bucket) {
+    case 8:
+      dtw_band_cdist_reg_kernel<MEAS, 8><<<grid, threads, smem, s>>>(
+          A, B, out, wt, N, M, L, w, p, swap);
+      break;
+    case 16:
+      dtw_band_cdist_reg_kernel<MEAS, 16><<<grid, threads, smem, s>>>(
+          A, B, out, wt, N, M, L, w, p, swap);
+      break;
+    case 32:
+      dtw_band_cdist_reg_kernel<MEAS, 32><<<grid, threads, smem, s>>>(
+          A, B, out, wt, N, M, L, w, p, swap);
+      break;
+    case 64:
+      if (MEAS != pqdtw::kDTW) return (int)cudaErrorInvalidValue;
+      dtw_band_cdist_reg_kernel<pqdtw::kDTW, 64><<<grid, threads, smem, s>>>(
+          A, B, out, wt, N, M, L, w, p, swap);
+      break;
+    case 128:
+      if (MEAS != pqdtw::kDTW) return (int)cudaErrorInvalidValue;
+      dtw_band_cdist_reg_kernel<pqdtw::kDTW, 128><<<grid, threads, smem, s>>>(
+          A, B, out, wt, N, M, L, w, p, swap);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -201,20 +318,62 @@ int pq_dtw_band_cdist(const float* A, const float* B, float* out,
   return (int)cudaGetLastError();
 }
 
+int pq_dtw_band_cdist_reg(const float* A, const float* B, float* out,
+                          const float* wt, int N, int M, int L, int w,
+                          int measure, float p, int bucket, int swap,
+                          int threads, int blocks_x, int blocks_y,
+                          void* stream) {
+  if (w < 0 || w > L - 1 || 2 * w + 2 > bucket)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (measure) {
+    case pqdtw::kDTW:
+      return launch_cdist_reg<pqdtw::kDTW>(A, B, out, wt, N, M, L, w, p,
+                                           bucket, swap, threads,
+                                           blocks_x, blocks_y, s);
+    case pqdtw::kWDTW:
+      return launch_cdist_reg<pqdtw::kWDTW>(A, B, out, wt, N, M, L, w, p,
+                                            bucket, swap, threads,
+                                            blocks_x, blocks_y, s);
+    case pqdtw::kERP:
+      return launch_cdist_reg<pqdtw::kERP>(A, B, out, wt, N, M, L, w, p,
+                                           bucket, swap, threads,
+                                           blocks_x, blocks_y, s);
+    case pqdtw::kMSM:
+      return launch_cdist_reg<pqdtw::kMSM>(A, B, out, wt, N, M, L, w, p,
+                                           bucket, swap, threads,
+                                           blocks_x, blocks_y, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// gaps: 2 * L * threads * blocks floats for erp (its border sums), else
+// unused.
 int pq_dtw_band_adaptive(const float* A, const float* B, const int* lo,
                          const int* hi, float* out, const float* wt,
-                         float* scratch, int n, int L, int width, int measure,
-                         int threads, int blocks, void* stream) {
+                         float* scratch, float* gaps, int n, int L, int width,
+                         int measure, float p, int threads, int blocks,
+                         void* stream) {
   const size_t smem = pqdtw::state_smem_bytes(scratch, threads, 3 * width);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (measure) {
     case pqdtw::kDTW:
       dtw_band_adaptive_kernel<pqdtw::kDTW><<<blocks, threads, smem, s>>>(
-          A, B, lo, hi, out, wt, scratch, n, L, width);
+          A, B, lo, hi, out, wt, scratch, gaps, n, L, width, p);
       break;
     case pqdtw::kWDTW:
       dtw_band_adaptive_kernel<pqdtw::kWDTW><<<blocks, threads, smem, s>>>(
-          A, B, lo, hi, out, wt, scratch, n, L, width);
+          A, B, lo, hi, out, wt, scratch, gaps, n, L, width, p);
+      break;
+    case pqdtw::kERP:
+      if (gaps == nullptr) return (int)cudaErrorInvalidValue;
+      dtw_band_adaptive_kernel<pqdtw::kERP><<<blocks, threads, smem, s>>>(
+          A, B, lo, hi, out, wt, scratch, gaps, n, L, width, p);
+      break;
+    case pqdtw::kMSM:
+      dtw_band_adaptive_kernel<pqdtw::kMSM><<<blocks, threads, smem, s>>>(
+          A, B, lo, hi, out, wt, scratch, gaps, n, L, width, p);
       break;
     default:
       return (int)cudaErrorInvalidValue;

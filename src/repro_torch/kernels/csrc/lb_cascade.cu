@@ -51,11 +51,26 @@
 // ulp or two of its threshold may flip its flag.  The refined distance is
 // the DP of dtw_band.cu, bit-identical to it in both forms.
 //
-// The adaptive form keeps the thread-per-pair bound pass and skip; only a
-// survivor's refine changes, to pqdtw::corridor_cost inside the pair's
-// corridor lo, hi (N, 2L-1) int32 with register cap W, the DP of
-// dtw_band.cu's adaptive kernel.  Its refined value is the
-// corridor-restricted cost, an upper bound of the static one.
+// The adaptive form (lb_cascade_adaptive_kernel) refines a survivor
+// inside its corridor lo, hi (N, 2L-1) int32 with register cap W, the DP
+// of dtw_band.cu's adaptive kernel; its refined value is the
+// corridor-restricted cost, an upper bound of the static one.  Up to
+// W = 256 one warp per pair (lb_refine_adaptive_warp_kernel): the warp
+// form's bound pass and exits, the rows staged in shared memory as
+// [a | 32C NaNs | b], then pqdtw::corridor_cost_warp_padded, 2L-1
+// dependent steps of C = ceil(W/32) slots a lane (rounded up to 1, 2, 4
+// or 8), each step one broadcast of the diagonal's packed live count and
+// shift case, one or two shuffles, and per slot two shared-memory loads
+// and the cell's arithmetic: bound by those instructions across the
+// wave's warps, not by bytes.  A corridor that breaks the invariants
+// falls back to the clamped pqdtw::corridor_cost_warp for its pair.
+// Beyond W = 256, lb_refine_adaptive_kernel, one thread per pair: a
+// sequential bound, then pqdtw::corridor_cost, one chain of (2L-1) * W
+// slot updates whose three diagonals live in shared memory (3W floats a
+// thread, so 128 threads a CTA at W = 32, and a 7680-pair wave fills 60
+// CTAs: bound by that chain's latency).  The wrapper picks the form from
+// W alone (kernels/lb_cascade/ops.py::adaptive_variant); both count as
+// lb_refine_adaptive and give the same refined bits.
 
 #include <cuda_runtime.h>
 
@@ -82,6 +97,30 @@ __device__ __forceinline__ float cascade_lb(const float* __restrict__ a,
     keogh = keogh + (above + below);
   }
   return fmaxf(kim, keogh);
+}
+
+// max(LB_Kim, LB_Keogh) of one pair by its warp: lane-strided LB_Keogh
+// partial sums, then an xor-shuffle tree, so every lane holds the bound.
+__device__ __forceinline__ float warp_cascade_lb(const float* __restrict__ a,
+                                                 const float* __restrict__ b,
+                                                 const float* __restrict__ u,
+                                                 const float* __restrict__ l,
+                                                 int L, int lane) {
+  float keogh = 0.f;
+  for (int i = lane; i < L; i += 32) {
+    const float x = b[i];
+    const float hi_gap = x - u[i];
+    const float lo_gap = l[i] - x;
+    const float above = (x > u[i]) ? hi_gap * hi_gap : 0.f;
+    const float below = (x < l[i]) ? lo_gap * lo_gap : 0.f;
+    keogh = keogh + (above + below);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    keogh = keogh + __shfl_xor_sync(0xffffffffu, keogh, o);
+  const float d0 = a[0] - b[0];
+  const float d1 = a[L - 1] - b[L - 1];
+  return fmaxf(d0 * d0 + d1 * d1, keogh);
 }
 
 __global__ void lb_refine_kernel(const float* __restrict__ A,
@@ -127,15 +166,14 @@ __global__ void lb_refine_adaptive_kernel(
     const float lb = cascade_lb(a, b, up + q * L, lo + q * L, L);
     const bool surv = lb < thresh[q];
     d_out[q] = surv ? pqdtw::corridor_cost<pqdtw::kDTW>(
-                          a, b, clo + q * D, chi + q * D, L, W, nullptr, row,
-                          stride)
+                          a, b, clo + q * D, chi + q * D, L, W, 0.f, nullptr,
+                          nullptr, nullptr, 0, row, stride)
                     : lb;
     flag[q] = surv ? 1 : 0;
   }
 }
 
-// One warp per pair (see the head of this file).  Lane-strided LB_Keogh
-// partial sums, then an xor-shuffle tree, so every lane holds lb.
+// One warp per pair (see the head of this file).
 template <int C>
 __global__ void lb_refine_warp_kernel(const float* __restrict__ A,
                                       const float* __restrict__ B,
@@ -154,21 +192,7 @@ __global__ void lb_refine_warp_kernel(const float* __restrict__ A,
   const float* b = B + q * L;
   const float* u = up + q * L;
   const float* l = lo + q * L;
-  float keogh = 0.f;
-  for (int i = lane; i < L; i += 32) {
-    const float x = b[i];
-    const float hi_gap = x - u[i];
-    const float lo_gap = l[i] - x;
-    const float above = (x > u[i]) ? hi_gap * hi_gap : 0.f;
-    const float below = (x < l[i]) ? lo_gap * lo_gap : 0.f;
-    keogh = keogh + (above + below);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    keogh = keogh + __shfl_xor_sync(0xffffffffu, keogh, o);
-  const float d0 = a[0] - b[0];
-  const float d1 = a[L - 1] - b[L - 1];
-  const float lb = fmaxf(d0 * d0 + d1 * d1, keogh);
+  const float lb = warp_cascade_lb(a, b, u, l, L, lane);
   if (!(lb < thresh[q])) {
     if (lane == 0) {
       d_out[q] = lb;
@@ -214,6 +238,82 @@ int launch_warp(const float* A, const float* B, const float* up,
   }
   kernel<<<blocks, warps * 32, smem, stream>>>(A, B, up, lo, thresh, d_out,
                                                flag, n, L, w, smem > 0);
+  return (int)cudaGetLastError();
+}
+
+// The adaptive refine, one warp per pair (W <= 256): the bound pass and
+// the exits of lb_refine_warp_kernel, then a survivor's warp stages a and
+// b in its slice of shared memory as [a | warp_pad(C) NaNs | b] (2L +
+// 32C floats) and sweeps the corridor with
+// pqdtw::corridor_cost_warp_padded<C> (no clamps, no (0, 0) test, a body
+// per shift case), C = ceil(W / 32) rounded up to 1, 2, 4 or 8.  A
+// corridor that breaks its invariants is swept again with the clamped
+// pqdtw::corridor_cost_warp<C> on the same staged rows, as are all pairs
+// with padded == 0 (the earlier form, kept for comparison) and, from
+// device memory, all pairs when even one warp's slice does not fit.
+template <int C>
+__global__ void lb_refine_adaptive_warp_kernel(
+    const float* __restrict__ A, const float* __restrict__ B,
+    const float* __restrict__ up, const float* __restrict__ lo,
+    const float* __restrict__ thresh, const int* __restrict__ clo,
+    const int* __restrict__ chi, float* __restrict__ d_out,
+    int* __restrict__ flag, int n, int L, int W, int stage, int padded) {
+  extern __shared__ float rows[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long q = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (q >= n) return;  // the whole warp: one pair per warp
+  const float* a = A + q * L;
+  const float* b = B + q * L;
+  const float lb = warp_cascade_lb(a, b, up + q * L, lo + q * L, L, lane);
+  if (!(lb < thresh[q])) {
+    if (lane == 0) {
+      d_out[q] = lb;
+      flag[q] = 0;
+    }
+    return;
+  }
+  const long long D = 2LL * L - 1;
+  const int* cl = clo + q * D;
+  const int* ch = chi + q * D;
+  float cost;
+  if (stage) {
+    constexpr int P = pqdtw::warp_pad(C);
+    float* sa = rows + (size_t)warp * (2 * L + P);
+    const float nan = __int_as_float(0x7fc00000);
+    for (int k = lane; k < 2 * L + P; k += 32)
+      sa[k] = k < L ? a[k] : (k < L + P ? nan : b[k - L - P]);
+    __syncwarp();
+    a = sa;
+    b = sa + L + P;
+    if (!(padded &&
+          pqdtw::corridor_cost_warp_padded<C>(a, b, cl, ch, L, W, lane,
+                                              &cost)))
+      cost = pqdtw::corridor_cost_warp<C>(a, b, cl, ch, L, W, lane);
+  } else {
+    cost = pqdtw::corridor_cost_warp<C>(a, b, cl, ch, L, W, lane);
+  }
+  if (lane == 0) {
+    d_out[q] = cost;
+    flag[q] = 1;
+  }
+}
+
+template <int C>
+int launch_adaptive_warp(const float* A, const float* B, const float* up,
+                         const float* lo, const float* thresh, const int* clo,
+                         const int* chi, float* d_out, int* flag, int n,
+                         int L, int W, int warps, int blocks, size_t smem,
+                         int padded, cudaStream_t stream) {
+  auto kernel = lb_refine_adaptive_warp_kernel<C>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, warps * 32, smem, stream>>>(A, B, up, lo, thresh, clo, chi,
+                                               d_out, flag, n, L, W,
+                                               smem > 0, padded);
   return (int)cudaGetLastError();
 }
 
@@ -266,6 +366,38 @@ int pq_lb_refine_adaptive(const float* A, const float* B, const float* up,
                               static_cast<cudaStream_t>(stream)>>>(
       A, B, up, lo, thresh, clo, chi, d_out, flag, scratch, n, L, width);
   return (int)cudaGetLastError();
+}
+
+// One warp per pair inside the corridor, 1 <= width <= 256; warps per CTA
+// and the staging shared memory (warps * (2L + 32C) floats, or 0: read a
+// and b from device memory) as the wrapper's corridor_warp_geometry gives
+// them.  padded = 1 sweeps valid corridors on the padded rows (the
+// wrapper's form), 0 every pair with the clamped sweep.
+int pq_lb_refine_adaptive_warp(const float* A, const float* B,
+                               const float* up, const float* lo,
+                               const float* thresh, const int* clo,
+                               const int* chi, float* d_out, int* flag, int n,
+                               int L, int width, int warps, int blocks,
+                               int smem, int padded, void* stream) {
+  if (width < 1 || width > 256 || warps < 1 || warps > 32)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int need = (width + 31) / 32;
+  if (need <= 1)
+    return launch_adaptive_warp<1>(A, B, up, lo, thresh, clo, chi, d_out,
+                                   flag, n, L, width, warps, blocks, smem,
+                                   padded, s);
+  if (need <= 2)
+    return launch_adaptive_warp<2>(A, B, up, lo, thresh, clo, chi, d_out,
+                                   flag, n, L, width, warps, blocks, smem,
+                                   padded, s);
+  if (need <= 4)
+    return launch_adaptive_warp<4>(A, B, up, lo, thresh, clo, chi, d_out,
+                                   flag, n, L, width, warps, blocks, smem,
+                                   padded, s);
+  return launch_adaptive_warp<8>(A, B, up, lo, thresh, clo, chi, d_out, flag,
+                                 n, L, width, warps, blocks, smem, padded,
+                                 s);
 }
 
 }  // extern "C"

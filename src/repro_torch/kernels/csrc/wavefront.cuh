@@ -1,8 +1,29 @@
 // Banded elastic DP shared by every kernel of the port that sweeps an
 // alignment table: dtw_band.cu (zipped pairs and all pairs),
 // lb_cascade.cu (the refine step of the LB cascade) and prealign_encode.cu
-// (segment x centroid 1-NN).  corridor_cost, at the end, is the same DP
-// inside a per-pair adaptive corridor (dtw_band.cu and lb_cascade.cu).
+// (segment x centroid 1-NN).  The forms, each bit-identical to band_cost
+// on the same cells:
+//
+//   band_cost           one thread a pair, the band row in shared memory
+//                       or scratch (zipped pairs, wide all-pairs bands,
+//                       prealign, lb_cascade beyond w = 255);
+//   corridor_cost       the same DP inside a per-pair adaptive corridor,
+//                       every measure (dtw_band.cu's adaptive kernel, and
+//                       lb_cascade.cu's beyond width 256);
+//   corridor_cost_warp_padded
+//                       one warp a pair inside the corridor, dtw, on
+//                       padded rows (lb_cascade.cu's adaptive refine up to
+//                       width 256, for corridors that keep the invariants);
+//   corridor_cost_warp  the same with clamped indices (its fallback for a
+//                       corridor that breaks them);
+//   band_cost_warp      one warp a pair in the static band, dtw
+//                       (lb_cascade.cu's refine up to w = 255);
+//   band_cost_reg       one thread a pair, the band row in registers
+//                       (dtw_band.cu's all pairs for narrow bands).
+//
+// The thread forms are bound by one pair's dependent chain (hidden by
+// thousands of pairs in flight) or, in registers, by instructions a cell;
+// the warp forms cut the chain to 2L-1 diagonal steps.
 //
 // Replaces repro/kernels/dtw_band/kernel.py::wavefront_compressed, the
 // band-compressed anti-diagonal sweep of the TPU kernels.  On the TPU one
@@ -173,27 +194,53 @@ inline size_t band_smem_bytes(const float* scratch, int threads, int w) {
 // (lo[-1] and lo[-2] read lo[0]), a slot outside [0, W) reading +inf.  A
 // slot that is not live holds +inf, so a predecessor outside the corridor
 // reads +inf whichever slot it maps to.  Each live cell is the float32
-// expression of band_cost: __fmaf_rn for the dtw/wdtw cell, the 3e38
-// clamp after it.  So with the static band as the corridor and W at
-// least its widest diagonal, the cost equals band_cost's to the bit.
+// expression of band_cost for every measure: __fmaf_rn for the dtw/wdtw
+// cell, the three moves for erp and msm, the 3e38 clamp after it.  So with
+// the static band as the corridor and W at least its widest diagonal, the
+// dtw/wdtw cost equals band_cost's to the bit.
+//
+// Borders, as the reference selects them (kernel.py:269-280): MSM reads
+// a[i-1] and b[j-1], element 0 standing in at the border.  ERP reads its
+// virtual first column and row, T[i, -1] = ga[i] and T[-1, j] = gb[j], the
+// prefix sums of |a - g| and |b - g|: at i == 0 the vertical predecessor
+// is gb[j] and the diagonal gb[j-1] (0 at j == 0), at j == 0 the
+// horizontal one is ga[i] and the diagonal ga[i-1].  The reference forms
+// ga and gb by a log-depth scan (_prefix_sum), not a running sum, and the
+// float32 sums differ, so the caller forms them with gap_prefix_sums
+// below, in the reference's order, before the sweep.
 //
 // Storage: diagonals d, d-1 and d-2, W floats each, at diag[(k*W + t) *
 // stride] (shared memory column of this thread, or global scratch, as
 // band_row gives it); the three buffers rotate.  The DP reads lo[d] and
 // hi[d] once per diagonal.  A pair costs (2L-1) * W slot updates, against
-// band_cost's L * (2w+1) cells.  Only DTW and WDTW are swept (the
-// shared-cost cell); the wrappers raise for other measures on the card.
+// band_cost's L * (2w+1) cells: one dependent chain per thread, so what
+// bounds it is that chain's latency, not bytes (corridor_cost_warp below
+// cuts the chain to 2L-1 steps for the DTW refine of lb_cascade.cu).
 //
-// Indices into a, b and wt are clamped, so a corridor that breaks the
-// structural invariants gives a wrong cost, never a fault.
+// Indices into a, b, wt, ga and gb are clamped, so a corridor that breaks
+// the structural invariants gives a wrong cost, never a fault.
+
+// ERP's border sums of one pair in the reference's order: g[i * gs] =
+// |x[i] - p|, then the Hillis-Steele scan g[i] += g[i - s] for s = 1, 2,
+// 4, ... < L, each stage reading the previous stage's values
+// (repro/kernels/dtw_band/kernel.py::_prefix_sum).  Run in place with i
+// descending, a stage reads g[i - s] before it writes it.
+__device__ __forceinline__ void gap_prefix_sum(const float* __restrict__ x,
+                                               float p, int L, float* g,
+                                               size_t gs) {
+  for (int i = 0; i < L; ++i) g[i * gs] = fabsf(x[i] - p);
+  for (int s = 1; s < L; s *= 2)
+    for (int i = L - 1; i >= s; --i) g[i * gs] = g[i * gs] + g[(i - s) * gs];
+}
 
 template <int MEAS>
 __device__ float corridor_cost(const float* __restrict__ a,
                                const float* __restrict__ b,
                                const int* __restrict__ lo,
                                const int* __restrict__ hi, int L, int W,
-                               const float* __restrict__ wt, float* diag,
-                               int stride) {
+                               float p, const float* __restrict__ wt,
+                               const float* ga, const float* gb, size_t gs,
+                               float* diag, int stride) {
   int o_cur = 0, o_p1 = W, o_p2 = 2 * W;  // slot offsets of the buffers
   for (int k = W; k < 3 * W; ++k) diag[k * stride] = kInf;
   int lo_1 = lo[0], lo_2 = lo[0];  // lo[max(d-1, 0)], lo[max(d-2, 0)]
@@ -209,21 +256,37 @@ __device__ float corridor_cost(const float* __restrict__ a,
       float cell = kInf;
       if (t <= live) {
         const int kh = t + sh, kv = t + sv, kd = t + sd;
-        const float h =
-            (kh >= 0 && kh < W) ? diag[(o_p1 + kh) * stride] : kInf;
-        const float v =
-            (kv >= 0 && kv < W) ? diag[(o_p1 + kv) * stride] : kInf;
+        float h = (kh >= 0 && kh < W) ? diag[(o_p1 + kh) * stride] : kInf;
+        float v = (kv >= 0 && kv < W) ? diag[(o_p1 + kv) * stride] : kInf;
         float dg = (kd >= 0 && kd < W) ? diag[(o_p2 + kd) * stride] : kInf;
         const int i = l + t, j = d - i;
+        const int ic = min(max(i, 0), L - 1), jc = min(max(j, 0), L - 1);
+        const float x = a[ic];
+        const float y = b[jc];
+        if (MEAS == kERP) {
+          if (i == 0) {
+            v = gb[jc * gs];
+            dg = (j > 0) ? gb[min(j - 1, L - 1) * gs] : 0.f;
+          } else if (j == 0) {
+            dg = ga[min(i - 1, L - 1) * gs];
+          }
+          if (j == 0) h = ga[ic * gs];
+        }
         if (i == 0 && j == 0) dg = 0.f;  // (0, 0) starts from 0 diagonally
-        const float x = a[min(max(i, 0), L - 1)];
-        const float y = b[min(max(j, 0), L - 1)];
         const float df = x - y;
         if (MEAS == kDTW) {
           cell = __fmaf_rn(df, df, fminf(fminf(dg, h), v));
-        } else {
+        } else if (MEAS == kWDTW) {
           cell = __fmaf_rn(wt[min(abs(i - j), L - 1)], df * df,
                            fminf(fminf(dg, h), v));
+        } else if (MEAS == kERP) {
+          cell = fminf(fminf(dg + fabsf(x - y), v + fabsf(x - p)),
+                       h + fabsf(y - p));
+        } else {
+          const float xp = a[max(ic - 1, 0)];  // a[0] at the border
+          const float yp = b[max(jc - 1, 0)];
+          cell = fminf(fminf(dg + fabsf(x - y), v + msm_move(x, xp, y, p)),
+                       h + msm_move(y, yp, x, p));
         }
         cell = fminf(cell, kInf);
       }
@@ -237,6 +300,242 @@ __device__ float corridor_cost(const float* __restrict__ a,
     lo_1 = l;
   }
   return diag[o_p1 * stride];  // diagonal 2L-2: cell (L-1, L-1) in slot 0
+}
+
+// ---------------------------------------------------------------------------
+// One warp per pair inside the corridor (DTW)
+// ---------------------------------------------------------------------------
+//
+// corridor_cost<kDTW> swept by the 32 lanes of one warp together: slot t
+// of diagonal d is lane t / C, register t % C (32 * C >= W), so a pair
+// costs 2L-1 dependent diagonal steps of C cells a lane.  The shifts
+// sign(s1), sign(s1 - 1) and sign(s2) belong to the pair, so they are
+// uniform across the warp: diagonal d-1 is read at shifts {sh, sv}, which
+// never differ in sign and are never both 0 ({1, 0} or {0, -1} for a
+// valid corridor), and d-2 at sd.  One shuffle of d-1's boundary register
+// in direction e1 (sh if nonzero, else sv) and one of d-2's in direction
+// sd bring the one neighbouring slot that lies in another lane; no lane
+// diverges.  lo[d] and hi[d] are loaded 32 diagonals at a time,
+// one a lane, and broadcast by shuffle.  Non-live slots hold +inf, every
+// live cell is fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), kInf)
+// with the same clamped indices as corridor_cost, and fminf is exact and
+// order-free, so the cost equals corridor_cost<kDTW>'s to the bit, for any
+// corridor.  a and b may point to shared memory (staged rows) or to device
+// memory.  Every lane returns the cost of cell (L-1, L-1), slot 0 of
+// diagonal 2L-2.
+
+// reg[c + s] across the lanes, s in {-1, 0, 1}: edge is the neighbour
+// lane's boundary register (lane + s), +inf beyond the warp.
+template <int C>
+__device__ __forceinline__ float slot_at(const float* reg, int c, int s,
+                                         float edge) {
+  const float up = (c < C - 1) ? reg[c < C - 1 ? c + 1 : 0] : edge;
+  const float down = (c > 0) ? reg[c > 0 ? c - 1 : 0] : edge;
+  return s == 0 ? reg[c] : (s > 0 ? up : down);
+}
+
+// The neighbour lane's boundary register for shift s (+inf off the warp).
+template <int C>
+__device__ __forceinline__ float lane_edge(const float* reg, int s,
+                                           int lane) {
+  const float mine = s > 0 ? reg[0] : reg[C - 1];
+  const int src = lane + s;
+  const float got = __shfl_sync(0xffffffffu, mine, src & 31);
+  return (src < 0 || src > 31) ? kInf : got;
+}
+
+template <int C>
+__device__ float corridor_cost_warp(const float* a, const float* b,
+                                    const int* __restrict__ lo,
+                                    const int* __restrict__ hi, int L, int W,
+                                    int lane) {
+  const int t0 = lane * C;  // this lane's first slot
+  float cur[C], p1[C], p2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) p1[c] = p2[c] = kInf;
+  const int D = 2 * L - 1;
+  int lo_1 = lo[0], lo_2 = lo[0];
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    const int dl = min(d0 + lane, D - 1);
+    const int lo_r = lo[dl], hi_r = hi[dl];
+    const int nd = min(32, D - d0);
+    for (int k = 0; k < nd; ++k) {
+      const int d = d0 + k;
+      const int l = __shfl_sync(0xffffffffu, lo_r, k);
+      const int live = min(__shfl_sync(0xffffffffu, hi_r, k) - l, W - 1);
+      const int s1 = l - lo_1;
+      const int s2 = l - lo_2 - 1;
+      const int sh = (s1 > 0) - (s1 < 0);
+      const int sv = (s1 - 1 > 0) - (s1 - 1 < 0);
+      const int sd = (s2 > 0) - (s2 < 0);
+      const int e1 = sh != 0 ? sh : sv;
+      const float edge1 = lane_edge<C>(p1, e1, lane);
+      const float edge2 = lane_edge<C>(p2, sd, lane);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int t = t0 + c;
+        const float h = slot_at<C>(p1, c, sh, edge1);
+        const float v = slot_at<C>(p1, c, sv, edge1);
+        float dg = slot_at<C>(p2, c, sd, edge2);
+        const int i = l + t, j = d - i;
+        if (i == 0 && j == 0) dg = 0.f;
+        const float x = a[min(max(i, 0), L - 1)];
+        const float y = b[min(max(j, 0), L - 1)];
+        const float df = x - y;
+        const float cell =
+            fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), kInf);
+        cur[c] = (t <= live) ? cell : kInf;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        p2[c] = p1[c];
+        p1[c] = cur[c];
+      }
+      lo_2 = lo_1;
+      lo_1 = l;
+    }
+  }
+  return __shfl_sync(0xffffffffu, p1[0], 0);  // slot 0 of diagonal 2L-2
+}
+
+// ---------------------------------------------------------------------------
+// The warp sweep on padded rows, for corridors that keep the invariants
+// ---------------------------------------------------------------------------
+//
+// A corridor as core/corridor.py builds it has lo[0] = 0, drift s1 =
+// lo[d] - lo[d-1] in {0, 1}, each diagonal's base cell (lo[d], d - lo[d])
+// in the table, and its live cells too (lo[d] + live <= min(d, L-1)).
+// Then (0, 0) is slot 0 of diagonal 0 alone, a live cell never leaves the
+// table, and a slot past the live ones reads at most 32C - 1 floats beyond
+// the end of a or before the start of b.  corridor_cost_warp_padded takes
+// a and b from one staged buffer [a | warp_pad(C) floats | b], so it
+// clamps no index; it peels diagonal 0, so no cell tests for (0, 0); and
+// the pair's shifts (s1, s2) take six values (s2 = lo[d] - lo[d-2] - 1 in
+// {-1, 0, 1}), so a warp-uniform branch a diagonal picks a body that reads
+// its predecessors with no select: h at slot t + s1, v at t + s1 - 1, dg
+// at t + s2.  The lanes check the invariants as they load lo and hi, 32
+// diagonals at a time, and pack each diagonal's live count and case into
+// one int, broadcast by one shuffle a diagonal; lo[d] itself is carried
+// as a running sum of s1.  Where a diagonal breaks the invariants the
+// function returns false at once and the caller sweeps the pair again
+// with corridor_cost_warp.  Where it returns true its cost is
+// corridor_cost_warp's to the bit: the same live cells from the same
+// elements, the same float32 expression, +inf elsewhere.
+
+// One diagonal: slot t = t0 + c at row i0 + c, column j0 - c; the
+// predecessors of diagonal d-1 (p1) at shifts S1 and S1 - 1, of d-2 (p2)
+// at SD, one shuffle each for the slot that lies in the next lane.
+template <int C, int S1, int SD>
+__device__ __forceinline__ void corridor_diag(float* cur, const float* p1,
+                                              const float* p2, const float* a,
+                                              const float* b, int i0, int j0,
+                                              int live, int t0, int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  float e1, e2 = kInf;
+  if (S1 == 1) {
+    e1 = __shfl_down_sync(kFull, p1[0], 1);
+    if (lane == 31) e1 = kInf;
+  } else {
+    e1 = __shfl_up_sync(kFull, p1[C - 1], 1);
+    if (lane == 0) e1 = kInf;
+  }
+  if (SD == 1) {
+    e2 = __shfl_down_sync(kFull, p2[0], 1);
+    if (lane == 31) e2 = kInf;
+  } else if (SD == -1) {
+    e2 = __shfl_up_sync(kFull, p2[C - 1], 1);
+    if (lane == 0) e2 = kInf;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float up1 = (c < C - 1) ? p1[c < C - 1 ? c + 1 : 0] : e1;
+    const float dn1 = (c > 0) ? p1[c > 0 ? c - 1 : 0] : e1;
+    const float h = S1 == 1 ? up1 : p1[c];
+    const float v = S1 == 1 ? p1[c] : dn1;
+    float dg = p2[c];
+    if (SD == 1) dg = (c < C - 1) ? p2[c < C - 1 ? c + 1 : 0] : e2;
+    if (SD == -1) dg = (c > 0) ? p2[c > 0 ? c - 1 : 0] : e2;
+    const float df = a[i0 + c] - b[j0 - c];
+    const float cell =
+        fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), kInf);
+    cur[c] = (t0 + c <= live) ? cell : kInf;
+  }
+}
+
+template <int C>
+__device__ bool corridor_cost_warp_padded(const float* a, const float* b,
+                                          const int* __restrict__ lo,
+                                          const int* __restrict__ hi, int L,
+                                          int W, int lane, float* cost) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int t0 = lane * C;  // this lane's first slot
+  const int D = 2 * L - 1;
+  // cell (0, 0): corridor_cost_warp's expression with dg = 0, h = v = +inf
+  const float df0 = a[0] - b[0];
+  const float c00 = fminf(__fmaf_rn(df0, df0, 0.f), kInf);
+  float cur[C], p1[C], p2[C];
+  int l = 0;  // lo[d], carried
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    const int dl = d0 + lane;
+    bool ok = true;
+    int pk = 0;  // live * 8 + 3 * s1 + (s2 + 1)
+    if (dl < D) {
+      const int ld = lo[dl];
+      const int s1 = ld - lo[max(dl - 1, 0)];
+      const int s2 = ld - lo[max(dl - 2, 0)] - 1;
+      const int live = max(min(hi[dl] - ld, W - 1), -1);
+      ok = ld >= 0 && ld <= min(dl, L - 1) && dl - ld <= L - 1 &&
+           (dl == 0 ? ld == 0 : (s1 == 0 || s1 == 1)) &&
+           ld + live <= min(dl, L - 1);
+      pk = live * 8 + 3 * s1 + s2 + 1;
+    }
+    if (!__all_sync(kFull, ok)) return false;
+    const int nd = min(32, D - d0);
+    int k = 0;
+    if (d0 == 0) {  // diagonal 0
+      const bool live0 = (__shfl_sync(kFull, pk, 0) >> 3) >= 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        p1[c] = (t0 + c == 0 && live0) ? c00 : kInf;
+        p2[c] = kInf;
+      }
+      k = 1;
+    }
+    for (; k < nd; ++k) {
+      const int q = __shfl_sync(kFull, pk, k);
+      const int live = q >> 3;
+      const int code = q & 7;
+      l += code >= 3;
+      const int i0 = l + t0, j0 = d0 + k - l - t0;
+      switch (code) {
+        case 0:
+          corridor_diag<C, 0, -1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
+          break;
+        case 1:
+          corridor_diag<C, 0, 0>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
+          break;
+        case 2:
+          corridor_diag<C, 0, 1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
+          break;
+        case 3:
+          corridor_diag<C, 1, -1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
+          break;
+        case 4:
+          corridor_diag<C, 1, 0>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
+          break;
+        default:
+          corridor_diag<C, 1, 1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
+          break;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        p2[c] = p1[c];
+        p1[c] = cur[c];
+      }
+    }
+  }
+  *cost = __shfl_sync(kFull, p1[0], 0);  // slot 0 of diagonal 2L-2
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -365,6 +664,99 @@ __device__ float band_cost_warp(const float* a, const float* b, int L, int w,
   for (int c = 0; c < C; ++c)
     if (s0 + c == s_end) mine = x[c];
   return __shfl_sync(0xffffffffu, mine, s_end / C);
+}
+
+// ---------------------------------------------------------------------------
+// The band row in registers (narrow bands)
+// ---------------------------------------------------------------------------
+//
+// band_cost with the row held in a register array of WB slots (WB a
+// compile-time bucket, 2w + 2 <= WB) in place of shared memory: one thread
+// still owns one pair, but the k-loop is unrolled over all WB slots, so
+// each cell is register arithmetic plus one broadcast load of b[j], and a
+// cell outside the table or the band keeps its slot by a select, not by a
+// loop bound.  The sweep, the predecessors and every float32 expression
+// are band_cost's, so the cost equals band_cost's to the bit, for every
+// measure:
+//
+//   cell k of row i (j = i - w + k) sits in slot k; its diagonal
+//   predecessor is the old slot k, the vertical one the old slot k + 1,
+//   the horizontal one the new slot k - 1 (+inf at k = 0).  Written in
+//   place with k ascending, as band_cost does; slot 2w + 1 stays +inf.
+//
+// Row -1 is planted before the sweep: T[-1, -1] = 0 in slot w starts cell
+// (0, 0), every other slot is +inf.  ERP's borders, summed left to right
+// as band_cost sums them, enter by selects on the row's first cell (its
+// horizontal predecessor T[i, -1] = ga[i] and its diagonal one ga[i-1]
+// where j = 0 lies in the row) and on row 0 (vertical T[-1, j] = gb[j],
+// diagonal gb[j-1]), so no register is indexed by a runtime value: an
+// array indexed so would live in local memory.
+//
+// b points at a row padded on both sides by WB copies of its edge
+// elements (the caller stages it so in shared memory), so b[j] needs no
+// test and MSM's b[j-1] at j = 0 reads b[0], band_cost's sentinel.  wt:
+// WDTW's weights by |i - j| = |w - k| (the caller stages them in shared
+// memory beside the row).
+
+template <int MEAS, int WB>
+__device__ float band_cost_reg(const float* __restrict__ a, const float* b,
+                               int L, int w, float p, const float* wt) {
+  float r[WB];
+#pragma unroll
+  for (int s = 0; s < WB; ++s) r[s] = (s == w) ? 0.f : kInf;
+  float ga = 0.f;
+  for (int i = 0; i < L; ++i) {
+    const float x = a[i];
+    const float xp = (i > 0) ? a[i - 1] : a[0];
+    const float ga_prev = ga;
+    if (MEAS == kERP) ga = ga + fabsf(x - p);
+    const int k_lo = max(0, w - i);
+    const int k_hi = min(2 * w, L - 1 - i + w);
+    const float* bj = b + (i - w);  // bj[k] = b[j] of cell k
+    // ERP: the first cell's border predecessors where j = 0 is in the row
+    const int k_col = (i <= w) ? k_lo : -1;
+    const int k_dcol = (i >= 1 && i <= w) ? k_lo : -1;
+    float gb = 0.f;  // ERP, row 0: T[-1, j]
+#pragma unroll
+    for (int k = 0; k < WB - 1; ++k) {
+      float dg = r[k];
+      float v = r[k + 1];
+      float h = (k > 0) ? r[k > 0 ? k - 1 : 0] : kInf;
+      const float y = bj[k];
+      if (MEAS == kERP) {
+        const bool live = k >= k_lo && k <= k_hi;
+        if (i == 0) {
+          dg = (k == w) ? 0.f : gb;       // T[-1, j-1]
+          gb = live ? gb + fabsf(y - p) : gb;
+          v = gb;                         // T[-1, j]
+        }
+        h = (k == k_col) ? ga : h;
+        dg = (k == k_dcol) ? ga_prev : dg;
+      }
+      float cell;
+      if (MEAS == kDTW) {
+        const float df = x - y;
+        cell = __fmaf_rn(df, df, fminf(fminf(dg, h), v));
+      } else if (MEAS == kWDTW) {
+        const float df = x - y;
+        cell = __fmaf_rn(wt[min(abs(w - k), L - 1)], df * df,
+                         fminf(fminf(dg, h), v));
+      } else if (MEAS == kERP) {
+        cell = fminf(fminf(dg + fabsf(x - y), v + fabsf(x - p)),
+                     h + fabsf(y - p));
+      } else {
+        const float yp = bj[k - 1];
+        cell = fminf(fminf(dg + fabsf(x - y), v + msm_move(x, xp, y, p)),
+                     h + msm_move(y, yp, x, p));
+      }
+      cell = fminf(cell, kInf);
+      r[k] = (k >= k_lo && k <= k_hi) ? cell : r[k];
+    }
+  }
+  float out = kInf;
+#pragma unroll
+  for (int s = 0; s < WB; ++s) out = (s == w) ? r[s] : out;
+  return out;  // cell (L-1, L-1) sits at k = w
 }
 
 }  // namespace pqdtw

@@ -9,7 +9,9 @@ diagonals, ``3 * width``) live in shared memory when a block of at least
 32 threads fits in the default 48 KB, i.e. up to ``w = 190``; beyond that
 they live in a device scratch buffer allocated here and capped at 1 GiB,
 with the grid cut to match (the kernels walk their pairs grid-stride).
-So every ``(L, window)`` the reference takes is taken.
+So every ``(L, window)`` the reference takes is taken.  The all-pairs
+form keeps the band row in registers instead where :func:`cdist_bucket`
+finds a bucket for it (narrow bands), with the same bits.
 """
 
 from __future__ import annotations
@@ -26,13 +28,74 @@ from .ref import (dtw_band_adaptive_ref, dtw_band_cdist_ref,
                   dtw_band_full_ref, dtw_band_ref)
 
 __all__ = ["dtw_band", "dtw_band_cdist", "dtw_band_adaptive",
-           "launch_dtw_band_adaptive", "launch_dtw_band_full",
-           "band_geometry", "band_width", "check_corridor"]
+           "launch_dtw_band_adaptive",
+           "launch_dtw_band_full", "band_geometry", "band_width",
+           "cdist_bucket", "reg_grid", "adaptive_launch_name",
+           "check_corridor"]
 
 _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
 _SCRATCH_LIMIT = 1 << 30
 _INT_MAX = 2 ** 31 - 1
+_GRID_Y = 65535
+# dtw_band.cu: register slots of the band row, for every measure; dtw also
+# takes 64 and 128 (on an H100, 128 slots beat the shared-memory row at
+# w = 51, L = 512: 25.4 against 34.7 ms for 128 x 6144 pairs, PERF.md)
+REG_BUCKETS = (8, 16, 32)
+DTW_REG_BUCKETS = (64, 128)
+_DTW, _WDTW, _ERP, _MSM = 0, 1, 2, 3  # wavefront.cuh's Measure
+
+
+def cdist_bucket(w: int, kid: int, length: int) -> Optional[int]:
+    """The register bucket of ``dtw_band_cdist``'s register form for an
+    effective band ``w``, kernel measure id ``kid`` and series length: the
+    least of :data:`REG_BUCKETS` (and for dtw :data:`DTW_REG_BUCKETS`)
+    that holds the row's ``2w + 2`` slots, or ``None`` (the shared-memory
+    form) where none does or what the block stages (the B row padded by
+    ``bucket`` on each side, and wdtw's ``length`` weights) exceeds 48 KB.
+
+    >>> [cdist_bucket(w, 0, 74) for w in (0, 3, 7, 15, 16, 51, 63, 64)]
+    [8, 8, 16, 32, 64, 128, 128, None]
+    >>> [cdist_bucket(w, 3, 74) for w in (7, 15, 16)]
+    [16, 32, None]
+    >>> cdist_bucket(7, 0, 20000) is None, cdist_bucket(7, 1, 6200)
+    (True, None)
+    """
+    slots = 2 * int(w) + 2
+    staged = length * (2 if int(kid) == _WDTW else 1)
+    buckets = REG_BUCKETS + (DTW_REG_BUCKETS if int(kid) == _DTW else ())
+    for bucket in buckets:
+        if slots <= bucket:
+            return (bucket if (staged + 2 * bucket) * 4 <= _SMEM_LIMIT
+                    else None)
+    return None
+
+
+def reg_grid(N: int, M: int) -> Tuple[bool, int, int]:
+    """``(swap, blocks_x, blocks_y)`` of the register form for ``N x M``
+    pairs: the threads take the longer operand's rows (B's with ``swap``),
+    128 to a block, and the grid's y walks the other's (at most 65535
+    blocks, grid-stride beyond).
+
+    >>> reg_grid(6144, 256), reg_grid(16, 6144), reg_grid(3, 70000)
+    ((False, 48, 256), (True, 48, 16), (True, 547, 3))
+    """
+    swap = M > N
+    rows, other = (M, N) if swap else (N, M)
+    return swap, -(-rows // _THREADS), max(1, min(other, _GRID_Y))
+
+
+def adaptive_launch_name(kid: int) -> str:
+    """The launch ledger's name of an adaptive sweep under kernel measure
+    ``kid``: the bare name for dtw and wdtw, ``op[measure]`` for erp and
+    msm.
+
+    >>> [adaptive_launch_name(k) for k in range(4)]
+    ['dtw_band_adaptive', 'dtw_band_adaptive', 'dtw_band_adaptive[erp]', \
+'dtw_band_adaptive[msm]']
+    """
+    suffix = {_ERP: "[erp]", _MSM: "[msm]"}.get(int(kid), "")
+    return "dtw_band_adaptive" + suffix
 
 
 def band_width(length: int, window: Optional[int], lane: int = 8) -> int:
@@ -181,11 +244,19 @@ def dtw_band_cdist(A: torch.Tensor, B: torch.Tensor,
         return out
     w = effective_window(L, window)
     kid, param, wt = _measure_args(spec, L, dev)
-    threads, blocks, scratch = band_geometry(N * M, w, dev)
-    status = _build.lib().pq_dtw_band_cdist(
-        A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt),
-        _build.ptr(scratch), N, M, L, w, kid, param, threads,
-        min(blocks, _INT_MAX), _build.stream(dev))
+    bucket = cdist_bucket(w, kid, L)
+    if bucket is not None:
+        swap, blocks_x, blocks_y = reg_grid(N, M)
+        status = _build.lib().pq_dtw_band_cdist_reg(
+            A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt), N, M,
+            L, w, kid, param, bucket, int(swap), _THREADS, blocks_x,
+            blocks_y, _build.stream(dev))
+    else:
+        threads, blocks, scratch = band_geometry(N * M, w, dev)
+        status = _build.lib().pq_dtw_band_cdist(
+            A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt),
+            _build.ptr(scratch), N, M, L, w, kid, param, threads,
+            min(blocks, _INT_MAX), _build.stream(dev))
     _build.check(status, "dtw_band_cdist")
     _build.count_launch("dtw_band_cdist")
     return out
@@ -214,9 +285,8 @@ def dtw_band_adaptive(A: torch.Tensor, B: torch.Tensor, corridor,
                       measure: MeasureArg = None) -> torch.Tensor:
     """Elastic cost of zipped pairs inside per-pair corridors:
     ``A, B (N, L)`` with ``corridor = (lo, hi)`` int32 ``(N, 2L-1)`` and
-    the register ``width`` -> ``(N,)``.  The kernel sweeps dtw and wdtw;
-    other measures raise on the card (their plain version runs on the
-    CPU)."""
+    the register ``width`` -> ``(N,)``, under any measure (for erp the
+    kernel forms the border sums in the reference's log-depth order)."""
     spec = measures.resolve(measure)
     A, B = _series(A, "A"), _series(B, "B")
     if A.shape != B.shape:
@@ -230,32 +300,36 @@ def dtw_band_adaptive(A: torch.Tensor, B: torch.Tensor, corridor,
     dev = _build.kernel_device(A, B, lo, hi)
     if dev is None:
         return dtw_band_adaptive_ref(A, B, lo, hi, window, width, spec)
-    if spec.name not in ("dtw", "wdtw"):
-        raise ValueError(f"the adaptive kernel sweeps dtw and wdtw only, "
-                         f"got {spec.name!r} (its plain version takes every "
-                         f"measure on CPU tensors)")
-    kid = measures.kernel_measure_id(spec)
+    kid, param, wt = _measure_args(spec, L, dev)
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    wt = measures.wdtw_weights(spec, L, dev) if spec.uses_position else None
-    launch_dtw_band_adaptive(A, B, lo, hi, width, kid, wt, out)
+    launch_dtw_band_adaptive(A, B, lo, hi, width, kid, wt, out, param)
     return out
 
 
 def launch_dtw_band_adaptive(A: torch.Tensor, B: torch.Tensor,
                              lo: torch.Tensor, hi: torch.Tensor, width: int,
                              kid: int, wt: Optional[torch.Tensor],
-                             out: torch.Tensor) -> None:
+                             out: torch.Tensor, param: float = 0.0) -> None:
     """The launch alone, into ``out (N,)``, for inputs
-    :func:`dtw_band_adaptive` has checked."""
+    :func:`dtw_band_adaptive` has checked; ``param`` is the measure's
+    (erp's gap value, msm's split cost).  Counted under
+    :func:`adaptive_launch_name`."""
     n, L = A.shape
     if n > _INT_MAX:
         raise ValueError(f"{n} pairs exceed one launch")
     if n == 0:
         return
     threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+    gaps = None
+    if kid == _ERP:  # 2L floats a thread, the grid cut to fit 1 GiB
+        blocks = max(1, min(blocks, _SCRATCH_LIMIT // (8 * L * threads)))
+        gaps = torch.empty(2 * L * threads * blocks, dtype=torch.float32,
+                           device=A.device)
     status = _build.lib().pq_dtw_band_adaptive(
         A.data_ptr(), B.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        out.data_ptr(), _build.ptr(wt), _build.ptr(scratch), n, L, width,
-        kid, threads, blocks, _build.stream(A.device))
-    _build.check(status, "dtw_band_adaptive")
-    _build.count_launch("dtw_band_adaptive")
+        out.data_ptr(), _build.ptr(wt), _build.ptr(scratch),
+        _build.ptr(gaps), n, L, width, kid, float(param), threads, blocks,
+        _build.stream(A.device))
+    name = adaptive_launch_name(kid)
+    _build.check(status, name)
+    _build.count_launch(name)

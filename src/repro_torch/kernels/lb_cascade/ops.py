@@ -12,9 +12,14 @@ The kernel sweeps the DTW cell only (the one measure with a Keogh
 cascade); other measures raise on the card.
 
 With ``corridor=(lo, hi)`` the refine runs inside each pair's corridor
-(``csrc/lb_cascade.cu``'s adaptive entry, counted as
+(``csrc/lb_cascade.cu``'s adaptive entries, counted as
 ``lb_refine_adaptive``): the bound is the same, the refined value the
-corridor-restricted cost, an upper bound of the static one.
+corridor-restricted cost, an upper bound of the static one.  Its form
+follows from the register width alone (:func:`adaptive_variant`): up to
+``W = 256`` one warp per pair sweeps the corridor's diagonals across its
+lanes on rows staged in shared memory (:func:`corridor_warp_geometry`),
+clamping no index where the corridor keeps its invariants; beyond, one
+thread per pair.
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ from ..dtw_band.ops import band_geometry, check_corridor, row_geometry
 from .ref import lb_refine_ref
 
 __all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive",
-           "refine_variant", "warp_cells", "warp_geometry"]
+           "refine_variant", "warp_cells", "warp_geometry",
+           "adaptive_variant", "corridor_warp_geometry"]
 
 _INT_MAX = 2 ** 31 - 1
 WARP_MAX_W = 255          # lb_cascade.cu: at most 8 band cells a lane
+WARP_MAX_WIDTH = 256      # lb_cascade.cu: at most 8 corridor slots a lane
 _WARPS = 4                # warps (pairs) per CTA of the warp form
 _SMEM_MAX = 227 * 1024
 
@@ -75,6 +82,40 @@ def warp_geometry(n_pairs: int, L: int, w: int) -> Tuple[int, int, int]:
     (1, 3, 0)
     """
     per_warp = 2 * (L + 2 * 32 * warp_cells(w)) * 4
+    warps = max(1, min(_WARPS, _SMEM_MAX // per_warp))
+    smem = warps * per_warp if per_warp <= _SMEM_MAX else 0
+    return warps, max(1, -(-n_pairs // warps)), smem
+
+
+def adaptive_variant(width: int) -> str:
+    """The adaptive kernel's form for a register ``width``: ``"warp"`` (one
+    warp per pair, the corridor's slots across the lanes) up to
+    :data:`WARP_MAX_WIDTH`, ``"thread"`` (one thread per pair) beyond.
+
+    >>> adaptive_variant(32), adaptive_variant(256), adaptive_variant(257)
+    ('warp', 'warp', 'thread')
+    """
+    return "warp" if int(width) <= WARP_MAX_WIDTH else "thread"
+
+
+def corridor_warp_geometry(n_pairs: int, L: int,
+                           width: int) -> Tuple[int, int, int]:
+    """``(warps, blocks, smem_bytes)`` of the adaptive warp form for
+    ``n_pairs`` pairs of length ``L`` at register ``width``: :data:`_WARPS`
+    warps a CTA, each staging its pair's two rows with ``32 * C`` floats
+    between them (``2 L + 32 C`` floats, ``C = warp_cells(width - 1)``) in
+    shared memory; fewer warps where that exceeds the card's 227 KB, and
+    ``smem_bytes = 0`` (rows read from device memory, indices clamped)
+    where even one warp's rows do not fit.
+
+    >>> corridor_warp_geometry(7680, 512, 32)
+    (4, 1920, 16896)
+    >>> corridor_warp_geometry(5, 10000, 100)
+    (2, 3, 161024)
+    >>> corridor_warp_geometry(3, 40000, 8)
+    (1, 3, 0)
+    """
+    per_warp = (2 * L + 32 * warp_cells(int(width) - 1)) * 4
     warps = max(1, min(_WARPS, _SMEM_MAX // per_warp))
     smem = warps * per_warp if per_warp <= _SMEM_MAX else 0
     return warps, max(1, -(-n_pairs // warps)), smem
@@ -175,11 +216,19 @@ def launch_lb_refine_adaptive(A: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"{n} pairs exceed one launch")
     if n == 0:
         return
-    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
-    status = _build.lib().pq_lb_refine_adaptive(
-        A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
-        thresh.data_ptr(), lo.data_ptr(), hi.data_ptr(), d.data_ptr(),
-        flag.data_ptr(), _build.ptr(scratch), n, L, width, threads, blocks,
-        _build.stream(A.device))
+    if adaptive_variant(width) == "warp":
+        warps, blocks, smem = corridor_warp_geometry(n, L, width)
+        status = _build.lib().pq_lb_refine_adaptive_warp(
+            A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+            thresh.data_ptr(), lo.data_ptr(), hi.data_ptr(), d.data_ptr(),
+            flag.data_ptr(), n, L, width, warps, blocks, smem, 1,
+            _build.stream(A.device))
+    else:
+        threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+        status = _build.lib().pq_lb_refine_adaptive(
+            A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
+            thresh.data_ptr(), lo.data_ptr(), hi.data_ptr(), d.data_ptr(),
+            flag.data_ptr(), _build.ptr(scratch), n, L, width, threads,
+            blocks, _build.stream(A.device))
     _build.check(status, "lb_refine_adaptive")
     _build.count_launch("lb_refine_adaptive")

@@ -12,8 +12,14 @@ it counts as ``pq_attn``.
 The kernel splits the valid prefix over CTAs (:func:`split_geometry`, from
 the shapes alone) and merges the splits inside the same launch: one launch
 per call.  The merge's workspace (:func:`workspace_floats`) is allocated
-per call; its tickets are an int32 counter per (row, group), zeroed once
-per device and grown with ``B * G``, which every launch leaves at 0.
+per call; its tickets are an int32 counter per (row, group), which every
+launch leaves at 0.  The counters are kept per ``(device, stream)``
+(:func:`counter_key`): launches in flight at once on two streams never
+draw from the same tickets, and launches on one stream run in order, so
+they may share theirs.  A CUDA graph keeps the counters of the stream it
+was captured on (their address is in the captured launch); make them on
+that stream before the capture, by one eager call, so that the capture
+does not record their zeroing.
 
 The kernel reads the table as float32 or bf16, codes as uint8 or int32,
 values as float32 or bf16, each in the type given.  Codes must lie in
@@ -34,7 +40,7 @@ from .ref import pq_attn_lut_ref
 
 __all__ = ["build_qlut", "encode_keys", "pq_attn", "launch_pq_attn",
            "pq_attn_decode", "split_geometry", "workspace_floats",
-           "value_vector"]
+           "value_vector", "counter_key"]
 
 _SMEM_MAX = 227 * 1024
 _MAX_REPS = 8        # heads per KV group (pq_attn.cu: kMaxR)
@@ -45,7 +51,7 @@ _TARGET_CTAS = 4 * 132   # about 4 CTAs on each of the H100's 132 SMs
 _CHUNK_STEP = 64         # positions: a chunk is a multiple of this
 _CHUNK_MAX = 1024
 _MAX_SPLITS = 65535      # the grid's y extent
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def split_geometry(valid_len: int, rows: int) -> Tuple[int, int]:
@@ -89,14 +95,27 @@ def value_vector(v: torch.Tensor) -> int:
     return 8 if ok8 else 4
 
 
-def _counters(device: torch.device, rows: int) -> torch.Tensor:
-    """The merge's ticket counters on ``device``: at least ``rows`` int32,
-    zeroed when made (every launch leaves them at 0)."""
-    t = _COUNTERS.get(device)
+def counter_key(device: torch.device, stream: int) -> Tuple[str, int]:
+    """The key of a launch's ticket counters: its device and the handle of
+    the stream it is launched on (``torch.cuda.Stream.cuda_stream``).
+
+    >>> counter_key(torch.device("cuda", 1), 0), counter_key("cuda:0", 77)
+    (('cuda:1', 0), ('cuda:0', 77))
+    """
+    return str(torch.device(device)), int(stream)
+
+
+def _counters(device: torch.device, stream: int,
+              rows: int) -> torch.Tensor:
+    """The merge's ticket counters of ``stream`` on ``device``: at least
+    ``rows`` int32, zeroed when made (every launch leaves them at 0).  Made
+    on that stream, so they are zero before its next launch."""
+    key = counter_key(device, stream)
+    t = _COUNTERS.get(key)
     if t is None or t.numel() < rows:
         size = max(rows, 2 * t.numel() if t is not None else rows)
         t = torch.zeros(size, dtype=torch.int32, device=device)
-        _COUNTERS[device] = t
+        _COUNTERS[key] = t
     return t
 
 
@@ -151,14 +170,15 @@ def launch_pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     n_ws = workspace_floats(B * G, n_split, R, Dv)
     ws = (torch.empty(n_ws, dtype=torch.float32, device=out.device)
           if n_ws else None)
-    counters = _counters(out.device, B * G) if n_ws else None
+    stream = _build.stream(out.device)
+    counters = _counters(out.device, stream, B * G) if n_ws else None
     status = _build.lib().pq_attn(
         qlut.data_ptr(), codes.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), _build.ptr(ws), _build.ptr(counters),
         B, S, G, R, M, K, Dv, int(valid_len), chunk, n_split,
         value_vector(v), float(scale), int(qlut.dtype == torch.bfloat16),
         int(codes.dtype == torch.uint8), int(v.dtype == torch.bfloat16),
-        _build.stream(out.device))
+        stream)
     _build.check(status, "pq_attn")
     _build.count_launch("pq_attn")
 

@@ -10,8 +10,9 @@ sequential in the kernel and a parallel scan in ``torch.cumsum``); codes
 identical.  ``lb_refine`` sums its bound sequentially where ``torch.sum``
 makes a tree, so its cases use thresholds that no bound comes near; then
 the refined flags are identical too.  The adaptive corridor kernels
-(``dtw_band_adaptive``, ``lb_refine_adaptive``) are bit-identical to their
-plain versions, and to ``dtw_band`` under the static-band corridor; the
+(``dtw_band_adaptive`` under every measure, ``lb_refine_adaptive``) are
+bit-identical to their plain versions, and (dtw, wdtw) to ``dtw_band``
+under the static-band corridor; the
 quantised ADC kernels equal theirs (int8 and bfloat16).  The full-width
 ``dtw_band(mode="full")`` equals its plain version and ``dtw_band`` bit
 for bit.  ``pq_attn`` is held against its plain version at ``rtol=atol=
@@ -25,7 +26,11 @@ and its thread-per-pair form beyond give refined distances equal to
 mixed with filler pairs, and at bound ties (where a flag may flip only
 within ``FLAG_TIE_REL`` of its threshold); ``pq_attn``'s split-K launch
 gives the same bits on every launch, for one split and many, and leaves
-its ticket counters at 0.
+its ticket counters at 0, also with launches in flight on two streams at
+once; ``lb_refine_adaptive``'s warp form (width <= 256) equals its thread
+form and ``dtw_band_adaptive`` bit for bit where they refine, and stays
+finite on a corridor that breaks the invariants; ``dtw_band_cdist``'s
+register form equals its shared-memory form bit for bit.
 """
 
 import pytest
@@ -222,10 +227,33 @@ def test_dtw_band_adaptive_static_corridor_equals_dtw_band(gen, measure, L,
     assert torch.equal(got, dtw_band(A, B, window, measure))
 
 
-def test_dtw_band_adaptive_rejects_other_measures(gen):
-    A, B, lo, hi, width = _corridor(gen, 4, 64, 6)
-    with pytest.raises(ValueError, match="dtw and wdtw only"):
-        dtw_band_adaptive(A, B, (lo, hi), width, 6, "erp")
+@pytest.mark.parametrize("measure", ["erp:g=0.3", "msm:c=0.5"])
+@pytest.mark.parametrize("cor", ["built", "static"])
+@pytest.mark.parametrize("L,window,width", [(64, 6, None), (512, 51, 32)])
+def test_dtw_band_adaptive_erp_msm_bit_equal(gen, measure, cor, L, window,
+                                             width):
+    """erp and msm on the card: the kernel equals dtw_band_adaptive_ref
+    bit for bit, inside built corridors (width 32 at L=512, w=51) and
+    inside the static band (its full width), counted under op[measure]."""
+    n = 203
+    if cor == "built":
+        A, B, lo, hi, width = _corridor(gen, n, L, window, width)
+    else:
+        A = torch.cumsum(_randn(gen, n, L), 1)
+        B = torch.cumsum(_randn(gen, n, L), 1)
+        lo, hi = tcorr.static_band(L, window, A.device)
+        lo, hi = lo.expand(n, -1), hi.expand(n, -1)
+        width = band_width(L, window)
+    name = "dtw_band_adaptive[" + measure[:3] + "]"
+    before = dict(_build.LAUNCHES)
+    got = dtw_band_adaptive(A, B, (lo, hi), width, window, measure)
+    assert _build.LAUNCHES[name] == before[name] + 1
+    assert _build.LAUNCHES["dtw_band_adaptive"] == before["dtw_band_adaptive"]
+    want = dtw_band_adaptive_ref(A, B, lo, hi, window, width, measure)
+    assert torch.equal(got, want)
+    if cor == "static":   # the static band's sweep: within dtw_band's TOL
+        torch.testing.assert_close(got, dtw_band(A, B, window, measure),
+                                   **TOL)
 
 
 @pytest.mark.parametrize("L,window", [(64, 6), (512, 51)])
@@ -423,6 +451,11 @@ def test_lb_refine_unstaged_long_series(gen):
     assert torch.equal(d[f], dtw_band(A, B, w)[f])
 
 
+def _counter_key(device):
+    return pq_attn_ops.counter_key(device,
+                                   torch.cuda.current_stream(device).cuda_stream)
+
+
 def _pq_inputs(gen, B, S, G=8, R=2, M=8, K=256, Dv=128):
     qlut = _randn(gen, B, G * R, M, K).to(torch.bfloat16)
     codes = torch.randint(0, K, (B, S, G, M), generator=gen,
@@ -450,7 +483,7 @@ def test_pq_attn_split_valid_lengths(gen, which):
     for got, w in zip(first, want):
         torch.testing.assert_close(got, w, rtol=PQ_ATTN_TOL,
                                    atol=PQ_ATTN_TOL)
-    counters = pq_attn_ops._COUNTERS.get(qlut.device)
+    counters = pq_attn_ops._COUNTERS.get(_counter_key(qlut.device))
     if counters is not None:
         assert int(counters.abs().sum()) == 0
 
@@ -470,9 +503,10 @@ def test_pq_attn_counters_reset_and_grow(gen):
     small = _pq_inputs(gen, 2, 1500)
     large = _pq_inputs(gen, 8, 1500)
     a = pq_attn(*small, 1400, 0.1)
-    n_small = pq_attn_ops._COUNTERS[small[0].device].numel()
+    key = _counter_key(small[0].device)
+    n_small = pq_attn_ops._COUNTERS[key].numel()
     b = pq_attn(*large, 1400, 0.1)
-    counters = pq_attn_ops._COUNTERS[small[0].device]
+    counters = pq_attn_ops._COUNTERS[key]
     assert counters.numel() >= 8 * 8 and counters.numel() >= n_small
     assert int(counters.abs().sum()) == 0
     a2 = pq_attn(*small, 1400, 0.1)
@@ -496,3 +530,207 @@ def test_pq_attn_values_aligned_to_8_bytes(gen):
     want = pq_attn_lut_ref(qlut, codes, v, 250, 0.1)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=PQ_ATTN_TOL, atol=PQ_ATTN_TOL)
+
+
+def _adaptive_thread_form(A, B, up, lo, th, clo, chi, width):
+    """lb_refine_adaptive's thread-per-pair form (the wrapper's choice
+    beyond width 256) launched directly, at any width."""
+    from repro_torch.kernels.dtw_band.ops import row_geometry
+    n, L = A.shape
+    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+    d = torch.empty(n, dtype=torch.float32, device=A.device)
+    f = torch.empty(n, dtype=torch.int32, device=A.device)
+    args = [t.contiguous() for t in (A, B, up, lo, th)]
+    args += [c.to(torch.int32).contiguous() for c in (clo, chi)]
+    _build.check(_build.lib().pq_lb_refine_adaptive(
+        *(t.data_ptr() for t in args), d.data_ptr(), f.data_ptr(),
+        _build.ptr(scratch), n, L, width, threads, blocks,
+        _build.stream(A.device)), "lb_refine_adaptive (thread form)")
+    return d, f.bool()
+
+
+@pytest.mark.parametrize("L,window,width", [
+    (64, 6, 8), (512, 51, 32), (300, 80, 64), (300, 120, 100),
+    (300, None, 257)])
+def test_lb_refine_adaptive_forms_agree(gen, L, window, width):
+    """Row 8's warp form (C = 1, 2, 4; width 257 takes the thread form)
+    against its clamped sweep, the thread form and dtw_band_adaptive on
+    all-pruned, all-refined and mixed waves with filler pairs: flags equal
+    the plain bound's (no threshold near it), refined distances bit for
+    bit."""
+    from repro_torch.kernels.lb_cascade.ops import adaptive_variant
+    n = 157
+    A, B, clo, chi, width = _corridor(gen, n, L, window, width)
+    eff = L - 1 if window is None else window
+    up, lo = tlb.keogh_envelope(A, eff)
+    lb = tlb.cascade_bound(B, A, up, lo)
+    sweep = dtw_band_adaptive(A, B, (clo, chi), width, window)
+    assert adaptive_variant(width) == ("warp" if width <= 256 else "thread")
+    for kind in ("pruned", "refined", "mixed"):
+        th = _wave_thresholds(lb, kind)
+        before = _build.LAUNCHES["lb_refine_adaptive"]
+        d, f = lb_refine(A, B, up, lo, th, window, corridor=(clo, chi),
+                         width=width)
+        assert _build.LAUNCHES["lb_refine_adaptive"] == before + 1
+        assert torch.equal(f, lb < th), kind
+        assert torch.equal(d[f], sweep[f]), kind
+        torch.testing.assert_close(d[~f], lb[~f], **TOL)
+        td, tf = _adaptive_thread_form(A, B, up, lo, th, clo, chi, width)
+        assert torch.equal(tf, f) and torch.equal(td[f], d[f]), kind
+        if width <= 256:
+            cd, cf = _adaptive_warp_form(A, B, up, lo, th, clo, chi, width,
+                                         0)
+            assert torch.equal(cf, f) and torch.equal(cd, d), kind
+        if kind == "pruned":
+            assert not bool(f.any())
+        if kind == "refined":
+            assert bool(f.all())
+        if kind == "mixed":
+            assert 0 < int(f.sum()) < n
+            assert not bool((f & (th == -float("inf"))).any())
+
+
+@pytest.mark.parametrize("width", [32, 100])
+def test_lb_refine_adaptive_broken_corridor(gen, width):
+    """A corridor that breaks the invariants (random lo, hi): a wrong cost
+    but a finite one, and no fault, in the warp form and row 7."""
+    n, L = 64, 128
+    A = torch.cumsum(_randn(gen, n, L), 1)
+    B = torch.cumsum(_randn(gen, n, L), 1)
+    clo = torch.randint(-40, L + 40, (n, 2 * L - 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    chi = clo + torch.randint(-5, 60, (n, 2 * L - 1), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    up, lo = tlb.keogh_envelope(A, 12)
+    th = torch.full((n,), float("inf"), device="cuda")
+    d, f = lb_refine(A, B, up, lo, th, 12, corridor=(clo, chi), width=width)
+    sweep = dtw_band_adaptive(A, B, (clo, chi), width, 12)
+    torch.cuda.synchronize()
+    assert bool(f.all())
+    assert bool(torch.isfinite(d).all()) and bool(torch.isfinite(sweep).all())
+    assert torch.equal(d, sweep)
+
+
+def _adaptive_warp_form(A, B, up, lo, th, clo, chi, width, padded):
+    """lb_refine_adaptive's warp form launched directly: padded = 1 is the
+    wrapper's (padded rows, clamped sweep for broken corridors), 0 the
+    clamped sweep for every pair."""
+    from repro_torch.kernels.lb_cascade.ops import corridor_warp_geometry
+    n, L = A.shape
+    d = torch.empty(n, dtype=torch.float32, device=A.device)
+    f = torch.empty(n, dtype=torch.int32, device=A.device)
+    args = [t.contiguous() for t in (A, B, up, lo, th)]
+    args += [c.to(torch.int32).contiguous() for c in (clo, chi)]
+    _build.check(_build.lib().pq_lb_refine_adaptive_warp(
+        *(t.data_ptr() for t in args), d.data_ptr(), f.data_ptr(), n, L,
+        width, *corridor_warp_geometry(n, L, width), padded,
+        _build.stream(A.device)), "lb_refine_adaptive (warp form)")
+    return d, f.bool()
+
+
+@pytest.mark.parametrize("L,window,width", [(64, 6, 8), (512, 51, 32),
+                                            (300, 80, 64), (300, 120, 100)])
+def test_lb_refine_adaptive_padded_fallback(gen, L, window, width):
+    """Row 8's padded sweep and its per-pair fallback: every other pair's
+    corridor broken at one diagonal (in the first, second or a late block
+    of 32, by a live cell off the table, a drift of 2 or a negative base),
+    the rest as built.  The wrapper's output equals the clamped warp
+    sweep's and the thread form's bit for bit on every pair, and
+    dtw_band_adaptive's."""
+    n = 96
+    A, B, clo, chi, width = _corridor(gen, n, L, window, width)
+    clo, chi = clo.clone(), chi.clone()
+    D = 2 * L - 1
+    for q in range(1, n, 2):
+        d = (0, 5, 31, 32, 40, D - 2)[q // 2 % 6]
+        how, cap = q // 2 % 3, min(d, L - 1)
+        if how == 0:  # a live cell off the table
+            chi[q, d] = cap + 1
+            clo[q, d] = max(cap + 2 - width, 0)
+        elif how == 1:
+            clo[q, d:] += 2  # a drift of 2, then off the table
+        else:
+            clo[q, d] = -1
+    up, lo = tlb.keogh_envelope(A, window)
+    th = torch.full((n,), float("inf"), device="cuda")
+    d, f = lb_refine(A, B, up, lo, th, window, corridor=(clo, chi),
+                     width=width)
+    cd, cf = _adaptive_warp_form(A, B, up, lo, th, clo, chi, width, 0)
+    td, tf = _adaptive_thread_form(A, B, up, lo, th, clo, chi, width)
+    sweep = dtw_band_adaptive(A, B, (clo, chi), width, window)
+    assert bool(f.all()) and torch.equal(cf, f) and torch.equal(tf, f)
+    assert torch.equal(d, cd) and torch.equal(d, td) and torch.equal(d, sweep)
+    assert bool(torch.isfinite(d[0::2]).all())
+
+
+def _cdist_shared_form(A, B, w, kid, param, wt):
+    """dtw_band_cdist's shared-memory form (the wrapper's choice where no
+    register bucket holds the band) launched directly, at any band."""
+    from repro_torch.kernels.dtw_band.ops import band_geometry
+    (N, L), M = A.shape, B.shape[0]
+    out = torch.empty((N, M), dtype=torch.float32, device=A.device)
+    threads, blocks, scratch = band_geometry(N * M, w, A.device)
+    _build.check(_build.lib().pq_dtw_band_cdist(
+        A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt),
+        _build.ptr(scratch), N, M, L, w, kid, param, threads, blocks,
+        _build.stream(A.device)), "dtw_band_cdist (shared-memory form)")
+    return out
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("L,window", [(74, 0), (74, 7), (74, "largest"),
+                                      (74, "past"), (200, 3)])
+def test_dtw_band_cdist_register_form(gen, measure, L, window):
+    """Row 2's register form against the shared-memory form (bit for bit)
+    and the plain version (TOL), at w = 0, at the largest bucket's band
+    (128 slots for dtw, 32 for the others), and one past it (where the
+    wrapper takes the shared-memory form)."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels.dtw_band.ops import (DTW_REG_BUCKETS,
+                                                  REG_BUCKETS, cdist_bucket)
+    kid = tmeas.kernel_measure_id(tmeas.resolve(measure))
+    top = (max(DTW_REG_BUCKETS if kid == 0 else REG_BUCKETS) - 2) // 2
+    w = {"largest": top, "past": top + 1}.get(window, window)
+    bucket = cdist_bucket(w, kid, L)
+    assert (bucket is None) == (window == "past")
+    spec = tmeas.resolve(measure)
+    wt = tmeas.wdtw_weights(spec, L, "cuda") if spec.uses_position else None
+    # threads over A's rows, and (swapped) over B's: the same bits
+    for na, nb in ((300, 70), (20, 300)):
+        A, B = _randn(gen, na, L), _randn(gen, nb, L)
+        before = _build.LAUNCHES["dtw_band_cdist"]
+        got = dtw_band_cdist(A, B, w, measure)
+        assert _build.LAUNCHES["dtw_band_cdist"] == before + 1
+        old = _cdist_shared_form(A, B, w, kid, tmeas.kernel_param(spec), wt)
+        assert torch.equal(got, old)
+        torch.testing.assert_close(got, dtw_band_cdist_ref(A, B, w, measure),
+                                   **TOL)
+
+
+def test_pq_attn_two_streams(gen):
+    """Two launches with different inputs in flight on two streams: each
+    equals its single-stream result bit for bit, and every counter ends at
+    0 (each stream draws its own tickets)."""
+    one = _pq_inputs(gen, 8, 2080)
+    two = _pq_inputs(gen, 8, 2080)
+    want = [pq_attn(*x, 1921, 0.1) for x in (one, two)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(10):
+        outs = []
+        for x, st in zip((one, two), streams):
+            with torch.cuda.stream(st):
+                outs.append(pq_attn(*x, 1921, 0.1))
+        got.append(outs)
+    torch.cuda.synchronize()
+    for outs in got:
+        for out, w in zip(outs, want):
+            for a, b in zip(out, w):
+                assert torch.equal(a, b)
+    keys = [_counter_key(one[0].device)] + [
+        pq_attn_ops.counter_key(one[0].device, st.cuda_stream)
+        for st in streams]
+    assert len(set(keys)) == 3
+    for key in keys:
+        assert int(pq_attn_ops._COUNTERS[key].abs().sum()) == 0

@@ -1,0 +1,230 @@
+"""How the port's kernel wrappers pick a kernel form, checked on the CPU.
+
+The forms themselves run only on the card (``tests/test_torch_cuda.py``);
+here the pure-Python selectors are held to the rules their kernels need,
+and the wrappers are driven up to the launch with the device test and the
+launch replaced, so that what each wrapper hands its kernel (the form,
+the measure and its parameter) is seen without a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import corridor as tcorr
+from repro_torch.core import measures
+from repro_torch.kernels import _build
+from repro_torch.kernels.dtw_band import ops as dtw_ops
+from repro_torch.kernels.lb_cascade import ops as lb_ops
+from repro_torch.kernels.pq_attn import ops as attn_ops
+
+ERP, MSM = 2, 3
+
+
+@pytest.mark.parametrize("kid", [0, 1, ERP, MSM])
+@pytest.mark.parametrize("w", [0, 1, 3, 6, 7, 14, 15, 16, 31, 51, 63, 64])
+def test_cdist_bucket_holds_the_row(kid, w):
+    """The register form is picked exactly when the row's 2w + 2 slots fit
+    the largest bucket (128 for dtw, 32 for the others), in the least
+    bucket that holds them."""
+    slots = 2 * w + 2
+    buckets = dtw_ops.REG_BUCKETS + (dtw_ops.DTW_REG_BUCKETS if kid == 0
+                                     else ())
+    bucket = dtw_ops.cdist_bucket(w, kid, 74)
+    if slots > max(buckets):
+        assert bucket is None
+    else:
+        assert bucket == min(b for b in buckets if b >= slots)
+
+
+def test_cdist_bucket_needs_the_staged_row_to_fit():
+    # (L + 2 * bucket) floats of shared memory under 48 KB, wdtw's L
+    # weights beside them
+    assert dtw_ops.cdist_bucket(7, 0, 12256) == 16
+    assert dtw_ops.cdist_bucket(7, 0, 12257) is None
+    assert dtw_ops.cdist_bucket(7, 1, 6128) == 16
+    assert dtw_ops.cdist_bucket(7, 1, 6129) is None
+
+
+@pytest.mark.parametrize("N,M", [(6144, 256), (128, 6144), (1, 1), (5, 5),
+                                 (200000, 3), (3, 200000), (70000, 70001)])
+def test_reg_grid_threads_take_the_longer_operand(N, M):
+    swap, bx, by = dtw_ops.reg_grid(N, M)
+    rows, other = (M, N) if swap else (N, M)
+    assert rows >= other and swap == (M > N)
+    assert bx * 128 >= rows > (bx - 1) * 128
+    assert by == min(other, 65535)
+
+
+@pytest.mark.parametrize("width,form", [
+    (1, "warp"), (32, "warp"), (33, "warp"), (64, "warp"), (65, "warp"),
+    (128, "warp"), (129, "warp"), (256, "warp"), (257, "thread"),
+    (512, "thread")])
+def test_adaptive_variant_from_width(width, form):
+    # the warp form keeps at most 8 slots a lane (32 * 8 = 256)
+    assert lb_ops.adaptive_variant(width) == form
+
+
+@pytest.mark.parametrize("n,L", [(1, 2), (7680, 512), (3, 29000), (9, 30000)])
+@pytest.mark.parametrize("width", [1, 32, 33, 256])
+def test_corridor_warp_geometry_covers_every_pair(n, L, width):
+    # each warp stages [a | 32 C floats | b], C = ceil(width / 32)
+    per_warp = (2 * L + 32 * lb_ops.warp_cells(width - 1)) * 4
+    warps, blocks, smem = lb_ops.corridor_warp_geometry(n, L, width)
+    assert 1 <= warps <= 4 and warps * blocks >= n
+    assert smem == 0 or smem == warps * per_warp
+    assert smem <= 227 * 1024
+    if per_warp <= 227 * 1024:
+        assert smem > 0
+
+
+def _padded_sweep_holds(lo, hi, L, width):
+    """Per pair, whether a corridor keeps what lb_refine_adaptive's padded
+    warp sweep needs (wavefront.cuh::corridor_cost_warp_padded's test,
+    diagonal by diagonal): lo[0] = 0, drift 0 or 1, the base cell and the
+    live cells in the table."""
+    lo, hi = lo.long(), hi.long()
+    d = torch.arange(2 * L - 1)
+    cap = torch.clamp(d, max=L - 1)
+    live = torch.clamp(torch.clamp(hi - lo, max=width - 1), min=-1)
+    drift = lo - torch.cat([lo[:, :1], lo[:, :-1]], 1)
+    ok = (lo >= 0) & (lo <= cap) & (d - lo <= L - 1) & (lo + live <= cap)
+    ok &= torch.where(d == 0, lo == 0, (drift == 0) | (drift == 1))
+    return ok.all(1)
+
+
+@pytest.mark.parametrize("L,window,width", [
+    (64, 6, 8), (128, 12, 16), (512, 51, 32), (300, None, 32),
+    (300, 80, 100)])
+def test_built_corridors_take_the_padded_sweep(L, window, width):
+    """Corridors as core/corridor.py builds them (clipped to the width,
+    dilated for certify_adaptive's second sweep) and the static band keep
+    the invariants, so no pair of the adaptive search falls back to the
+    clamped sweep; a broken one is seen as broken."""
+    rng = np.random.default_rng(L)
+    A, B = (torch.from_numpy(np.cumsum(rng.normal(size=(24, L)), 1)
+                             .astype(np.float32)) for _ in range(2))
+    lo, hi = tcorr.clip_to_width(*tcorr.build_corridor(A, B, window), width)
+    lo_d, hi_d = tcorr.dilate(lo, hi, L, window)
+    s_lo, s_hi = tcorr.static_band(L, window, A.device)
+    assert bool(_padded_sweep_holds(lo, hi, L, width).all())
+    assert bool(_padded_sweep_holds(lo_d, hi_d, L, width + 2).all())
+    assert bool(_padded_sweep_holds(s_lo[None], s_hi[None], L, width).all())
+    lo[3, L] += 2
+    hi[5, 0] = 1
+    held = _padded_sweep_holds(lo, hi, L, width)
+    assert not bool(held[3]) and not bool(held[5]) and int(held.sum()) == 22
+
+
+def test_counter_key_separates_streams_and_devices():
+    keys = {attn_ops.counter_key(torch.device("cuda", d), s)
+            for d in (0, 1) for s in (0, 5, 6)}
+    assert len(keys) == 6
+    assert (attn_ops.counter_key("cuda:0", 5)
+            == attn_ops.counter_key(torch.device("cuda", 0), 5))
+
+
+def test_adaptive_launch_names_are_ledger_keys():
+    for kid in range(4):
+        assert dtw_ops.adaptive_launch_name(kid) in _build.LAUNCHES
+
+
+class _Launch:
+    """Stands in for a launcher: records its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+
+
+def _on_fake_card(monkeypatch, module):
+    monkeypatch.setattr(module._build, "kernel_device",
+                        lambda *t: torch.device("cpu"))
+
+
+@pytest.mark.parametrize("measure,kid,param", [
+    ("dtw", 0, 0.0), ("wdtw:g=0.1", 1, 0.1), ("erp:g=0.3", ERP, 0.3),
+    ("msm:c=0.5", MSM, 0.5)])
+def test_dtw_band_adaptive_routes_every_measure(monkeypatch, measure, kid,
+                                                param):
+    """Every measure reaches the adaptive launch (none raises before it),
+    with its kernel id and its parameter."""
+    rng = np.random.default_rng(0)
+    A = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    lo, hi = tcorr.static_band(16, 3, A.device)
+    launch = _Launch()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops, "launch_dtw_band_adaptive", launch)
+    dtw_ops.dtw_band_adaptive(A, B, (lo.expand(3, -1), hi.expand(3, -1)), 8,
+                              3, measure)
+    (args, kw), = launch.calls
+    assert args[5] == kid
+    assert args[8] == pytest.approx(param)
+    assert (args[6] is not None) == (kid == 1)   # wdtw's weights
+
+
+@pytest.mark.parametrize("measure", ["dtw", "wdtw:g=0.1", "erp:g=0.3",
+                                     "msm:c=0.5"])
+@pytest.mark.parametrize("L,window", [(74, 7), (74, 15), (74, 16),
+                                      (512, 51)])
+def test_dtw_band_cdist_picks_the_register_form(monkeypatch, measure, L,
+                                                window):
+    A, B = torch.zeros(5, L), torch.zeros(3, L)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(dtw_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "dtw_band_cdist", 0)
+    out = dtw_ops.dtw_band_cdist(A, B, window, measure)
+    assert out.shape == (5, 3)
+    assert _build.LAUNCHES["dtw_band_cdist"] == 1
+    (name, args), = lib.called
+    kid = measures.kernel_measure_id(measures.resolve(measure))
+    bucket = dtw_ops.cdist_bucket(window, kid, L)
+    assert (bucket is not None) == (2 * window + 2 <= (128 if kid == 0
+                                                        else 32))
+    if bucket is None:
+        assert name == "pq_dtw_band_cdist" and args[9] == kid
+    else:
+        assert name == "pq_dtw_band_cdist_reg"
+        assert args[8] == kid and args[10] == bucket
+
+
+class _Lib:
+    """Stands in for the kernel library: records which entry ran."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.called.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("width,entry", [
+    (8, "pq_lb_refine_adaptive_warp"), (32, "pq_lb_refine_adaptive_warp"),
+    (256, "pq_lb_refine_adaptive_warp"), (257, "pq_lb_refine_adaptive")])
+def test_lb_refine_adaptive_form_from_width(monkeypatch, width, entry):
+    n, L = 4, 300
+    A = torch.zeros(n, L)
+    lo, hi = tcorr.static_band(L, None, A.device)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, lb_ops)
+    monkeypatch.setattr(lb_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(lb_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "lb_refine_adaptive", 0)
+    lb_ops.lb_refine(A, A, A, A, torch.zeros(n), None,
+                     corridor=(lo.expand(n, -1), hi.expand(n, -1)),
+                     width=width)
+    assert _build.LAUNCHES["lb_refine_adaptive"] == 1
+    (name, args), = lib.called
+    assert name == entry
+    if entry.endswith("_warp"):
+        # the padded sweep (1), with its fallback for broken corridors
+        assert args[9:16] == (n, L, width,
+                              *lb_ops.corridor_warp_geometry(n, L, width), 1)
