@@ -30,8 +30,9 @@ window 7), then the search paths beyond 1-NN on the same data:
   bfloat16 tables, each within 2% of the float32 maximum, with their 1-NN
   accuracy and agreement with float32;
 - ``full_baseline``: the full-width DTW sweep (``dtw_band(mode="full")``,
-  the reference's benchmark baseline) on the adaptive path's 7680 pairs,
-  equal to the band-compressed sweep bit for bit;
+  the reference's benchmark baseline, one warp a pair up to L = 1024) on
+  the adaptive path's 7680 pairs, equal to the band-compressed sweep bit
+  for bit;
 - ``lm_path``: PQ-KV decode serving of internlm2-1.8b at full width (24
   layers, d_model 2048, vocab 92544) from seeded random weights: batched
   prefill of 8 prompts of 2048 random tokens, 31 exact greedy decode
@@ -61,7 +62,10 @@ padded warp sweep, the latter equal to it bit for bit; ``dtw_band_adaptive``
 quantised ADC kernels must equal their plain versions exactly.
 ``dtw_band_cdist`` is timed in both its forms (the band row in registers,
 the wrapper's choice at these shapes, and in shared memory) at ``fit``'s
-shape and at the exact search's, equal bit for bit; ``pq_attn`` is
+shape and at the exact search's, equal bit for bit, and so are
+``prealign_encode`` (registers, shared memory) on the training set and
+under every measure, and ``dtw_band_full`` (a warp a pair, a thread a
+pair) on the baseline's pairs; ``pq_attn`` is
 launched on two streams at once, each launch equal to its single-stream
 result, every stream's ticket counters back at 0.
 
@@ -81,11 +85,18 @@ never printed.  Without a CUDA device the script exits non-zero at once.
 ``ms`` is the kernel's launch alone (mean of ``REPS`` back-to-back
 launches, CUDA events, so a launch shorter than the host's launch overhead
 reads that overhead); ``wrapper_ms`` in the phase line is the whole
-wrapper call, checks included.  ``prev_ms`` of a redesigned row is its
+wrapper call, checks included.  Rows whose launch is not timed apart
+(``dtw_band``, ``dtw_band_cdist``, ``prealign_encode``) take their ``ms``
+from the wrapper call: for ``prealign_encode`` that includes the per-call
+transpose of the codebook to ``(M, S, K)`` that its register form needs
+(``transpose_ms`` in its phase line).  ``prev_ms`` of a redesigned row is its
 earlier form launched on the same inputs in the same run: for
 ``lb_refine`` and ``lb_refine_adaptive`` the thread-per-pair form (the
 wrapper's choice beyond ``w = 255`` / width 256), for ``dtw_band_cdist``
-the band row in shared memory (the wrapper's choice for wider bands);
+the band row in shared memory (the wrapper's choice for wider bands), for
+``dtw_band_full`` the thread-per-pair form (the wrapper's choice beyond
+``L = 1024``), for ``prealign_encode`` the band rows in shared memory (the
+wrapper's choice for wider bands), each equal to the new form bit for bit;
 ``lb_refine_adaptive``'s phase line also times its warp form with the
 clamped sweep for every pair (``clamped_warp_form_ms``).  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
@@ -163,6 +174,13 @@ DESIGNS = {
     "dtw_band_cdist": "the band row in registers, the B row staged in "
                       "shared memory (the row in shared memory where 2w+2 "
                       "exceeds 32 slots, 128 for dtw)",
+    "dtw_band_full": "one warp per pair, each lane C = ceil(L/32) rows of "
+                     "every full diagonal in registers (thread per pair "
+                     "beyond L = 1024)",
+    "prealign_encode": "the band row in registers against the segment "
+                       "staged edge-padded, the codebook read as (M, S, K), "
+                       "a shuffle argmin (the row in shared memory where "
+                       "2w+2 exceeds 32 slots, 128 for dtw)",
 }
 # the adaptive sweep's other measures on the card (row 7's op[measure])
 ADAPTIVE_MEASURES = {"erp": "erp:g=0.3", "msm": "msm:c=0.5"}
@@ -1064,7 +1082,7 @@ def quant_kernel_phases(torch, ctx) -> list:
             Nq * N * (3 * M + 2),
             launch_fn=lambda: (launch_adc_sym_quant(
                 q_codes, codes, q, scv, zpv, sym_out), sym_out)[1],
-            table=table, exact=True)
+            table=table, exact=True, profiled=True)
         qq, qs, qz = quantize_lut(luts.reshape(Nq * M, K), dt)
         qq = qq.reshape(Nq, M, K).contiguous()
         qs, qz = qs.reshape(Nq, M, 1), qz.reshape(Nq, M, 1)
@@ -1082,7 +1100,7 @@ def quant_kernel_phases(torch, ctx) -> list:
             Nq * N * (3 * M + 2),
             launch_fn=lambda: (launch_adc_lookup_quant(
                 codes, qq, qsv, qzv, lookup_out), lookup_out)[1],
-            table=table, exact=True)
+            table=table, exact=True, profiled=True)
     return rows
 
 
@@ -1478,7 +1496,8 @@ def full_kernel_phase(torch, ctx) -> dict:
     1's does; ``sweep_bound_ms`` in the phase line is the same bound over
     all (2L-1) * L slots that the full-width algorithm visits (the band
     only a mask there): the algorithm's work, not the function's."""
-    from repro_torch.kernels.dtw_band.ops import launch_dtw_band_full
+    from repro_torch.kernels.dtw_band.ops import (full_warp_geometry,
+                                                  launch_dtw_band_full)
     from repro_torch.kernels.dtw_band.ref import dtw_band_full_ref
     qq, xx, _, _, w, _ = ctx["adaptive_pairs"]
     n, L = qq.shape
@@ -1489,6 +1508,10 @@ def full_kernel_phase(torch, ctx) -> dict:
     ms = _mean_ms(torch, lambda: launch_dtw_band_full(qq, xx, w, out), REPS)
     check(torch.equal(out, got), "dtw_band_full: the launch alone equals "
           "the wrapper")
+    cells, _, _ = full_warp_geometry(n, L)
+    prev, prev_ms = _full_thread_form(torch, qq, xx, w)
+    check(torch.equal(prev, got), "dtw_band_full: the warp form equals the "
+          "thread form bit for bit")
     bound_ms, bound_by = bound((2 * n * L + n) * 4,
                                n * band_cells(L, w) * DTW_OPS_PER_CELL)
     sweep_bound_ms, _ = bound((2 * n * L + n) * 4,
@@ -1499,7 +1522,8 @@ def full_kernel_phase(torch, ctx) -> dict:
            "launches": ctx["full_launches"]["dtw_band_full"],
            "max_abs_err": float((got - want).abs().max()), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": None}
+           "library_ms": None, "design": DESIGNS["dtw_band_full"],
+           "variant": f"warp ({cells} rows a lane)", "prev_ms": prev_ms}
     emit({"phase": "kernel", **row, "shapes": {"pairs": [n, L], "window": w},
           "sweep_bound_ms": sweep_bound_ms,
           "equals_dtw_band": bool(torch.equal(got,
@@ -1507,6 +1531,24 @@ def full_kernel_phase(torch, ctx) -> dict:
           "agrees": ok, "in_table": True, "tolerance": "identical"})
     check(ok, "dtw_band_full equals its plain version")
     return row
+
+
+def _full_thread_form(torch, A, B, w):
+    """Row 12's thread form (the wrapper's choice beyond L = 1024)
+    launched directly: its output and its ms (mean of 2 launches after
+    one warm-up: about 120 ms each).  Not launches of the path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band.ops import row_geometry
+    n, L = A.shape
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+    threads, blocks, scratch = row_geometry(n, 2 * L, A.device)
+
+    def launch():
+        _build.check(_build.lib().pq_dtw_band_full(
+            A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(scratch),
+            n, L, w, 0, threads, blocks, _build.stream(A.device)),
+            "dtw_band_full (thread form)")
+    return out, _mean_ms(torch, launch, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -1588,14 +1630,17 @@ def _errors(torch, got, want):
 
 def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
                library_fn, nbytes, ops, launch_fn=None, table=True,
-               exact=False, extra=None):
+               exact=False, extra=None, profiled=False):
     """Hold one kernel against its plain version and time both.
     ``launch_fn``: the launch alone, returning its output, where the
     wrapper does more than launch (a range check); ``table=False``: a
     second shape of a kernel already in the table, printed as a phase line
     only; ``exact``: the outputs must be identical (max abs error 0);
     ``extra``: more fields of the record (a redesigned row's earlier
-    form)."""
+    form); ``profiled``: also ``device_ms``, the launch's own device time under
+    ``torch.profiler`` (the mean over the kernels it records of ``REPS``
+    launches: it may miss one), for launches near the host's launch
+    overhead, whose ``ms`` may read that overhead."""
     got = kernel_fn()
     torch.cuda.synchronize()
     want, plain_ms = _sync_ms(torch, plain_fn)
@@ -1610,6 +1655,13 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
         ms = _mean_ms(torch, launch_fn, REPS)
     library_ms = (None if library_fn is None
                   else _mean_ms(torch, library_fn, REPS))
+    if profiled:
+        prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
+        n_seen = prof["kernels"]
+        check(1 <= n_seen <= REPS, f"{name}: {n_seen} kernels under the "
+              f"profiler for {REPS} launches")
+        extra = {**(extra or {}), "device_ms": prof["device_busy_ms"] / n_seen,
+                 "device_ms_kernels": n_seen}
     bound_ms, bound_by = bound(nbytes, ops)
     row = {"name": name, "route": "cuda", "source": SOURCES[name],
            "replaces": TPU_SITES[name], "launches": launches[name],
@@ -1639,7 +1691,8 @@ def kernel_phases(torch, ctx) -> list:
                                                launch_adc_sym)
     from repro_torch.kernels.pq_adc.ref import (adc_lookup_ref,
                                                adc_sym_cdist_ref)
-    from repro_torch.kernels.prealign_encode.ops import prealign_encode
+    from repro_torch.kernels.prealign_encode.ops import (encode_geometry,
+                                                         prealign_encode)
     from repro_torch.kernels.prealign_encode.ref import prealign_encode_ref
 
     cfg, cb, D = ctx["cfg"], ctx["cb"], ctx["D"]
@@ -1719,7 +1772,7 @@ def kernel_phases(torch, ctx) -> list:
           lambda: torch.sqrt(lut[m_idx, qa, tb].sum(0).clamp_min(0.0)),
           ((Nq + N) * M + M * K * K + Nq * N) * 4, Nq * N * (M + 2),
           launch_fn=lambda: (launch_adc_sym(q_codes, codes, lut, sym_out),
-                             sym_out)[1])
+                             sym_out)[1], profiled=True)
 
     # 4. asymmetric ADC: every query's (M, K) table x training codes
     luts = pq.query_lut_batch(pq.segment(Qd, cfg), cb, w, False,
@@ -1732,22 +1785,65 @@ def kernel_phases(torch, ctx) -> list:
           lambda: torch.sqrt(luts[:, m_row, codes_l].sum(-1).clamp_min(0.0)),
           (Nq * M * K + N * M + Nq * N) * 4, Nq * N * (M + 2),
           launch_fn=lambda: (launch_adc_lookup(codes, luts, lookup_out),
-                             lookup_out)[1])
+                             lookup_out)[1], profiled=True)
 
-    # 5. fused MODWT prealign + exact 1-NN encode of the training set
+    # 5. fused MODWT prealign + exact 1-NN encode of the training set: the
+    # register form (the whole wrapper call, its per-call transpose of the
+    # codebook to (M, S, K) included), the shared-memory form timed beside
+    # it
     cents = cb.centroids.contiguous()
     level, tail = cfg.wavelet_level, cfg.tail(D)
     lin = linspace01(S, Xd.device)
-    fused = phase(
+    bucket, _ = encode_geometry(D, M, K, S, w, 0)
+    check(bucket == 16, "the encode takes the register form at 16 slots")
+    _, transpose_ms = _sync_ms(
+        torch, lambda: cents.transpose(1, 2).contiguous())
+    prev_codes, prev_ms = _prealign_shared_form(torch, Xd, cents, lin, level,
+                                                tail, w)
+    cur = prealign_encode(Xd, cents, level, tail, w)
+    same_prev = bool(torch.equal(cur, prev_codes))
+    same_main = bool(torch.equal(cur, ctx["codes_fused"]))
+    phase(
         "prealign_encode", {"X": [N, D], "centroids": [M, K, S],
-                            "window": w},
+                            "window": w, "bucket": bucket},
         lambda: prealign_encode(Xd, cents, level, tail, w),
         lambda: prealign_encode_ref(Xd, cents, level, tail, w, None, lin),
         None, (N * D + M * K * S + N * M + S) * 4,
-        N * M * K * cells * DTW_OPS_PER_CELL)
-    check(torch.equal(fused, ctx["codes_fused"]),
-          "fused codes equal the main path's exact encode")
+        N * M * K * cells * DTW_OPS_PER_CELL,
+        extra={"design": DESIGNS["prealign_encode"],
+               "variant": f"registers ({bucket} slots)",
+               "prev_ms": prev_ms, "transpose_ms": transpose_ms,
+               "equals_prev_form": same_prev,
+               "equals_codes_fused": same_main})
+    check(same_main, "fused codes equal the main path's exact encode")
+    check(same_prev, "prealign_encode: the register form's codes equal the "
+          "shared-memory form's bit for bit")
     return rows
+
+
+def _prealign_shared_form(torch, X, cents, lin, level, tail, w,
+                          measure="dtw"):
+    """``prealign_encode``'s shared-memory form (the wrapper's choice where
+    no register bucket holds the band) launched directly on the ``(M, K,
+    S)`` codebook: its codes and its ms (``REPS`` launches).  Not launches
+    of the path."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.prealign_encode.ops import block_geometry
+    spec = tmeas.resolve(measure)
+    (N, D), (M, K, S) = X.shape, cents.shape
+    wt = tmeas.wdtw_weights(spec, S, X.device) if spec.uses_position else None
+    codes = torch.empty((N, M), dtype=torch.int32, device=X.device)
+    threads = block_geometry(D, M, S, w)
+    kid, param = tmeas.kernel_measure_id(spec), tmeas.kernel_param(spec)
+
+    def launch():
+        _build.check(_build.lib().pq_prealign_encode(
+            X.data_ptr(), cents.data_ptr(), lin.data_ptr(), _build.ptr(wt),
+            codes.data_ptr(), N, D, M, K, S, level, tail, w, kid,
+            float(param), 0, threads, _build.stream(X.device)),
+            "prealign_encode (shared-memory form)")
+    return codes, _mean_ms(torch, launch, REPS)
 
 
 def _cdist_forms_ms(torch, A, B, w, bucket) -> dict:
@@ -1921,8 +2017,10 @@ def measure_sweep(torch) -> None:
     """Both DP kernels for every measure at the main path's subsequence
     geometry (S=74, w=7) and at the exact-NN geometry (L=512, w=51), plus
     the unbanded L=600 case whose band rows live in device scratch,
-    ``adc_sym`` on 1024 x 6144 random codes, and the fused encode under two
-    other measures."""
+    ``adc_sym`` on 1024 x 6144 random codes, and the fused encode under
+    every measure, its register form against the plain version and its
+    shared-memory form."""
+    from repro_torch.core.modwt import linspace01
     from repro_torch.kernels.dtw_band.ops import dtw_band, dtw_band_cdist
     from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
                                                   dtw_band_ref)
@@ -1968,13 +2066,19 @@ def measure_sweep(torch) -> None:
     check(ok, "adc_sym 1024 x 6144")
     X = torch.cumsum(randn(128, 512), dim=1)
     cents = randn(8, 32, 74)
-    for measure in ("erp:g=0.3", "msm:c=0.5"):
+    lin = linspace01(74, X.device)
+    for measure in ("dtw", "wdtw:g=0.1", "erp:g=0.3", "msm:c=0.5"):
         got = prealign_encode(X, cents, 3, 10, 7, measure)
         want = prealign_encode_ref(X, cents, 3, 10, 7, measure)
+        prev, _ = _prealign_shared_form(torch, X, cents, lin, 3, 10, 7,
+                                        measure)
         ok = bool(torch.equal(got, want))
+        same = bool(torch.equal(got, prev))
         cases.append({"L": 512, "window": 7, "measure": measure,
-                      "form": "prealign_encode", "agrees": ok})
-        check(ok, f"prealign_encode {measure}")
+                      "form": "prealign_encode", "agrees": ok,
+                      "equals_prev_form": same})
+        check(ok and same, f"prealign_encode {measure}: the register form "
+              "equals the plain version and the shared-memory form")
     emit({"phase": "measure_sweep", "tolerance": {"rtol": RTOL,
                                                   "atol": ATOL},
           "cases": cases})

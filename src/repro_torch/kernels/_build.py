@@ -63,8 +63,7 @@ _SIGNATURES = {
                           _I, _P],
     "pq_adc_sym": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pq_adc_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "pq_prealign_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _P],
+    "pq_prealign_encode": [_P] * 5 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
     "pq_lb_refine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
     "pq_lb_refine_warp": [_P] * 7 + [_I] * 6 + [_P],
@@ -75,7 +74,7 @@ _SIGNATURES = {
     "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],
     "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
     "pq_attn": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 3 + [_P],
-    "pq_dtw_band_full": [_P] * 4 + [_I] * 5 + [_P],
+    "pq_dtw_band_full": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

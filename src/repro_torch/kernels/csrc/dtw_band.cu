@@ -6,7 +6,8 @@
 // all pairs (N,L) x (M,L) -> (N,M)), dtw_band_adaptive_kernel
 // (mode="adaptive": zipped pairs inside per-pair corridors lo, hi
 // (N, 2L-1) int32 with a register cap W -> (N,)), and dtw_band_kernel
-// (mode="full", the DTW-only full-width baseline, below).
+// (mode="full", the DTW-only full-width baseline, below: one warp a pair
+// up to L = 1024, one thread a pair beyond).
 //
 // One thread sweeps one pair.  The zipped form uses pqdtw::band_cost
 // (wavefront.cuh, which says what bounds the DP and why), the band row in
@@ -113,7 +114,7 @@ __global__ void dtw_band_cdist_reg_kernel(const float* __restrict__ A,
     __syncthreads();
     if (x < nx) {
       const float c = pqdtw::band_cost_reg<MEAS, WB>(X + x * L, sb + WB, L,
-                                                     w, p, sw);
+                                                     w, p, sw, 1);
       out[swap ? (long long)y * M + x : x * M + y] = c;
     }
   }
@@ -163,7 +164,9 @@ __global__ void dtw_band_adaptive_kernel(const float* __restrict__ A,
 // L rows i, and the band |i - j| <= w is only a mask: a pair costs
 // (2L-1) * L cell updates against band_cost's L * (2w+1), which is the
 // point of keeping it (the baseline the band-compressed sweep is measured
-// against).  One thread owns one pair and keeps diagonals d-1 and d-2
+// against).  This thread form is the wrapper's choice beyond L = 1024 (the
+// warp form below takes shorter series).  One thread owns one pair and
+// keeps diagonals d-1 and d-2
 // (L floats each, addressed as in band_row); diagonal d overwrites d-2
 // with i descending, so cell i still reads d-2's slot i-1 and d-1's
 // slots i and i-1.  The cell is the reference's, contracted by XLA as
@@ -212,6 +215,101 @@ __global__ void dtw_band_full_kernel(const float* __restrict__ A,
     }
     out[q] = prev1[(size_t)(L - 1) * stride];
   }
+}
+
+// The full-width sweep, one warp a pair (L <= 32 * C, C in 1, 2, 4, 8, 16,
+// 32).  The same algorithm as dtw_band_full_kernel, every one of the L
+// slots of every one of the 2L-1 diagonals computed and the band only a
+// mask, as the reference kernel sweeps a diagonal as one vector over L
+// lanes (kernel.py:92-125); here lane l owns rows i = l*C .. l*C + C-1 of
+// every diagonal, in registers:
+//
+//   a[i]       loaded once;
+//   b[d - i]   slid by one row a diagonal, as the reference slides its
+//              reversed, zero-padded copy of b: each lane shifts its C
+//              values, takes its first from lane l-1 by one shuffle, and
+//              lane 0 takes b[d] (0 for d >= L);
+//   d-1, d-2   two register arrays; diagonal d overwrites d-2 with c
+//              descending (slot i reads d-2 only at slot i-1), and the
+//              diagonals go in pairs so the arrays alternate and nothing
+//              is copied.  The predecessors on slot i-1 (vertical on d-1,
+//              diagonal on d-2) of a lane's first row come from lane l-1,
+//              two shuffles a diagonal; lane 0 reads +inf there, or 0 at
+//              d = 0: cell (0, 0) starts from 0.
+//
+// A slot is live where its row lies in the table and the band, rows
+// max(0, d-L+1, ceil((d-w)/2)) .. min(L-1, d, floor((d+w)/2)), computed
+// once a diagonal; every other slot holds +inf, as the thread form writes.
+// Each live cell is the thread form's fminf(__fmaf_rn(df, df, fminf(fminf(
+// dg, h), v)), kInf), so the cost equals it (and band_cost's) to the bit.
+// What bounds it: about 9 instructions a slot, (2L-1) * L slots a pair
+// (the instruction issue rate, not HBM: a pair reads 2L floats once); a
+// pair's chain is 2L-1 diagonal steps of two shuffles and one cell.
+template <int C>
+__device__ __forceinline__ void full_diag(float* cur, const float* prev,
+                                          float* bv, const float* ar,
+                                          float b_d, int d, int L, int w,
+                                          int t0, int lane) {
+  constexpr unsigned kFull = 0xffffffffu;
+  float ev = __shfl_up_sync(kFull, prev[C - 1], 1);  // d-1 at slot t0 - 1
+  float ed = __shfl_up_sync(kFull, cur[C - 1], 1);   // d-2 at slot t0 - 1
+  float eb = __shfl_up_sync(kFull, bv[C - 1], 1);    // b[d - t0]
+  if (lane == 0) {
+    ev = pqdtw::kInf;
+    ed = d == 0 ? 0.f : pqdtw::kInf;
+    eb = b_d;
+  }
+  const int lo = max(max(0, d - L + 1), (d - w + 1) >> 1);
+  const int hi = min(min(L - 1, d), (d + w) >> 1);
+  const int first = lo - t0;  // slot c is live iff 0 <= c - first < live
+  const unsigned live = (unsigned)max(hi - lo + 1, 0);
+#pragma unroll
+  for (int c = C - 1; c >= 0; --c) {
+    bv[c] = (c > 0) ? bv[c > 0 ? c - 1 : 0] : eb;
+    const float h = prev[c];
+    const float v = (c > 0) ? prev[c > 0 ? c - 1 : 0] : ev;
+    const float dg = (c > 0) ? cur[c > 0 ? c - 1 : 0] : ed;
+    const float df = ar[c] - bv[c];
+    const float cell =
+        fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), pqdtw::kInf);
+    cur[c] = (unsigned)(c - first) < live ? cell : pqdtw::kInf;
+  }
+}
+
+template <int C>
+__global__ void dtw_band_full_warp_kernel(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          float* __restrict__ out, int n,
+                                          int L, int w) {
+  const int lane = threadIdx.x & 31;
+  const long long q =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (q >= n) return;  // the whole warp
+  const float* a = A + q * L;
+  const float* b = B + q * L;
+  const int t0 = lane * C;  // this lane's first row
+  float ar[C], bv[C], x[C], y[C];  // x: even diagonals, y: odd
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ar[c] = (t0 + c < L) ? a[t0 + c] : 0.f;
+    bv[c] = 0.f;  // rows past the diagonal: masked
+    x[c] = y[c] = pqdtw::kInf;  // diagonals -2 and -1
+  }
+  int d = 0;
+  for (; d < 2 * L - 2; d += 2) {
+    const float b0 = (d < L) ? b[d] : 0.f;
+    const float b1 = (d + 1 < L) ? b[d + 1] : 0.f;
+    full_diag<C>(x, y, bv, ar, b0, d, L, w, t0, lane);
+    full_diag<C>(y, x, bv, ar, b1, d + 1, L, w, t0, lane);
+  }
+  full_diag<C>(x, y, bv, ar, (d < L) ? b[d] : 0.f, d, L, w, t0, lane);
+  // cell (L-1, L-1): row L-1 of diagonal 2L-2
+  float mine = pqdtw::kInf;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (t0 + c == L - 1) mine = x[c];
+  const float cost = __shfl_sync(0xffffffffu, mine, (L - 1) / C);
+  if (lane == 0) out[q] = cost;
 }
 
 // The register form of pq_dtw_band_cdist: bucket WB in {8, 16, 32} for
@@ -381,13 +479,50 @@ int pq_dtw_band_adaptive(const float* A, const float* B, const int* lo,
   return (int)cudaGetLastError();
 }
 
+// cells = 0: the thread form (threads a block, its two diagonals in
+// shared memory or scratch); else the warp form with C = cells rows a lane
+// (32 * cells >= L), threads / 32 warps a block, one pair a warp.
 int pq_dtw_band_full(const float* A, const float* B, float* out,
-                     float* scratch, int n, int L, int w, int threads,
-                     int blocks, void* stream) {
-  const size_t smem = pqdtw::state_smem_bytes(scratch, threads, 2 * L);
-  dtw_band_full_kernel<<<blocks, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      A, B, out, scratch, n, L, w);
+                     float* scratch, int n, int L, int w, int cells,
+                     int threads, int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cells == 0) {
+    const size_t smem = pqdtw::state_smem_bytes(scratch, threads, 2 * L);
+    dtw_band_full_kernel<<<blocks, threads, smem, s>>>(A, B, out, scratch, n,
+                                                       L, w);
+    return (int)cudaGetLastError();
+  }
+  if (32 * cells < L || threads % 32 != 0 ||
+      (long long)blocks * (threads / 32) < n)
+    return (int)cudaErrorInvalidValue;
+  switch (cells) {
+    case 1:
+      dtw_band_full_warp_kernel<1><<<blocks, threads, 0, s>>>(A, B, out, n,
+                                                              L, w);
+      break;
+    case 2:
+      dtw_band_full_warp_kernel<2><<<blocks, threads, 0, s>>>(A, B, out, n,
+                                                              L, w);
+      break;
+    case 4:
+      dtw_band_full_warp_kernel<4><<<blocks, threads, 0, s>>>(A, B, out, n,
+                                                              L, w);
+      break;
+    case 8:
+      dtw_band_full_warp_kernel<8><<<blocks, threads, 0, s>>>(A, B, out, n,
+                                                              L, w);
+      break;
+    case 16:
+      dtw_band_full_warp_kernel<16><<<blocks, threads, 0, s>>>(A, B, out, n,
+                                                               L, w);
+      break;
+    case 32:
+      dtw_band_full_warp_kernel<32><<<blocks, threads, 0, s>>>(A, B, out, n,
+                                                               L, w);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -15,16 +15,34 @@
 //      point in [l - tail, l] (never position 0);
 //   4. every segment is re-interpolated to S points on the lerp grid
 //      `lin` (built on the host by jnp.linspace's float32 formula).
-// Then, per subspace, the threads sweep the segment against the K
-// centroids with pqdtw::band_cost (wavefront.cuh), one centroid at a time
-// per thread, and a block argmin keeps the lowest index among equal
-// distances.
+// Then, per subspace, every thread sweeps its own centroids against the
+// segment, and an argmin keeps the lowest index among equal distances.
+// Two forms of that step, the wrapper picking by the band alone
+// (prealign_encode/ops.py::encode_geometry):
 //
-// What bounds it on the H100: the K*M dependent DP chains per series
-// (see wavefront.cuh); the pre-alignment is O(D * level) per series and
-// the centroids (M*K*S floats, 606 KB at the main-path geometry) stay in
-// L2.  The design keeps the series, its segments and the band rows in
-// shared memory and gives every thread its own centroids.
+//   register form (2w + 2 fits a register bucket WB: 8, 16, 32; for dtw
+//   also 64 and 128), row 2's design: step 4 writes each segment padded by
+//   WB copies of its edge elements, and each thread sweeps its centroid
+//   against it with pqdtw::band_cost_reg<MEAS, WB>, the centroid as the
+//   thread's operand (one load a row, the codebook given as (M, S, K) so
+//   that a warp's loads of a row coalesce) and the staged segment as the
+//   broadcast row.  This is the cost of (centroid, segment), the table
+//   transposed: the banded cost is symmetric to the bit for every measure
+//   (each cell the same float32 expression of the same predecessors; see
+//   dtw_band.cu's register form), so the codes do not move.  The argmin
+//   is a shuffle butterfly in each warp and one pass over the warps'
+//   winners, one __syncthreads a subspace (the winners double-buffered).
+//
+//   shared-memory form (wider bands): pqdtw::band_cost, the band row in
+//   shared memory, the centroid read from (M, K, S) at every cell, and a
+//   block tree argmin.
+//
+// What bounds it on the H100: the DP's instructions, about K*M*S*(2w+1)
+// cells a series (the register form spends its arithmetic, a broadcast
+// load and a select a cell; the shared-memory form adds a load, a store
+// and the loop's control, and a strided load of b[j] from L2); the
+// pre-alignment is O(D * level) per series and the centroids (M*K*S
+// floats, 606 KB at the main-path geometry) stay in L2.
 //
 // Rounding: built with --fmad=false, and the two lines that the
 // reference's compiler (XLA) contracts are explicit fused multiply-adds:
@@ -40,25 +58,19 @@ namespace {
 
 using pqdtw::band_cost;
 
-template <int MEAS>
-__global__ void prealign_encode_kernel(
-    const float* __restrict__ X, const float* __restrict__ cents,
-    const float* __restrict__ lin, const float* __restrict__ wt,
-    int* __restrict__ codes, int D, int M, int K, int S, int level, int tail,
-    int w, float p) {
-  extern __shared__ float smem[];
-  const int bd = blockDim.x, t = threadIdx.x;
-  float* xs = smem;                    // D: the series
-  float* vs = xs + D;                  // D: MODWT scale / forward-filled sign
-  float* tmp = vs + D;                 // D: MODWT double buffer
-  float* segs = tmp + D;               // M * S: re-interpolated segments
-  float* rows = segs + M * S;          // bd * (2w + 2): band rows
-  float* red_d = rows + bd * (2 * w + 2);  // bd: argmin distances
-  int* red_k = reinterpret_cast<int*>(red_d + bd);  // bd: argmin indices
-  int* bounds = red_k + bd;            // M + 1 segment boundaries
+constexpr unsigned kFull = 0xffffffffu;
 
-  const long long n = blockIdx.x;
-  const float* x = X + n * D;
+// Steps 1-4 for the block's series x: the series in xs, its segments in
+// segs, segment m at segs + m * (S + 2 * pad) + pad, each padded by pad
+// copies of its edge elements (the lerp of the clamped point, so the same
+// bits).  vs, tmp: D floats of work space; bounds: M + 1 ints.  Ends on a
+// __syncthreads.
+__device__ void prealign_segments(const float* __restrict__ x,
+                                  const float* __restrict__ lin, float* xs,
+                                  float* vs, float* tmp, float* segs,
+                                  int* bounds, int D, int M, int S,
+                                  int level, int tail, int pad) {
+  const int bd = blockDim.x, t = threadIdx.x;
   for (int i = t; i < D; i += bd) {
     xs[i] = x[i];
     vs[i] = x[i];
@@ -118,8 +130,10 @@ __global__ void prealign_encode_kernel(
   __syncthreads();
 
   // 4. linear re-interpolation of every segment to S points.
-  for (int e = t; e < M * S; e += bd) {
-    const int m = e / S, s = e % S;
+  const int P = S + 2 * pad;
+  for (int e = t; e < M * P; e += bd) {
+    const int m = e / P;
+    const int s = min(max(e % P - pad, 0), S - 1);
     const int start = bounds[m], stop = bounds[m + 1];
     const float pos =
         __fmaf_rn(lin[s], (float)(stop - start - 1), (float)start);
@@ -129,6 +143,29 @@ __global__ void prealign_encode_kernel(
     segs[e] = __fmaf_rn(xs[hi], frac, xs[lo] * (1.0f - frac));
   }
   __syncthreads();
+}
+
+// The shared-memory form: centroids (M, K, S).
+template <int MEAS>
+__global__ void prealign_encode_kernel(
+    const float* __restrict__ X, const float* __restrict__ cents,
+    const float* __restrict__ lin, const float* __restrict__ wt,
+    int* __restrict__ codes, int D, int M, int K, int S, int level, int tail,
+    int w, float p) {
+  extern __shared__ float smem[];
+  const int bd = blockDim.x, t = threadIdx.x;
+  float* xs = smem;                    // D: the series
+  float* vs = xs + D;                  // D: MODWT scale / forward-filled sign
+  float* tmp = vs + D;                 // D: MODWT double buffer
+  float* segs = tmp + D;               // M * S: re-interpolated segments
+  float* rows = segs + M * S;          // bd * (2w + 2): band rows
+  float* red_d = rows + bd * (2 * w + 2);  // bd: argmin distances
+  int* red_k = reinterpret_cast<int*>(red_d + bd);  // bd: argmin indices
+  int* bounds = red_k + bd;            // M + 1 segment boundaries
+
+  const long long n = blockIdx.x;
+  prealign_segments(X + n * D, lin, xs, vs, tmp, segs, bounds, D, M, S,
+                    level, tail, 0);
 
   // 5. per subspace: elastic 1-NN over the K centroids, first index wins.
   float* row = rows + t;
@@ -163,6 +200,76 @@ __global__ void prealign_encode_kernel(
   }
 }
 
+// (od, ok) replaces (d, k) if it is nearer, or as near with a lower index.
+__device__ __forceinline__ void keep_first_min(float od, int ok, float* d,
+                                               int* k) {
+  if (od < *d || (od == *d && ok < *k)) {
+    *d = od;
+    *k = ok;
+  }
+}
+
+// The register form: centroids (M, S, K), 2w + 2 <= WB, blockDim.x a
+// multiple of 32.
+template <int MEAS, int WB>
+__global__ void prealign_encode_reg_kernel(
+    const float* __restrict__ X, const float* __restrict__ cents_t,
+    const float* __restrict__ lin, const float* __restrict__ wt,
+    int* __restrict__ codes, int D, int M, int K, int S, int level, int tail,
+    int w, float p) {
+  extern __shared__ float smem[];
+  const int bd = blockDim.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nw = bd >> 5;
+  const int P = S + 2 * WB;            // a padded segment
+  float* xs = smem;                    // D: the series
+  float* vs = xs + D;                  // D: MODWT scale / forward-filled sign
+  float* tmp = vs + D;                 // D: MODWT double buffer
+  float* segs = tmp + D;               // M * P: padded segments
+  float* sw = segs + M * P;            // S: WDTW weights
+  float* red_d = sw + S;               // 2 * nw: the warps' winners
+  int* red_k = reinterpret_cast<int*>(red_d + 2 * nw);  // 2 * nw
+  int* bounds = red_k + 2 * nw;        // M + 1 segment boundaries
+
+  if (MEAS == pqdtw::kWDTW)
+    for (int k = t; k < S; k += bd) sw[k] = wt[k];
+  const long long n = blockIdx.x;
+  prealign_segments(X + n * D, lin, xs, vs, tmp, segs, bounds, D, M, S,
+                    level, tail, WB);
+
+  for (int m = 0; m < M; ++m) {
+    float best = __int_as_float(0x7f800000);  // +inf: no centroid yet
+    int best_k = 0x7fffffff;
+    const float* cm = cents_t + (size_t)m * S * K;
+    for (int k = t; k < K; k += bd) {
+      const float d = pqdtw::band_cost_reg<MEAS, WB>(cm + k, segs + m * P + WB,
+                                                     S, w, p, sw, K);
+      if (d < best) {  // k ascends per thread: strict < keeps the first
+        best = d;
+        best_k = k;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      keep_first_min(__shfl_xor_sync(kFull, best, off),
+                     __shfl_xor_sync(kFull, best_k, off), &best, &best_k);
+    // subspace m's winners in buffer m & 1: a warp writes m + 2's only
+    // after the barrier of m + 1, which thread 0 passes after reading m's
+    float* rd = red_d + (m & 1) * nw;
+    int* rk = red_k + (m & 1) * nw;
+    if (lane == 0) {
+      rd[warp] = best;
+      rk[warp] = best_k;
+    }
+    __syncthreads();
+    if (t == 0) {
+      float win_d = rd[0];
+      int win_k = rk[0];
+      for (int v = 1; v < nw; ++v)
+        keep_first_min(rd[v], rk[v], &win_d, &win_k);
+      codes[n * M + m] = win_k;
+    }
+  }
+}
+
 template <int MEAS>
 int launch(const float* X, const float* cents, const float* lin,
            const float* wt, int* codes, int N, int D, int M, int K, int S,
@@ -179,19 +286,98 @@ int launch(const float* X, const float* cents, const float* lin,
   return (int)cudaGetLastError();
 }
 
+template <int MEAS, int WB>
+int launch_reg_bucket(const float* X, const float* cents_t, const float* lin,
+                      const float* wt, int* codes, int N, int D, int M, int K,
+                      int S, int level, int tail, int w, float p, int threads,
+                      cudaStream_t stream) {
+  const int nw = threads / 32;
+  const size_t smem =
+      sizeof(float) * ((size_t)3 * D + (size_t)M * (S + 2 * WB) + S +
+                       2 * nw) +
+      sizeof(int) * ((size_t)2 * nw + M + 1);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        prealign_encode_reg_kernel<MEAS, WB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  prealign_encode_reg_kernel<MEAS, WB><<<N, threads, smem, stream>>>(
+      X, cents_t, lin, wt, codes, D, M, K, S, level, tail, w, p);
+  return (int)cudaGetLastError();
+}
+
+template <int MEAS>
+int launch_reg(const float* X, const float* cents_t, const float* lin,
+               const float* wt, int* codes, int N, int D, int M, int K, int S,
+               int level, int tail, int w, float p, int bucket, int threads,
+               cudaStream_t s) {
+  switch (bucket) {
+    case 8:
+      return launch_reg_bucket<MEAS, 8>(X, cents_t, lin, wt, codes, N, D, M,
+                                        K, S, level, tail, w, p, threads, s);
+    case 16:
+      return launch_reg_bucket<MEAS, 16>(X, cents_t, lin, wt, codes, N, D, M,
+                                         K, S, level, tail, w, p, threads, s);
+    case 32:
+      return launch_reg_bucket<MEAS, 32>(X, cents_t, lin, wt, codes, N, D, M,
+                                         K, S, level, tail, w, p, threads, s);
+    case 64:
+      if (MEAS != pqdtw::kDTW) return (int)cudaErrorInvalidValue;
+      return launch_reg_bucket<pqdtw::kDTW, 64>(X, cents_t, lin, wt, codes, N,
+                                                D, M, K, S, level, tail, w, p,
+                                                threads, s);
+    case 128:
+      if (MEAS != pqdtw::kDTW) return (int)cudaErrorInvalidValue;
+      return launch_reg_bucket<pqdtw::kDTW, 128>(X, cents_t, lin, wt, codes,
+                                                 N, D, M, K, S, level, tail,
+                                                 w, p, threads, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// bucket = 0: the shared-memory form, cents (M, K, S); else the register
+// form with WB = bucket (2w + 2 <= bucket), cents (M, S, K), threads a
+// multiple of 32.
 int pq_prealign_encode(const float* X, const float* cents, const float* lin,
                        const float* wt, int* codes, int N, int D, int M,
                        int K, int S, int level, int tail, int w, int measure,
-                       float p, int threads, void* stream) {
+                       float p, int bucket, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bucket != 0) {
+    if (w < 0 || w > S - 1 || 2 * w + 2 > bucket || threads % 32 != 0 ||
+        threads < 32 || threads > 1024)
+      return (int)cudaErrorInvalidValue;
+    switch (measure) {
+      case pqdtw::kDTW:
+        return launch_reg<pqdtw::kDTW>(X, cents, lin, wt, codes, N, D, M, K,
+                                       S, level, tail, w, p, bucket, threads,
+                                       s);
+      case pqdtw::kWDTW:
+        return launch_reg<pqdtw::kWDTW>(X, cents, lin, wt, codes, N, D, M, K,
+                                        S, level, tail, w, p, bucket,
+                                        threads, s);
+      case pqdtw::kERP:
+        return launch_reg<pqdtw::kERP>(X, cents, lin, wt, codes, N, D, M, K,
+                                       S, level, tail, w, p, bucket, threads,
+                                       s);
+      case pqdtw::kMSM:
+        return launch_reg<pqdtw::kMSM>(X, cents, lin, wt, codes, N, D, M, K,
+                                       S, level, tail, w, p, bucket, threads,
+                                       s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   const size_t smem = sizeof(float) * ((size_t)3 * D + (size_t)M * S +
                                        (size_t)threads * (2 * w + 2) +
                                        threads) +
                       sizeof(int) * ((size_t)threads + M + 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (measure) {
     case pqdtw::kDTW:
       return launch<pqdtw::kDTW>(X, cents, lin, wt, codes, N, D, M, K, S,

@@ -5,8 +5,8 @@
 // on the same cells:
 //
 //   band_cost           one thread a pair, the band row in shared memory
-//                       or scratch (zipped pairs, wide all-pairs bands,
-//                       prealign, lb_cascade beyond w = 255);
+//                       or scratch (zipped pairs, wide all-pairs and
+//                       prealign bands, lb_cascade beyond w = 255);
 //   corridor_cost       the same DP inside a per-pair adaptive corridor,
 //                       every measure (dtw_band.cu's adaptive kernel, and
 //                       lb_cascade.cu's beyond width 256);
@@ -19,7 +19,8 @@
 //   band_cost_warp      one warp a pair in the static band, dtw
 //                       (lb_cascade.cu's refine up to w = 255);
 //   band_cost_reg       one thread a pair, the band row in registers
-//                       (dtw_band.cu's all pairs for narrow bands).
+//                       (dtw_band.cu's all pairs and prealign_encode.cu's
+//                       1-NN, for narrow bands).
 //
 // The thread forms are bound by one pair's dependent chain (hidden by
 // thousands of pairs in flight) or, in registers, by instructions a cell;
@@ -692,7 +693,10 @@ __device__ float band_cost_warp(const float* a, const float* b, int L, int w,
 // diagonal gb[j-1]), so no register is indexed by a runtime value: an
 // array indexed so would live in local memory.
 //
-// b points at a row padded on both sides by WB copies of its edge
+// a[i] sits at a[i * as]: as = 1 for a row of its own, or the codebook's
+// K for a centroid of a codebook stored (M, S, K), so that the threads of
+// a warp, one centroid each, read a row's elements at consecutive
+// addresses.  b points at a row padded on both sides by WB copies of its edge
 // elements (the caller stages it so in shared memory), so b[j] needs no
 // test and MSM's b[j-1] at j = 0 reads b[0], band_cost's sentinel.  wt:
 // WDTW's weights by |i - j| = |w - k| (the caller stages them in shared
@@ -700,14 +704,15 @@ __device__ float band_cost_warp(const float* a, const float* b, int L, int w,
 
 template <int MEAS, int WB>
 __device__ float band_cost_reg(const float* __restrict__ a, const float* b,
-                               int L, int w, float p, const float* wt) {
+                               int L, int w, float p, const float* wt,
+                               int as) {
   float r[WB];
 #pragma unroll
   for (int s = 0; s < WB; ++s) r[s] = (s == w) ? 0.f : kInf;
   float ga = 0.f;
   for (int i = 0; i < L; ++i) {
-    const float x = a[i];
-    const float xp = (i > 0) ? a[i - 1] : a[0];
+    const float x = a[(size_t)i * as];
+    const float xp = (i > 0) ? a[(size_t)(i - 1) * as] : a[0];
     const float ga_prev = ga;
     if (MEAS == kERP) ga = ga + fabsf(x - p);
     const int k_lo = max(0, w - i);

@@ -30,8 +30,8 @@ from .ref import (dtw_band_adaptive_ref, dtw_band_cdist_ref,
 __all__ = ["dtw_band", "dtw_band_cdist", "dtw_band_adaptive",
            "launch_dtw_band_adaptive",
            "launch_dtw_band_full", "band_geometry", "band_width",
-           "cdist_bucket", "reg_grid", "adaptive_launch_name",
-           "check_corridor"]
+           "cdist_bucket", "reg_grid", "full_warp_geometry",
+           "adaptive_launch_name", "check_corridor"]
 
 _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
@@ -44,6 +44,9 @@ _GRID_Y = 65535
 REG_BUCKETS = (8, 16, 32)
 DTW_REG_BUCKETS = (64, 128)
 _DTW, _WDTW, _ERP, _MSM = 0, 1, 2, 3  # wavefront.cuh's Measure
+# dtw_band.cu: rows a lane of the full-width sweep's warp form (L <= 1024)
+FULL_WARP_CELLS = (1, 2, 4, 8, 16, 32)
+_FULL_WARPS = 4  # warps (pairs) a block
 
 
 def cdist_bucket(w: int, kid: int, length: int) -> Optional[int]:
@@ -83,6 +86,24 @@ def reg_grid(N: int, M: int) -> Tuple[bool, int, int]:
     swap = M > N
     rows, other = (M, N) if swap else (N, M)
     return swap, -(-rows // _THREADS), max(1, min(other, _GRID_Y))
+
+
+def full_warp_geometry(n: int, L: int) -> Optional[Tuple[int, int, int]]:
+    """``(cells, warps, blocks)`` of the full-width sweep's warp form for
+    ``n`` pairs of length ``L``: one warp a pair, each lane holding
+    ``cells`` rows (the least of :data:`FULL_WARP_CELLS` with ``32 * cells
+    >= L``), ``warps`` pairs a block; ``None`` beyond ``L = 1024``, where
+    the thread form sweeps.
+
+    >>> full_warp_geometry(7680, 512), full_warp_geometry(5, 33)
+    ((16, 4, 1920), (2, 4, 2))
+    >>> full_warp_geometry(1, 1025) is None
+    True
+    """
+    for cells in FULL_WARP_CELLS:
+        if 32 * cells >= L:
+            return cells, _FULL_WARPS, max(1, -(-n // _FULL_WARPS))
+    return None
 
 
 def adaptive_launch_name(kid: int) -> str:
@@ -207,17 +228,25 @@ def launch_dtw_band_full(A: torch.Tensor, B: torch.Tensor, w: int,
                          out: torch.Tensor) -> None:
     """The full-width launch alone, into ``out (N,)``, for contiguous
     float32 ``A, B (N, L)`` on one CUDA device and the effective band
-    ``w``.  Each thread keeps two diagonals (``2L`` floats), in shared
-    memory or device scratch as :func:`row_geometry` decides."""
+    ``w``.  Up to ``L = 1024`` one warp sweeps a pair, its two diagonals
+    in registers (:func:`full_warp_geometry`); beyond, each thread keeps
+    two diagonals (``2L`` floats), in shared memory or device scratch as
+    :func:`row_geometry` decides."""
     n, L = A.shape
     if n > _INT_MAX:
         raise ValueError(f"{n} pairs exceed one launch")
     if n == 0:
         return
-    threads, blocks, scratch = row_geometry(n, 2 * L, A.device)
+    warp = full_warp_geometry(n, L)
+    if warp is not None:
+        cells, warps, blocks = warp
+        threads, scratch = 32 * warps, None
+    else:
+        cells = 0
+        threads, blocks, scratch = row_geometry(n, 2 * L, A.device)
     status = _build.lib().pq_dtw_band_full(
         A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(scratch), n,
-        L, w, threads, blocks, _build.stream(A.device))
+        L, w, cells, threads, blocks, _build.stream(A.device))
     _build.check(status, "dtw_band_full")
     _build.count_launch("dtw_band_full")
 

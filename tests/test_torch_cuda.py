@@ -30,7 +30,10 @@ its ticket counters at 0, also with launches in flight on two streams at
 once; ``lb_refine_adaptive``'s warp form (width <= 256) equals its thread
 form and ``dtw_band_adaptive`` bit for bit where they refine, and stays
 finite on a corridor that breaks the invariants; ``dtw_band_cdist``'s
-register form equals its shared-memory form bit for bit.
+register form equals its shared-memory form bit for bit; the full-width
+sweep's warp form (``L <= 1024``) equals its thread form, and
+``prealign_encode``'s register form its shared-memory form, bit for bit,
+the first index winning among duplicated centroids.
 """
 
 import pytest
@@ -734,3 +737,131 @@ def test_pq_attn_two_streams(gen):
     assert len(set(keys)) == 3
     for key in keys:
         assert int(pq_attn_ops._COUNTERS[key].abs().sum()) == 0
+
+
+class _Spy:
+    """Stands in for the kernel library: records each entry's arguments
+    and runs it."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.called = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def entry(*args):
+            self.called.append((name, args))
+            return fn(*args)
+        return entry
+
+
+def _full_thread_form(A, B, w):
+    """Row 12's thread form (the wrapper's choice beyond L = 1024)
+    launched directly, at any length."""
+    from repro_torch.kernels.dtw_band.ops import row_geometry
+    n, L = A.shape
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+    threads, blocks, scratch = row_geometry(n, 2 * L, A.device)
+    _build.check(_build.lib().pq_dtw_band_full(
+        A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(scratch), n,
+        L, w, 0, threads, blocks, _build.stream(A.device)),
+        "dtw_band_full (thread form)")
+    return out
+
+
+@pytest.mark.parametrize("L", [1, 7, 31, 32, 33, 74, 512, 1024, 1025])
+@pytest.mark.parametrize("window", [0, 1, 51, "L-1", None])
+def test_dtw_band_full_warp_form(gen, monkeypatch, L, window):
+    """Row 12's warp form (one warp a pair, C = ceil(L / 32) rows a lane
+    in a bucket up to 32) equals the thread form, the plain version and
+    dtw_band bit for bit; beyond L = 1024 the wrapper takes the thread
+    form.  37 pairs: the last block of 4 warps is ragged."""
+    from repro_torch.core.dispatch import effective_window
+    from repro_torch.kernels.dtw_band.ops import full_warp_geometry
+    from repro_torch.kernels.dtw_band.ref import dtw_band_full_ref
+    w = L - 1 if window == "L-1" else window
+    A, B = _randn(gen, 37, L), _randn(gen, 37, L)
+    spy = _Spy(_build.lib())
+    monkeypatch.setattr(_build, "lib", lambda: spy)
+    before = _build.LAUNCHES["dtw_band_full"]
+    got = dtw_band(A, B, w, mode="full")
+    assert _build.LAUNCHES["dtw_band_full"] == before + 1
+    (name, args), = spy.called
+    geo = full_warp_geometry(37, L)
+    assert name == "pq_dtw_band_full"
+    assert args[7] == (0 if geo is None else geo[0])
+    assert (geo is None) == (L > 1024)
+    thread = _full_thread_form(A, B, effective_window(L, w))
+    assert torch.equal(got, thread)
+    assert torch.equal(got, dtw_band_full_ref(A, B, w))
+    assert torch.equal(got, dtw_band(A, B, w))
+
+
+def _prealign_shared_form(X, cents, level, tail, w, measure):
+    """Row 5's shared-memory form (the wrapper's choice where no register
+    bucket holds the band) launched directly, at any band."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.core.modwt import linspace01
+    from repro_torch.kernels.prealign_encode.ops import block_geometry
+    spec = tmeas.resolve(measure)
+    X, cents = X.contiguous(), cents.contiguous()
+    (N, D), (M, K, S) = X.shape, cents.shape
+    wt = tmeas.wdtw_weights(spec, S, "cuda") if spec.uses_position else None
+    lin = linspace01(S, X.device)
+    codes = torch.empty((N, M), dtype=torch.int32, device="cuda")
+    _build.check(_build.lib().pq_prealign_encode(
+        X.data_ptr(), cents.data_ptr(), lin.data_ptr(), _build.ptr(wt),
+        codes.data_ptr(), N, D, M, K, S, level, tail, w,
+        tmeas.kernel_measure_id(spec), float(tmeas.kernel_param(spec)), 0,
+        block_geometry(D, M, S, w), _build.stream(X.device)),
+        "prealign_encode (shared-memory form)")
+    return codes
+
+
+@pytest.mark.parametrize("K", [48, 300])
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("w", [0, 3, 4, 7, 8, 15, 16, 31, 32, 63, 64])
+def test_prealign_encode_register_form(gen, monkeypatch, measure, w, K):
+    """Row 5's register form against the shared-memory form and the plain
+    version, bit for bit, on both sides of every bucket boundary (8, 16,
+    32; 64 and 128 for dtw), where the wrapper takes the register form
+    exactly where cdist_bucket gives a bucket.  K = 48 centroids (two
+    warps, the second half idle) or K = 300 (a block of 256 threads, the
+    first 44 sweeping a second centroid k + 256), with duplicates across
+    the warps and across the stride: the nearest centroid of series 0 in
+    every subspace is its own segment, planted at k = 5 and k = 37 (and
+    k = 261, thread 5's second centroid), so its code must be 5; that of
+    series 1 is planted at k = 270 and k = 299 only (two warps' second
+    sweeps), so its code must be 270; k = 2 equals k = 33 everywhere."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.core.modwt import prealign
+    from repro_torch.kernels.dtw_band.ops import cdist_bucket
+    from repro_torch.kernels.prealign_encode.ops import encode_geometry
+    D, M, level, tail = 512, 4, 3, 2
+    S = D // M + tail
+    X = torch.cumsum(_randn(gen, 40, D), dim=1)
+    cents = _randn(gen, M, K, S) * 4
+    segs = prealign(X[:2], M, level, tail)               # (2, M, S)
+    cents[:, 5] = cents[:, 37] = segs[0]
+    if K == 300:
+        cents[:, 261] = segs[0]
+        cents[:, 270] = cents[:, 299] = segs[1]
+    cents[:, 33] = cents[:, 2]
+    kid = tmeas.kernel_measure_id(tmeas.resolve(measure))
+    bucket = cdist_bucket(w, kid, S)
+    spy = _Spy(_build.lib())
+    monkeypatch.setattr(_build, "lib", lambda: spy)
+    before = _build.LAUNCHES["prealign_encode"]
+    got = prealign_encode(X, cents, level, tail, w, measure)
+    assert _build.LAUNCHES["prealign_encode"] == before + 1
+    (name, args), = spy.called
+    assert args[15:17] == encode_geometry(D, M, K, S, w, kid)
+    assert args[15] == (bucket or 0)
+    assert bool((got[0] == 5).all())
+    if K == 300:
+        assert bool((got[1] == 270).all())
+    old = _prealign_shared_form(X, cents, level, tail, w, measure)
+    assert torch.equal(got, old)
+    assert torch.equal(got, prealign_encode_ref(X, cents, level, tail, w,
+                                                measure))

@@ -4,7 +4,8 @@ The forms themselves run only on the card (``tests/test_torch_cuda.py``);
 here the pure-Python selectors are held to the rules their kernels need,
 and the wrappers are driven up to the launch with the device test and the
 launch replaced, so that what each wrapper hands its kernel (the form,
-the measure and its parameter) is seen without a card.
+the measure and its parameter, the codebook's layout) is seen without a
+card.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dtw_band import ops as dtw_ops
 from repro_torch.kernels.lb_cascade import ops as lb_ops
 from repro_torch.kernels.pq_attn import ops as attn_ops
+from repro_torch.kernels.prealign_encode import ops as pe_ops
 
 ERP, MSM = 2, 3
 
@@ -228,3 +230,100 @@ def test_lb_refine_adaptive_form_from_width(monkeypatch, width, entry):
         # the padded sweep (1), with its fallback for broken corridors
         assert args[9:16] == (n, L, width,
                               *lb_ops.corridor_warp_geometry(n, L, width), 1)
+
+
+@pytest.mark.parametrize("n", [1, 5, 7680])
+@pytest.mark.parametrize("L", [1, 7, 31, 32, 33, 74, 512, 513, 1024, 1025,
+                               4000])
+def test_full_warp_geometry(n, L):
+    """Row 12's warp form: the least bucket of rows a lane that holds L,
+    a warp for every pair; the thread form (None) beyond L = 1024."""
+    geo = dtw_ops.full_warp_geometry(n, L)
+    if L > 1024:
+        assert geo is None
+        return
+    cells, warps, blocks = geo
+    assert cells == min(c for c in dtw_ops.FULL_WARP_CELLS if 32 * c >= L)
+    assert warps * blocks >= n > warps * (blocks - 1)
+
+
+@pytest.mark.parametrize("L,cells", [(33, 2), (512, 16), (1024, 32),
+                                     (1025, 0), (3000, 0)])
+def test_dtw_band_full_form_from_length(monkeypatch, L, cells):
+    """The full-width wrapper hands its kernel the warp form's rows a lane
+    and geometry up to L = 1024, the thread form (cells 0) beyond."""
+    n = 6
+    A = torch.zeros(n, L)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(dtw_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "dtw_band_full", 0)
+    out = dtw_ops.dtw_band(A, A, 51, mode="full")
+    assert out.shape == (n,)
+    assert _build.LAUNCHES["dtw_band_full"] == 1
+    (name, args), = lib.called
+    assert name == "pq_dtw_band_full"
+    assert args[4:8] == (n, L, min(51, L - 1), cells)
+    if cells:
+        assert args[8:10] == (128, 2) and args[3] is None
+    else:
+        assert args[8:10] == dtw_ops.row_geometry(n, 2 * L, A.device)[:2]
+
+
+@pytest.mark.parametrize("kid", [0, 1, ERP, MSM])
+@pytest.mark.parametrize("w", [0, 3, 4, 7, 8, 15, 16, 31, 32, 63, 64])
+def test_encode_geometry_follows_cdist_bucket(kid, w):
+    """Row 5 takes the register form exactly where cdist_bucket gives a
+    bucket, in the same bucket, one thread a centroid in whole warps."""
+    S, K = 138, 40
+    bucket, threads = pe_ops.encode_geometry(512, 4, K, S, w, kid)
+    want = dtw_ops.cdist_bucket(w, kid, S)
+    assert bucket == (want or 0)
+    if want is None:
+        assert threads == pe_ops.block_geometry(512, 4, S, w)
+    else:
+        assert threads == 64
+
+
+@pytest.mark.parametrize("K,threads", [(1, 32), (32, 32), (33, 64),
+                                       (256, 256), (1000, 256)])
+def test_encode_geometry_threads(K, threads):
+    assert pe_ops.encode_geometry(512, 8, K, 74, 7, 0) == (16, threads)
+
+
+def test_encode_geometry_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        pe_ops.encode_geometry(60000, 8, 256, 7500, 7, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        pe_ops.encode_geometry(60000, 8, 256, 7500, 200, 0)
+
+
+@pytest.mark.parametrize("measure,kid,param", [
+    ("dtw", 0, 0.0), ("wdtw:g=0.1", 1, 0.1), ("erp:g=0.3", ERP, 0.3),
+    ("msm:c=0.5", MSM, 0.5)])
+@pytest.mark.parametrize("window", [3, 7, 15, 16, 40])
+def test_prealign_encode_hands_its_form(monkeypatch, measure, kid, param,
+                                        window):
+    """The encode wrapper hands its launch the form (bucket, threads), the
+    measure id and its parameter, and the codebook as (M, S, K) for the
+    register form, as (M, K, S) for the shared-memory form."""
+    rng = np.random.default_rng(1)
+    D, M, K, tail = 128, 4, 20, 2
+    S = D // M + tail
+    X = torch.from_numpy(rng.normal(size=(3, D)).astype(np.float32))
+    cents = torch.from_numpy(rng.normal(size=(M, K, S)).astype(np.float32))
+    launch = _Launch()
+    _on_fake_card(monkeypatch, pe_ops)
+    monkeypatch.setattr(pe_ops, "_launch", launch)
+    codes = pe_ops.prealign_encode(X, cents, 3, tail, window, measure)
+    assert codes.shape == (3, M) and codes.dtype == torch.int32
+    (args, kw), = launch.calls
+    w = min(window, S - 1)
+    bucket, threads = pe_ops.encode_geometry(D, M, K, S, w, kid)
+    assert args[7:12] == (w, kid, pytest.approx(param), bucket, threads)
+    assert (bucket > 0) == (dtw_ops.cdist_bucket(w, kid, S) is not None)
+    sent = args[1]
+    assert sent.is_contiguous()
+    assert torch.equal(sent, cents.transpose(1, 2) if bucket else cents)
+    assert (args[3] is not None) == (kid == 1)   # wdtw's weights
