@@ -23,8 +23,8 @@ window 7), then the search paths beyond 1-NN on the same data:
   ``certify_adaptive`` (the certified share printed, and how many
   certified pairs equal the static cost)
   on the 7680 pairs of each query and its static top 10, and the same
-  sweep under erp and msm in those corridors (at or above their static
-  cost); recall@10 against the static search;
+  sweep under wdtw, erp and msm in those corridors (at or above their
+  static cost); recall@10 against the static search;
 - ``quant_path``: ``pq.cdist_sym`` and ``dispatch.adc_lookup`` of the 768
   query codes / tables against the 6144 training codes with int8 and
   bfloat16 tables, each within 2% of the float32 maximum, with their 1-NN
@@ -58,8 +58,11 @@ same wave.  ``lb_refine_adaptive``
 is held the same way on the adaptive hot scan, its refined distances bit
 for bit, its thread form and its clamped warp sweep timed beside its
 padded warp sweep, the latter equal to it bit for bit; ``dtw_band_adaptive``
-(dtw, and erp and msm as ``dtw_band_adaptive[erp]``, ``[msm]``) and the
-quantised ADC kernels must equal their plain versions exactly.
+(dtw, and wdtw, erp and msm as ``dtw_band_adaptive[wdtw]``, ``[erp]``,
+``[msm]``) and the quantised ADC kernels must equal their plain versions
+exactly, and ``dtw_band_adaptive``'s warp form its thread form, timed
+beside it.  ``dtw_band``'s register form is timed beside its
+shared-memory form on the encode's refine pairs, equal bit for bit.
 ``dtw_band_cdist`` is timed in both its forms (the band row in registers,
 the wrapper's choice at these shapes, and in shared memory) at ``fit``'s
 shape and at the exact search's, equal bit for bit, and so are
@@ -95,8 +98,11 @@ earlier form launched on the same inputs in the same run: for
 wrapper's choice beyond ``w = 255`` / width 256), for ``dtw_band_cdist``
 the band row in shared memory (the wrapper's choice for wider bands), for
 ``dtw_band_full`` the thread-per-pair form (the wrapper's choice beyond
-``L = 1024``), for ``prealign_encode`` the band rows in shared memory (the
-wrapper's choice for wider bands), each equal to the new form bit for bit;
+``L = 1024``), for ``prealign_encode`` and ``dtw_band`` the band rows in
+shared memory (the wrapper's choice for wider bands; ``dtw_band``'s timed
+as the launch alone, its ``ms`` as the wrapper call), for
+``dtw_band_adaptive`` under each measure the thread-per-pair form (the
+wrapper's choice beyond width 256), each equal to the new form bit for bit;
 ``lb_refine_adaptive``'s phase line also times its warp form with the
 clamped sweep for every pair (``clamped_warp_form_ms``).  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
@@ -129,6 +135,10 @@ QUERIES_PER_CLASS = 256   # CBF series per class in the query set (x3)
 EXACT_QUERIES = 128       # queries for the exact elastic 1-NN
 EXACT_CHECK_QUERIES = 16  # of those, held against the plain version
 REPS = 5                  # timed repetitions per kernel
+# torch.profiler's trace of a short window sometimes holds no kernel record
+# at all (seen on the H100 for the quantised ADC rows); such a window is
+# profiled again, up to this many times, before the kernel count is checked
+PROFILE_ATTEMPTS = 3
 PRUNED_QUERIES = 128      # queries for the LB-cascade 1-NN
 SEARCH_WINDOW = 51        # the exact searches' band: round(0.1 * 512)
 INDEX_LISTS = 64
@@ -162,6 +172,7 @@ TPU_SITES = {
     "dtw_band_full": "src/repro/kernels/dtw_band/kernel.py:384",
     "dtw_band_adaptive[erp]": "src/repro/kernels/dtw_band/kernel.py:384",
     "dtw_band_adaptive[msm]": "src/repro/kernels/dtw_band/kernel.py:384",
+    "dtw_band_adaptive[wdtw]": "src/repro/kernels/dtw_band/kernel.py:384",
 }
 # rows redesigned for the H100 after their first port
 DESIGNS = {
@@ -181,12 +192,20 @@ DESIGNS = {
                        "staged edge-padded, the codebook read as (M, S, K), "
                        "a shuffle argmin (the row in shared memory where "
                        "2w+2 exceeds 32 slots, 128 for dtw)",
+    "dtw_band": "the band row in registers, each warp staging its 32 pairs' "
+                "B columns 32 rows at a time (the row in shared memory where "
+                "2w+2 exceeds 32 slots, 128 for dtw)",
+    "dtw_band_adaptive": "one warp per pair, corridor slots across the lanes "
+                         "on rows staged in shared memory, erp's border sums "
+                         "formed there (thread per pair beyond width 256)",
 }
 # the adaptive sweep's other measures on the card (row 7's op[measure])
-ADAPTIVE_MEASURES = {"erp": "erp:g=0.3", "msm": "msm:c=0.5"}
-# float32 operations per DP cell of the erp and msm moves (three moves,
-# two mins and the clamp; msm's split/merge cost is 10 a move)
-MEASURE_OPS_PER_CELL = {"erp": 12, "msm": 28}
+ADAPTIVE_MEASURES = {"wdtw": "wdtw:g=0.1", "erp": "erp:g=0.3",
+                     "msm": "msm:c=0.5"}
+# float32 operations per DP cell of the other measures (wdtw: dtw's 6 and
+# the weight's product; erp, msm: three moves, two mins and the clamp;
+# msm's split/merge cost is 10 a move)
+MEASURE_OPS_PER_CELL = {"wdtw": 7, "erp": 12, "msm": 28}
 SOURCES = {
     "dtw_band": "src/repro_torch/kernels/csrc/dtw_band.cu",
     "dtw_band_cdist": "src/repro_torch/kernels/csrc/dtw_band.cu",
@@ -202,6 +221,7 @@ SOURCES = {
     "dtw_band_full": "src/repro_torch/kernels/csrc/dtw_band.cu",
     "dtw_band_adaptive[erp]": "src/repro_torch/kernels/csrc/dtw_band.cu",
     "dtw_band_adaptive[msm]": "src/repro_torch/kernels/csrc/dtw_band.cu",
+    "dtw_band_adaptive[wdtw]": "src/repro_torch/kernels/csrc/dtw_band.cu",
 }
 
 _records = []
@@ -724,7 +744,7 @@ def adaptive_path(torch, _build, ctx, waves) -> dict:
              "mean_corridor_width": float(corridor.corridor_width(
                  lo, hi).float().mean())}
 
-    # erp and msm: finite, and at or above the static sweep (within the
+    # wdtw, erp and msm: finite, and at or above the static sweep (within the
     # tolerance of erp's border sums, log-depth here and sequential there)
     for key, measure in ADAPTIVE_MEASURES.items():
         st_m = dtw_band(qq, xx, w, measure)
@@ -857,7 +877,8 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
     flags of row 8 as for ``lb_refine`` (flips only at bound ties)."""
     from repro_torch.core import corridor, measures
     from repro_torch.core.lb import cascade_bound
-    from repro_torch.kernels.dtw_band.ops import (dtw_band, dtw_band_adaptive,
+    from repro_torch.kernels.dtw_band.ops import (adaptive_warp_geometry,
+                                                  dtw_band, dtw_band_adaptive,
                                                   launch_dtw_band_adaptive)
     from repro_torch.kernels.dtw_band.ref import dtw_band_adaptive_ref
     from repro_torch.kernels.lb_cascade.ops import (adaptive_variant,
@@ -872,6 +893,10 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
     n, L = qq.shape
     out = torch.empty(n, dtype=torch.float32, device=qq.device)
     static_ms = _mean_ms(torch, lambda: dtw_band(qq, xx, w), REPS)
+    geo = adaptive_warp_geometry(n, L, width, 0)
+    check(geo is not None, f"row 7 takes the warp form at width {width}")
+    variant = f"warp ({geo[0]} warps a block)"
+    got = dtw_band_adaptive(qq, xx, (clo, chi), width, w)
     kernel_row(
         torch, launches, rows, "dtw_band_adaptive",
         {"pairs": [n, L], "window": w, "width": width,
@@ -881,14 +906,21 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
         n * (2 * L * 4 + 2 * (2 * L - 1) * 4 + 4),
         _live_cells(torch, clo, chi) * DTW_OPS_PER_CELL,
         launch_fn=lambda: (launch_dtw_band_adaptive(
-            qq, xx, clo, chi, width, 0, None, out), out)[1], exact=True)
-    # erp and msm through the same sweep (dtw_band_adaptive[erp], [msm]):
-    # bit for bit against the plain version on the same pairs
+            qq, xx, clo, chi, width, 0, None, out), out)[1], exact=True,
+        extra={"design": DESIGNS["dtw_band_adaptive"], "variant": variant,
+               "prev_ms": _adaptive_sweep_thread_ms(
+                   torch, qq, xx, clo, chi, width, "dtw", got)})
+    # wdtw, erp and msm through the same sweep (dtw_band_adaptive[wdtw],
+    # [erp], [msm]): bit for bit against the plain version and the thread
+    # form on the same pairs
     for key, measure in ADAPTIVE_MEASURES.items():
         spec = measures.resolve(measure)
         kid, param = (measures.kernel_measure_id(spec),
                       measures.kernel_param(spec))
+        wt = measures.wdtw_weights(spec, L, qq.device) if key == "wdtw" \
+            else None
         name = f"dtw_band_adaptive[{key}]"
+        want = dtw_band_adaptive(qq, xx, (clo, chi), width, w, measure)
         got = kernel_row(
             torch, launches, rows, name,
             {"pairs": [n, L], "window": w, "width": width,
@@ -896,13 +928,18 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
             lambda: dtw_band_adaptive(qq, xx, (clo, chi), width, w, measure),
             lambda: dtw_band_adaptive_ref(qq, xx, clo, chi, w, width,
                                           measure), None,
-            n * (2 * L * 4 + 2 * (2 * L - 1) * 4 + 4),
+            n * (2 * L * 4 + 2 * (2 * L - 1) * 4 + 4)
+            + (L * 4 if key == "wdtw" else 0),
             _live_cells(torch, clo, chi) * MEASURE_OPS_PER_CELL[key]
             + (n * 2 * L * (1 + (L - 1).bit_length()) if key == "erp"
                else 0),
             launch_fn=lambda: (launch_dtw_band_adaptive(
-                qq, xx, clo, chi, width, kid, None, out, param), out)[1],
-            exact=True)
+                qq, xx, clo, chi, width, kid, wt, out, param), out)[1],
+            exact=True,
+            extra={"design": DESIGNS["dtw_band_adaptive"],
+                   "variant": variant,
+                   "prev_ms": _adaptive_sweep_thread_ms(
+                       torch, qq, xx, clo, chi, width, measure, want)})
         check(torch.equal(got, ctx["adaptive_other"][key]),
               f"{name}: the launch equals adaptive_path's "
               "elastic_pairwise(band='adaptive') result")
@@ -982,6 +1019,42 @@ def adaptive_kernel_phases(torch, ctx, waves) -> list:
         if which == "first":
             rows.append(row)
     return rows
+
+
+def _adaptive_sweep_thread_ms(torch, A, B, lo, hi, width, measure,
+                              want) -> float:
+    """``dtw_band_adaptive``'s thread form (the wrapper's choice beyond
+    width 256, and row 7's design before the warp form) launched directly
+    on the same pairs and corridors: its ms (``REPS`` launches, the launch
+    alone; erp's gaps buffer made once, outside), its output equal to
+    ``want`` (the warp form's) bit for bit.  Not launches of the path."""
+    from repro_torch.core import measures
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band.ops import row_geometry
+    spec = measures.resolve(measure)
+    n, L = A.shape
+    kid = measures.kernel_measure_id(spec)
+    wt = (measures.wdtw_weights(spec, L, A.device) if spec.uses_position
+          else None)
+    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+    if kid == 2:
+        blocks = max(1, min(blocks, (1 << 30) // (8 * L * threads)))
+    gaps = (torch.empty(2 * L * threads * blocks, dtype=torch.float32,
+                        device=A.device) if kid == 2 else None)
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+
+    def launch():
+        _build.check(_build.lib().pq_dtw_band_adaptive(
+            A.data_ptr(), B.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            out.data_ptr(), _build.ptr(wt), _build.ptr(scratch),
+            _build.ptr(gaps), n, L, width, kid,
+            float(measures.kernel_param(spec)), threads, blocks, 0,
+            _build.stream(A.device)), "dtw_band_adaptive (thread form)")
+
+    ms = _mean_ms(torch, launch, REPS)
+    check(torch.equal(out, want), f"dtw_band_adaptive {measure}: the warp "
+          "form equals the thread form bit for bit")
+    return ms
 
 
 def _adaptive_thread_form_ms(torch, A, B, up, lo, th, clo, chi, width, d,
@@ -1639,8 +1712,10 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
     ``extra``: more fields of the record (a redesigned row's earlier
     form); ``profiled``: also ``device_ms``, the launch's own device time under
     ``torch.profiler`` (the mean over the kernels it records of ``REPS``
-    launches: it may miss one), for launches near the host's launch
-    overhead, whose ``ms`` may read that overhead."""
+    launches: it may miss one; a window with no record at all is profiled
+    again, ``PROFILE_ATTEMPTS`` times at most, counted in
+    ``device_ms_profiles``), for launches near the host's launch overhead,
+    whose ``ms`` may read that overhead."""
     got = kernel_fn()
     torch.cuda.synchronize()
     want, plain_ms = _sync_ms(torch, plain_fn)
@@ -1656,12 +1731,15 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
     library_ms = (None if library_fn is None
                   else _mean_ms(torch, library_fn, REPS))
     if profiled:
-        prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
+            if prof["kernels"]:
+                break
         n_seen = prof["kernels"]
         check(1 <= n_seen <= REPS, f"{name}: {n_seen} kernels under the "
-              f"profiler for {REPS} launches")
+              f"profiler for {REPS} launches ({attempt} profiles)")
         extra = {**(extra or {}), "device_ms": prof["device_busy_ms"] / n_seen,
-                 "device_ms_kernels": n_seen}
+                 "device_ms_kernels": n_seen, "device_ms_profiles": attempt}
     bound_ms, bound_by = bound(nbytes, ops)
     row = {"name": name, "route": "cuda", "source": SOURCES[name],
            "replaces": TPU_SITES[name], "launches": launches[name],
@@ -1683,7 +1761,8 @@ def kernel_phases(torch, ctx) -> list:
     from repro_torch.core import pq
     from repro_torch.core.modwt import linspace01
     from repro_torch.kernels.dtw_band.ops import (cdist_bucket, dtw_band,
-                                                  dtw_band_cdist)
+                                                  dtw_band_cdist,
+                                                  pairs_reg_geometry)
     from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
                                                   dtw_band_ref)
     from repro_torch.kernels.pq_adc.ops import (adc_lookup, adc_sym_cdist,
@@ -1709,12 +1788,20 @@ def kernel_phases(torch, ctx) -> list:
     def phase(*args, **kw):
         return kernel_row(torch, ctx["launches"], rows, *args, **kw)
 
-    # 1. zipped pairs: the LB-filtered encode's refine batch
+    # 1. zipped pairs: the LB-filtered encode's refine batch, the register
+    # form, with the shared-memory form timed beside it
     _, _, qs, cs = pq.lb_filter_pairs(segs, cb, cfg.refine_t())
     P = qs.shape[0]
-    phase("dtw_band", {"pairs": [P, S], "window": w},
+    reg = pairs_reg_geometry(P, S, w, 0)
+    check(reg is not None and reg[0] == 16, "the encode's refine takes the "
+          "register form at 16 slots")
+    prev_ms = _pairs_shared_form_ms(torch, qs, cs, w, dtw_band(qs, cs, w))
+    phase("dtw_band", {"pairs": [P, S], "window": w, "bucket": reg[0]},
           lambda: dtw_band(qs, cs, w), lambda: dtw_band_ref(qs, cs, w), None,
-          (2 * P * S + P) * 4, P * cells * DTW_OPS_PER_CELL)
+          (2 * P * S + P) * 4, P * cells * DTW_OPS_PER_CELL,
+          extra={"design": DESIGNS["dtw_band"],
+                 "variant": f"registers ({reg[0]} slots, {reg[1]} warps a "
+                            "block)", "prev_ms": prev_ms})
     del qs, cs
 
     # 2. all pairs: a DBA k-means assignment (N segments x K centroids),
@@ -1819,6 +1906,30 @@ def kernel_phases(torch, ctx) -> list:
     check(same_prev, "prealign_encode: the register form's codes equal the "
           "shared-memory form's bit for bit")
     return rows
+
+
+def _pairs_shared_form_ms(torch, A, B, w, want) -> float:
+    """``dtw_band``'s shared-memory form (the wrapper's choice where no
+    register bucket holds the band, and row 1's design before the register
+    form) launched directly on the same zipped pairs: its ms (``REPS``
+    launches, the launch alone), its output equal to ``want`` (the register
+    form's) bit for bit.  Not launches of the path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band.ops import band_geometry
+    n, L = A.shape
+    threads, blocks, scratch = band_geometry(n, w, A.device)
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+
+    def launch():
+        _build.check(_build.lib().pq_dtw_band(
+            A.data_ptr(), B.data_ptr(), out.data_ptr(), None,
+            _build.ptr(scratch), n, L, w, 0, 0.0, 0, threads, blocks,
+            _build.stream(A.device)), "dtw_band (shared-memory form)")
+
+    ms = _mean_ms(torch, launch, REPS)
+    check(torch.equal(out, want), "dtw_band: the register form equals the "
+          "shared-memory form bit for bit")
+    return ms
 
 
 def _prealign_shared_form(torch, X, cents, lin, level, tail, w,

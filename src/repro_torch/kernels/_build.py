@@ -44,21 +44,21 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", ARCH,
          "-Xptxas=-v")
 
-# dtw_band_adaptive's erp and msm launches count under their own
-# ``op[measure]`` names (the dispatch ledger's key form), its dtw and wdtw
-# launches under the bare name.
+# dtw_band_adaptive's wdtw, erp and msm launches count under their own
+# ``op[measure]`` names (the dispatch ledger's key form), its dtw launches
+# under the bare name.
 KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
            "prealign_encode", "lb_refine", "dtw_band_adaptive",
            "lb_refine_adaptive", "adc_sym_quant", "adc_lookup_quant",
            "pq_attn", "dtw_band_full", "dtw_band_adaptive[erp]",
-           "dtw_band_adaptive[msm]")
+           "dtw_band_adaptive[msm]", "dtw_band_adaptive[wdtw]")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pq_dtw_band": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "pq_dtw_band": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "pq_dtw_band_cdist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _I, _P],
     "pq_adc_sym": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -68,7 +68,7 @@ _SIGNATURES = {
                      _P],
     "pq_lb_refine_warp": [_P] * 7 + [_I] * 6 + [_P],
     "pq_dtw_band_cdist_reg": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
-    "pq_dtw_band_adaptive": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+    "pq_dtw_band_adaptive": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "pq_lb_refine_adaptive": [_P] * 10 + [_I] * 5 + [_P],
     "pq_lb_refine_adaptive_warp": [_P] * 9 + [_I] * 7 + [_P],
     "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],

@@ -9,10 +9,16 @@
 // (mode="full", the DTW-only full-width baseline, below: one warp a pair
 // up to L = 1024, one thread a pair beyond).
 //
-// One thread sweeps one pair.  The zipped form uses pqdtw::band_cost
-// (wavefront.cuh, which says what bounds the DP and why), the band row in
-// shared memory or a wrapper-allocated scratch buffer; threads walk the
-// pairs grid-stride, so the wrapper may cap the grid.
+// The zipped form has two.  Where the band's 2w + 2 slots fit a register
+// bucket (8, 16 or 32; for dtw also 64 and 128: dtw_band/ops.py::
+// cdist_bucket) each thread sweeps one pair with the band row in
+// registers (pqdtw::band_cost_reg), the k-loop unrolled; each warp owns 32
+// pairs and stages their B columns in its slice of shared memory, 32 rows
+// of the table at a time (dtw_band_pairs_reg_kernel).  Wider bands keep
+// the earlier form, one thread a pair with the band row in shared memory
+// or a wrapper-allocated scratch buffer (pqdtw::band_cost; wavefront.cuh
+// says what bounds the DP and why).  Both walk the pairs grid-stride, so
+// the wrapper may cap the grid, and both give the same bits.
 //
 // The all-pairs form (the k-means assignments, the symmetric LUT, the
 // coarse search, 1-NN) has two: where the band's 2w + 2 slots fit a
@@ -26,11 +32,19 @@
 // form from w, the measure and L alone (dtw_band/ops.py::cdist_bucket);
 // both give the same bits.  The N*M pairs are never materialised.
 //
-// The adaptive form sweeps every measure inside the pair's corridor with
-// pqdtw::corridor_cost, one thread a pair (a chain of (2L-1) * W slot
-// updates: latency-bound); for erp it first forms the pair's border sums
-// in the reference's log-depth order into the wrapper's gaps buffer.
+// The adaptive form sweeps every measure inside the pair's corridor.  Up
+// to width 256 one warp sweeps a pair (dtw_band_adaptive_warp_kernel):
+// the pair's rows staged in the warp's slice of shared memory, erp's
+// border sums formed there by the warp in the reference's log-depth
+// order, then pqdtw::corridor_cost_warp_padded<MEAS, C>, 2L-1 dependent
+// diagonal steps of C slots a lane, with the clamped
+// pqdtw::corridor_cost_warp<MEAS, C> for a corridor that breaks the
+// invariants.  Beyond width 256 (and where a warp's rows do not fit in
+// shared memory) one thread sweeps a pair with pqdtw::corridor_cost (a
+// chain of (2L-1) * W slot updates: latency-bound), erp's border sums in
+// the wrapper's gaps buffer.  Same bits either way.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "wavefront.cuh"
@@ -54,6 +68,72 @@ __global__ void dtw_band_pairs_kernel(const float* __restrict__ A,
   for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n;
        q += step) {
     out[q] = band_cost<MEAS>(A + q * L, B + q * L, L, w, p, wt, row, stride);
+  }
+}
+
+// The zipped form with the band row in registers (band_cost_reg, 2w + 2
+// <= WB).  Unlike the all-pairs form, every thread's B row is its own, so
+// there is no block-wide row to stage: each warp owns 32 consecutive pairs
+// (grid-stride over groups of 32) and stages their B columns in its slice
+// of shared memory, kPairRows rows of the table at a time (band_cost_reg's
+// restage hook).  For rows [i0, i0 + kPairRows) a lane's band reads b[j]
+// for j in [i0 - w - 1, i0 + kPairRows - 1 - w + WB - 2], kPairRows + WB -
+// 1 columns, each the element of b clamped to the row (what the edge
+// padding that band_cost_reg asks for holds).  That count is odd, so at
+// that pitch the warp's 32 rows fall in 32 different banks and a cell's
+// read of b[j] is conflict-free.  The lanes copy each pair's columns at
+// consecutive addresses (coalesced) as asynchronous copies (cp.async), all
+// in flight before the warp waits for them, so a chunk costs one round
+// trip to memory, not one a pair.  a is read from device memory, one
+// element a row of the table, through L1.  Nothing is synchronised beyond
+// the warp, and a slice is 32 * (kPairRows + WB - 1) floats at any L (6 KB
+// at WB = 16).  What bounds it: the cells' instructions, as in the
+// all-pairs form, with the 2L floats a pair reads from device memory once
+// (the chunks' overlap of WB - 1 columns is reread from L1).
+constexpr int kPairRows = 32;
+
+template <int MEAS, int WB>
+__global__ void dtw_band_pairs_reg_kernel(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          float* __restrict__ out,
+                                          const float* __restrict__ wt, int n,
+                                          int L, int w, float p) {
+  extern __shared__ float zs[];  // (wdtw's L weights), then a slice a warp
+  constexpr int kPitch = kPairRows + WB - 1;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  float* win = zs + (MEAS == pqdtw::kWDTW ? L : 0) +
+               (threadIdx.x >> 5) * 32 * kPitch;
+  if (MEAS == pqdtw::kWDTW) {
+    for (int k = threadIdx.x; k < L; k += blockDim.x) zs[k] = wt[k];
+    __syncthreads();
+  }
+  const long long step = 32LL * warps * gridDim.x;
+  const long long first = (long long)blockIdx.x * warps + (threadIdx.x >> 5);
+  for (long long g = 32LL * first; g < n; g += step) {
+    const int np = (int)min(32LL, n - g);
+    const int me = min(lane, np - 1);  // a ragged group's idle lanes repeat
+    const float* mine = win + me * kPitch;
+    // before rows i0, i0 + kPairRows, ...: the warp copies its pairs'
+    // columns [i0 - w - 1, i0 - w - 1 + kPitch) of B, clamped to the row,
+    // all in flight at once (cp.async), then waits once
+    auto restage = [&](int i0) -> const float* {
+      const int j0 = i0 - w - 1;  // the window's first column
+      __syncwarp();               // the last chunk's reads are done
+      for (int pp = 0; pp < np; ++pp) {
+        const float* src = B + (g + pp) * L;
+        for (int e = lane; e < kPitch; e += 32)
+          __pipeline_memcpy_async(&win[pp * kPitch + e],
+                                  &src[min(max(j0 + e, 0), L - 1)], 4);
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+      return mine - j0;
+    };
+    const float c = pqdtw::band_cost_reg<MEAS, WB>(
+        A + (g + me) * L, nullptr, L, w, p, zs, 1, restage, kPairRows);
+    if (lane < np) out[g + lane] = c;
   }
 }
 
@@ -156,6 +236,75 @@ __global__ void dtw_band_adaptive_kernel(const float* __restrict__ A,
     out[q] = pqdtw::corridor_cost<MEAS>(a, b, lo + q * D, hi + q * D, L, W,
                                         p, wt, ga, gb, step, row, stride);
   }
+}
+
+// A warp's slice of the adaptive warp form, in floats: [a | warp_pad(C) |
+// b], then erp's border sums ga, gb.  wdtw's L weights are the block's,
+// before the slices.
+__host__ __device__ constexpr int adaptive_slice(int meas, int C, int L) {
+  return 2 * L + pqdtw::warp_pad(C) + (meas == pqdtw::kERP ? 2 * L : 0);
+}
+
+inline size_t adaptive_warp_smem(int meas, int C, int L, int warps) {
+  return ((meas == pqdtw::kWDTW ? (size_t)L : 0) +
+          (size_t)warps * adaptive_slice(meas, C, L)) *
+         sizeof(float);
+}
+
+// The adaptive form, one warp a pair (width <= 256, C = ceil(width / 32)
+// rounded up to 1, 2, 4 or 8): the warp stages its pair in its slice as
+// [a | warp_pad(C) NaNs | b], as lb_cascade.cu's adaptive refine does;
+// for erp it forms the border sums after them (warp_gap_prefix_sums, the
+// reference's log-depth order, so no global gaps buffer); then
+// corridor_cost_warp_padded<MEAS, C>, and for a pair whose corridor breaks
+// the invariants the clamped corridor_cost_warp<MEAS, C> on the same rows.
+// What bounds it: per diagonal step one broadcast and one or two
+// shuffles, per slot two shared-memory loads (four for msm) and the
+// cell's 6 (dtw) to 28 (msm) operations, across the launch's warps:
+// instructions, not bytes.
+template <int MEAS, int C>
+__global__ void dtw_band_adaptive_warp_kernel(
+    const float* __restrict__ A, const float* __restrict__ B,
+    const int* __restrict__ lo, const int* __restrict__ hi,
+    float* __restrict__ out, const float* __restrict__ wt, int n, int L,
+    int W, float p) {
+  extern __shared__ float cs[];  // (wdtw's L weights), then a slice a warp
+  constexpr int P = pqdtw::warp_pad(C);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  pqdtw::MeasureArgs m;
+  m.p = p;
+  if (MEAS == pqdtw::kWDTW) {
+    for (int k = threadIdx.x; k < L; k += blockDim.x) cs[k] = wt[k];
+    __syncthreads();
+    m.wt = cs;
+  }
+  const long long q = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (q >= n) return;  // the whole warp: one pair per warp
+  float* sa = cs + (MEAS == pqdtw::kWDTW ? L : 0) +
+              (size_t)warp * adaptive_slice(MEAS, C, L);
+  float* sb = sa + L + P;
+  const float* a = A + q * L;
+  const float* b = B + q * L;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int k = lane; k < 2 * L + P; k += 32)
+    sa[k] = k < L ? a[k] : (k < L + P ? nan : b[k - L - P]);
+  if (MEAS == pqdtw::kERP) {
+    float* ga = sb + L;
+    __syncwarp();
+    pqdtw::warp_gap_prefix_sums(sa, sb, p, L, ga, ga + L, lane);
+    m.ga = ga;
+    m.gb = ga + L;
+  }
+  __syncwarp();
+  const long long D = 2LL * L - 1;
+  float cost;
+  if (!pqdtw::corridor_cost_warp_padded<MEAS, C>(sa, sb, lo + q * D,
+                                                 hi + q * D, L, W, lane,
+                                                 &cost, m))
+    cost = pqdtw::corridor_cost_warp<MEAS, C>(sa, sb, lo + q * D, hi + q * D,
+                                              L, W, lane, m);
+  if (lane == 0) out[q] = cost;
 }
 
 // Full-width sweep: replaces dtw_band_kernel (repro/kernels/dtw_band/
@@ -355,15 +504,124 @@ int launch_cdist_reg(const float* A, const float* B, float* out,
   return (int)cudaGetLastError();
 }
 
+// The zipped register form: bucket WB in {8, 16, 32} for every measure
+// (64 and 128 for dtw), 2w + 2 <= WB; warps a block, each sweeping 32
+// pairs at a time, grid-stride.
+template <int MEAS>
+int launch_pairs_reg(const float* A, const float* B, float* out,
+                     const float* wt, int n, int L, int w, float p,
+                     int bucket, int warps, int blocks, cudaStream_t s) {
+  const size_t smem =
+      ((MEAS == pqdtw::kWDTW ? (size_t)L : 0) +
+       (size_t)warps * 32 * (kPairRows + bucket - 1)) *
+      sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * warps;
+  switch (bucket) {
+    case 8:
+      dtw_band_pairs_reg_kernel<MEAS, 8><<<blocks, threads, smem, s>>>(
+          A, B, out, wt, n, L, w, p);
+      break;
+    case 16:
+      dtw_band_pairs_reg_kernel<MEAS, 16><<<blocks, threads, smem, s>>>(
+          A, B, out, wt, n, L, w, p);
+      break;
+    case 32:
+      dtw_band_pairs_reg_kernel<MEAS, 32><<<blocks, threads, smem, s>>>(
+          A, B, out, wt, n, L, w, p);
+      break;
+    case 64:
+      if (MEAS != pqdtw::kDTW) return (int)cudaErrorInvalidValue;
+      dtw_band_pairs_reg_kernel<pqdtw::kDTW, 64><<<blocks, threads, smem, s>>>(
+          A, B, out, wt, n, L, w, p);
+      break;
+    case 128:
+      if (MEAS != pqdtw::kDTW) return (int)cudaErrorInvalidValue;
+      dtw_band_pairs_reg_kernel<pqdtw::kDTW, 128><<<blocks, threads, smem,
+                                                    s>>>(A, B, out, wt, n, L,
+                                                         w, p);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The adaptive warp form of measure MEAS at C slots a lane.
+template <int MEAS, int C>
+int launch_adaptive_warp(const float* A, const float* B, const int* lo,
+                         const int* hi, float* out, const float* wt, int n,
+                         int L, int W, float p, int warps, int blocks,
+                         cudaStream_t s) {
+  const size_t smem = adaptive_warp_smem(MEAS, C, L, warps);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = dtw_band_adaptive_warp_kernel<MEAS, C>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, warps * 32, smem, s>>>(A, B, lo, hi, out, wt, n, L, W, p);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_adaptive_warp_measure(int measure, const float* A, const float* B,
+                                 const int* lo, const int* hi, float* out,
+                                 const float* wt, int n, int L, int W,
+                                 float p, int warps, int blocks,
+                                 cudaStream_t s) {
+  switch (measure) {
+    case pqdtw::kDTW:
+      return launch_adaptive_warp<pqdtw::kDTW, C>(A, B, lo, hi, out, wt, n, L,
+                                                  W, p, warps, blocks, s);
+    case pqdtw::kWDTW:
+      return launch_adaptive_warp<pqdtw::kWDTW, C>(A, B, lo, hi, out, wt, n,
+                                                   L, W, p, warps, blocks, s);
+    case pqdtw::kERP:
+      return launch_adaptive_warp<pqdtw::kERP, C>(A, B, lo, hi, out, wt, n, L,
+                                                  W, p, warps, blocks, s);
+    case pqdtw::kMSM:
+      return launch_adaptive_warp<pqdtw::kMSM, C>(A, B, lo, hi, out, wt, n, L,
+                                                  W, p, warps, blocks, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// bucket = 0: the shared-memory form (threads a block, the band rows in
+// shared memory or scratch); else the register form with bucket slots
+// (2w + 2 <= bucket), threads / 32 warps a block.  Both grid-stride.
 int pq_dtw_band(const float* A, const float* B, float* out, const float* wt,
                 float* scratch, int n, int L, int w, int measure, float p,
-                int threads, int blocks, void* stream) {
-  const size_t smem = pqdtw::band_smem_bytes(scratch, threads, w);
+                int bucket, int threads, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bucket > 0) {
+    if (w < 0 || w > L - 1 || 2 * w + 2 > bucket || threads < 32 ||
+        threads % 32 != 0)
+      return (int)cudaErrorInvalidValue;
+    switch (measure) {
+      case pqdtw::kDTW:
+        return launch_pairs_reg<pqdtw::kDTW>(A, B, out, wt, n, L, w, p,
+                                             bucket, threads / 32, blocks, s);
+      case pqdtw::kWDTW:
+        return launch_pairs_reg<pqdtw::kWDTW>(A, B, out, wt, n, L, w, p,
+                                              bucket, threads / 32, blocks, s);
+      case pqdtw::kERP:
+        return launch_pairs_reg<pqdtw::kERP>(A, B, out, wt, n, L, w, p,
+                                             bucket, threads / 32, blocks, s);
+      case pqdtw::kMSM:
+        return launch_pairs_reg<pqdtw::kMSM>(A, B, out, wt, n, L, w, p,
+                                             bucket, threads / 32, blocks, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  const size_t smem = pqdtw::band_smem_bytes(scratch, threads, w);
   switch (measure) {
     case pqdtw::kDTW:
       dtw_band_pairs_kernel<pqdtw::kDTW><<<blocks, threads, smem, s>>>(
@@ -446,13 +704,33 @@ int pq_dtw_band_cdist_reg(const float* A, const float* B, float* out,
   }
 }
 
-// gaps: 2 * L * threads * blocks floats for erp (its border sums), else
-// unused.
+// warps = 0: the thread form, threads a block (its three diagonals in
+// shared memory or scratch; gaps: 2 * L * threads * blocks floats for erp,
+// else unused).  Else the warp form: warps pairs a block, one a warp,
+// blocks * warps >= n, 1 <= width <= 256; scratch and gaps unused.
 int pq_dtw_band_adaptive(const float* A, const float* B, const int* lo,
                          const int* hi, float* out, const float* wt,
                          float* scratch, float* gaps, int n, int L, int width,
                          int measure, float p, int threads, int blocks,
-                         void* stream) {
+                         int warps, void* stream) {
+  if (warps > 0) {
+    if (width < 1 || width > 256 || warps > 32 ||
+        (long long)blocks * warps < n)
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int need = (width + 31) / 32;
+    if (need <= 1)
+      return launch_adaptive_warp_measure<1>(measure, A, B, lo, hi, out, wt,
+                                             n, L, width, p, warps, blocks, s);
+    if (need <= 2)
+      return launch_adaptive_warp_measure<2>(measure, A, B, lo, hi, out, wt,
+                                             n, L, width, p, warps, blocks, s);
+    if (need <= 4)
+      return launch_adaptive_warp_measure<4>(measure, A, B, lo, hi, out, wt,
+                                             n, L, width, p, warps, blocks, s);
+    return launch_adaptive_warp_measure<8>(measure, A, B, lo, hi, out, wt, n,
+                                           L, width, p, warps, blocks, s);
+  }
   const size_t smem = pqdtw::state_smem_bytes(scratch, threads, 3 * width);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (measure) {

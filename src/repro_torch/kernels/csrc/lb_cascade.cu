@@ -245,11 +245,12 @@ int launch_warp(const float* A, const float* B, const float* up,
 // the exits of lb_refine_warp_kernel, then a survivor's warp stages a and
 // b in its slice of shared memory as [a | warp_pad(C) NaNs | b] (2L +
 // 32C floats) and sweeps the corridor with
-// pqdtw::corridor_cost_warp_padded<C> (no clamps, no (0, 0) test, a body
-// per shift case), C = ceil(W / 32) rounded up to 1, 2, 4 or 8.  A
+// pqdtw::corridor_cost_warp_padded<kDTW, C> (no clamps, no (0, 0) test, a
+// body per shift case; dtw_band.cu's adaptive kernel sweeps the same for
+// every measure), C = ceil(W / 32) rounded up to 1, 2, 4 or 8.  A
 // corridor that breaks its invariants is swept again with the clamped
-// pqdtw::corridor_cost_warp<C> on the same staged rows, as are all pairs
-// with padded == 0 (the earlier form, kept for comparison) and, from
+// pqdtw::corridor_cost_warp<kDTW, C> on the same staged rows, as are all
+// pairs with padded == 0 (the earlier form, kept for comparison) and, from
 // device memory, all pairs when even one warp's slice does not fit.
 template <int C>
 __global__ void lb_refine_adaptive_warp_kernel(
@@ -286,12 +287,14 @@ __global__ void lb_refine_adaptive_warp_kernel(
     __syncwarp();
     a = sa;
     b = sa + L + P;
-    if (!(padded &&
-          pqdtw::corridor_cost_warp_padded<C>(a, b, cl, ch, L, W, lane,
-                                              &cost)))
-      cost = pqdtw::corridor_cost_warp<C>(a, b, cl, ch, L, W, lane);
+    const pqdtw::MeasureArgs dtw{};
+    if (!(padded && pqdtw::corridor_cost_warp_padded<pqdtw::kDTW, C>(
+                        a, b, cl, ch, L, W, lane, &cost, dtw)))
+      cost = pqdtw::corridor_cost_warp<pqdtw::kDTW, C>(a, b, cl, ch, L, W,
+                                                       lane, dtw);
   } else {
-    cost = pqdtw::corridor_cost_warp<C>(a, b, cl, ch, L, W, lane);
+    cost = pqdtw::corridor_cost_warp<pqdtw::kDTW, C>(a, b, cl, ch, L, W, lane,
+                                                     pqdtw::MeasureArgs{});
   }
   if (lane == 0) {
     d_out[q] = cost;

@@ -5,22 +5,24 @@
 // on the same cells:
 //
 //   band_cost           one thread a pair, the band row in shared memory
-//                       or scratch (zipped pairs, wide all-pairs and
-//                       prealign bands, lb_cascade beyond w = 255);
+//                       or scratch (wide zipped, all-pairs and prealign
+//                       bands, lb_cascade beyond w = 255);
 //   corridor_cost       the same DP inside a per-pair adaptive corridor,
-//                       every measure (dtw_band.cu's adaptive kernel, and
+//                       every measure (dtw_band.cu's adaptive kernel and
 //                       lb_cascade.cu's beyond width 256);
 //   corridor_cost_warp_padded
-//                       one warp a pair inside the corridor, dtw, on
-//                       padded rows (lb_cascade.cu's adaptive refine up to
+//                       one warp a pair inside the corridor, every measure,
+//                       on staged rows (dtw_band.cu's adaptive kernel, and
+//                       lb_cascade.cu's adaptive refine with dtw, up to
 //                       width 256, for corridors that keep the invariants);
 //   corridor_cost_warp  the same with clamped indices (its fallback for a
 //                       corridor that breaks them);
 //   band_cost_warp      one warp a pair in the static band, dtw
 //                       (lb_cascade.cu's refine up to w = 255);
 //   band_cost_reg       one thread a pair, the band row in registers
-//                       (dtw_band.cu's all pairs and prealign_encode.cu's
-//                       1-NN, for narrow bands).
+//                       (dtw_band.cu's zipped and all pairs and
+//                       prealign_encode.cu's 1-NN, for narrow bands; the
+//                       zipped form restages b every 32 rows).
 //
 // The thread forms are bound by one pair's dependent chain (hidden by
 // thousands of pairs in flight) or, in registers, by instructions a cell;
@@ -68,6 +70,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace pqdtw {
 
@@ -216,7 +220,7 @@ inline size_t band_smem_bytes(const float* scratch, int threads, int w) {
 // hi[d] once per diagonal.  A pair costs (2L-1) * W slot updates, against
 // band_cost's L * (2w+1) cells: one dependent chain per thread, so what
 // bounds it is that chain's latency, not bytes (corridor_cost_warp below
-// cuts the chain to 2L-1 steps for the DTW refine of lb_cascade.cu).
+// cuts the chain to 2L-1 steps; this thread form stays beyond width 256).
 //
 // Indices into a, b, wt, ga and gb are clamped, so a corridor that breaks
 // the structural invariants gives a wrong cost, never a fault.
@@ -232,6 +236,39 @@ __device__ __forceinline__ void gap_prefix_sum(const float* __restrict__ x,
   for (int i = 0; i < L; ++i) g[i * gs] = fabsf(x[i] - p);
   for (int s = 1; s < L; s *= 2)
     for (int i = L - 1; i >= s; --i) g[i * gs] = g[i * gs] + g[(i - s) * gs];
+}
+
+// The same two scans (ga of a, gb of b) by the 32 lanes of one warp, into
+// its shared memory: stage s runs over chunks of 32 indices from the top
+// down, each lane reading g[i] and g[i - s] before the warp writes the
+// chunk, so every read sees the previous stage (below the chunk nothing
+// is written yet).  Each g[i] is the same float32 sum as gap_prefix_sum's.
+__device__ __forceinline__ void warp_gap_prefix_sums(const float* a,
+                                                     const float* b, float p,
+                                                     int L, float* ga,
+                                                     float* gb, int lane) {
+  for (int i = lane; i < L; i += 32) {
+    ga[i] = fabsf(a[i] - p);
+    gb[i] = fabsf(b[i] - p);
+  }
+  __syncwarp();
+  for (int s = 1; s < L; s *= 2) {
+    for (int base = (L - 1) & ~31; base >= 0; base -= 32) {
+      const int i = base + lane;
+      const bool sum = i < L && i >= s;
+      float na = 0.f, nb = 0.f;
+      if (sum) {
+        na = ga[i] + ga[i - s];
+        nb = gb[i] + gb[i - s];
+      }
+      __syncwarp();
+      if (sum) {
+        ga[i] = na;
+        gb[i] = nb;
+      }
+      __syncwarp();
+    }
+  }
 }
 
 template <int MEAS>
@@ -304,10 +341,10 @@ __device__ float corridor_cost(const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// One warp per pair inside the corridor (DTW)
+// One warp per pair inside the corridor (every measure)
 // ---------------------------------------------------------------------------
 //
-// corridor_cost<kDTW> swept by the 32 lanes of one warp together: slot t
+// corridor_cost<MEAS> swept by the 32 lanes of one warp together: slot t
 // of diagonal d is lane t / C, register t % C (32 * C >= W), so a pair
 // costs 2L-1 dependent diagonal steps of C cells a lane.  The shifts
 // sign(s1), sign(s1 - 1) and sign(s2) belong to the pair, so they are
@@ -318,12 +355,62 @@ __device__ float corridor_cost(const float* __restrict__ a,
 // sd bring the one neighbouring slot that lies in another lane; no lane
 // diverges.  lo[d] and hi[d] are loaded 32 diagonals at a time,
 // one a lane, and broadcast by shuffle.  Non-live slots hold +inf, every
-// live cell is fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), kInf)
-// with the same clamped indices as corridor_cost, and fminf is exact and
-// order-free, so the cost equals corridor_cost<kDTW>'s to the bit, for any
-// corridor.  a and b may point to shared memory (staged rows) or to device
-// memory.  Every lane returns the cost of cell (L-1, L-1), slot 0 of
-// diagonal 2L-2.
+// live cell is corridor_cell<MEAS> of the same predecessors, elements and
+// borders as corridor_cost's, with the same clamped indices, and fminf is
+// exact and order-free, so the cost equals corridor_cost<MEAS>'s to the
+// bit, for any corridor.  a, b (and the measure's wt, ga, gb) may point to
+// shared memory (staged rows) or to device memory.  Every lane returns the
+// cost of cell (L-1, L-1), slot 0 of diagonal 2L-2.
+
+// What a measure reads besides a and b: p (erp's gap value, msm's split
+// cost), wt (wdtw's L weights by |i - j|), ga and gb (erp's border sums,
+// L floats each, formed as gap_prefix_sum forms them).  A measure ignores
+// what it does not use; dtw uses none.
+struct MeasureArgs {
+  float p = 0.f;
+  const float* wt = nullptr;
+  const float* ga = nullptr;
+  const float* gb = nullptr;
+};
+
+// corridor_cost's float32 cell of measure MEAS from its predecessors h
+// (i, j-1), v (i-1, j), dg (i-1, j-1), the elements x = a[i], y = b[j],
+// msm's xp = a[i-1] and yp = b[j-1] (element 0 at the border) and wdtw's
+// weight wgt, clamped at +inf.
+template <int MEAS>
+__device__ __forceinline__ float corridor_cell(float x, float y, float xp,
+                                               float yp, float h, float v,
+                                               float dg, float wgt, float p) {
+  float cell;
+  if (MEAS == kDTW) {
+    const float df = x - y;
+    cell = __fmaf_rn(df, df, fminf(fminf(dg, h), v));
+  } else if (MEAS == kWDTW) {
+    const float df = x - y;
+    cell = __fmaf_rn(wgt, df * df, fminf(fminf(dg, h), v));
+  } else if (MEAS == kERP) {
+    cell = fminf(fminf(dg + fabsf(x - y), v + fabsf(x - p)),
+                 h + fabsf(y - p));
+  } else {
+    cell = fminf(fminf(dg + fabsf(x - y), v + msm_move(x, xp, y, p)),
+                 h + msm_move(y, yp, x, p));
+  }
+  return fminf(cell, kInf);
+}
+
+// ERP's border predecessors of cell (i, j) as corridor_cost selects them
+// (ic, jc: i and j clamped to the table).
+__device__ __forceinline__ void erp_borders(int i, int j, int ic, int jc,
+                                            int L, const MeasureArgs& m,
+                                            float& h, float& v, float& dg) {
+  if (i == 0) {
+    v = m.gb[jc];
+    dg = (j > 0) ? m.gb[min(j - 1, L - 1)] : 0.f;
+  } else if (j == 0) {
+    dg = m.ga[min(i - 1, L - 1)];
+  }
+  if (j == 0) h = m.ga[ic];
+}
 
 // reg[c + s] across the lanes, s in {-1, 0, 1}: edge is the neighbour
 // lane's boundary register (lane + s), +inf beyond the warp.
@@ -345,11 +432,11 @@ __device__ __forceinline__ float lane_edge(const float* reg, int s,
   return (src < 0 || src > 31) ? kInf : got;
 }
 
-template <int C>
+template <int MEAS, int C>
 __device__ float corridor_cost_warp(const float* a, const float* b,
                                     const int* __restrict__ lo,
                                     const int* __restrict__ hi, int L, int W,
-                                    int lane) {
+                                    int lane, MeasureArgs m) {
   const int t0 = lane * C;  // this lane's first slot
   float cur[C], p1[C], p2[C];
 #pragma unroll
@@ -375,16 +462,21 @@ __device__ float corridor_cost_warp(const float* a, const float* b,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int t = t0 + c;
-        const float h = slot_at<C>(p1, c, sh, edge1);
-        const float v = slot_at<C>(p1, c, sv, edge1);
+        float h = slot_at<C>(p1, c, sh, edge1);
+        float v = slot_at<C>(p1, c, sv, edge1);
         float dg = slot_at<C>(p2, c, sd, edge2);
         const int i = l + t, j = d - i;
+        const int ic = min(max(i, 0), L - 1), jc = min(max(j, 0), L - 1);
+        if (MEAS == kERP) erp_borders(i, j, ic, jc, L, m, h, v, dg);
         if (i == 0 && j == 0) dg = 0.f;
-        const float x = a[min(max(i, 0), L - 1)];
-        const float y = b[min(max(j, 0), L - 1)];
-        const float df = x - y;
+        float xp = 0.f, yp = 0.f, wgt = 0.f;
+        if (MEAS == kMSM) {
+          xp = a[max(ic - 1, 0)];  // a[0] at the border
+          yp = b[max(jc - 1, 0)];
+        }
+        if (MEAS == kWDTW) wgt = m.wt[min(abs(i - j), L - 1)];
         const float cell =
-            fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), kInf);
+            corridor_cell<MEAS>(a[ic], b[jc], xp, yp, h, v, dg, wgt, m.p);
         cur[c] = (t <= live) ? cell : kInf;
       }
 #pragma unroll
@@ -400,7 +492,7 @@ __device__ float corridor_cost_warp(const float* a, const float* b,
 }
 
 // ---------------------------------------------------------------------------
-// The warp sweep on padded rows, for corridors that keep the invariants
+// The warp sweep on staged rows, for corridors that keep the invariants
 // ---------------------------------------------------------------------------
 //
 // A corridor as core/corridor.py builds it has lo[0] = 0, drift s1 =
@@ -410,27 +502,46 @@ __device__ float corridor_cost_warp(const float* a, const float* b,
 // table, and a slot past the live ones reads at most 32C - 1 floats beyond
 // the end of a or before the start of b.  corridor_cost_warp_padded takes
 // a and b from one staged buffer [a | warp_pad(C) floats | b], so it
-// clamps no index; it peels diagonal 0, so no cell tests for (0, 0); and
-// the pair's shifts (s1, s2) take six values (s2 = lo[d] - lo[d-2] - 1 in
-// {-1, 0, 1}), so a warp-uniform branch a diagonal picks a body that reads
-// its predecessors with no select: h at slot t + s1, v at t + s1 - 1, dg
-// at t + s2.  The lanes check the invariants as they load lo and hi, 32
-// diagonals at a time, and pack each diagonal's live count and case into
-// one int, broadcast by one shuffle a diagonal; lo[d] itself is carried
-// as a running sum of s1.  Where a diagonal breaks the invariants the
-// function returns false at once and the caller sweeps the pair again
+// clamps no element index (a non-live slot's read lands in the pad, and
+// its cell is masked); it peels diagonal 0, so no cell tests for (0, 0);
+// and the pair's shifts (s1, s2) take six values (s2 = lo[d] - lo[d-2] - 1
+// in {-1, 0, 1}), so a warp-uniform branch a diagonal picks a body that
+// reads its predecessors with no select: h at slot t + s1, v at t + s1 -
+// 1, dg at t + s2.  The lanes check the invariants as they load lo and hi,
+// 32 diagonals at a time, and pack each diagonal's live count and case
+// into one int, broadcast by one shuffle a diagonal; lo[d] itself is
+// carried as a running sum of s1.  Where a diagonal breaks the invariants
+// the function returns false at once and the caller sweeps the pair again
 // with corridor_cost_warp.  Where it returns true its cost is
 // corridor_cost_warp's to the bit: the same live cells from the same
 // elements, the same float32 expression, +inf elsewhere.
+//
+// The measures beyond dtw:
+//   msm reads a[i-1] and b[j-1] through max(i-1, 0) and max(j-1, 0), so
+//       at i = 0 or j = 0 a live cell reads element 0, as corridor_cost
+//       does, and never the pad before b or the word before a (before the
+//       warp's slice: at warp 0, before shared memory).  The term that
+//       reads it adds to a +inf predecessor there (T[-1, j] or T[i, -1]),
+//       so the select keeps the read in bounds; the bits would not move;
+//   wdtw reads wt[min(|i - j|, L - 1)];
+//   erp's border predecessors (erp_borders, indices clamped as in
+//       corridor_cost) matter only on a diagonal where some slot of the
+//       warp has i = 0 (lo[d] = 0) or j = 0 (d - lo[d] < 32C): the lanes
+//       flag such a diagonal in the packed int, and only its body tests
+//       i and j; the diagonals past them take the plain body.
+// Diagonal 0's one live cell (0, 0) is corridor_cell with dg = 0, h = v =
+// +inf (erp: h = ga[0], v = gb[0]), as corridor_cost_warp forms it.
 
 // One diagonal: slot t = t0 + c at row i0 + c, column j0 - c; the
 // predecessors of diagonal d-1 (p1) at shifts S1 and S1 - 1, of d-2 (p2)
-// at SD, one shuffle each for the slot that lies in the next lane.
-template <int C, int S1, int SD>
+// at SD, one shuffle each for the slot that lies in the next lane;
+// BORDER: erp's border predecessors.
+template <int MEAS, int C, int S1, int SD, bool BORDER>
 __device__ __forceinline__ void corridor_diag(float* cur, const float* p1,
                                               const float* p2, const float* a,
                                               const float* b, int i0, int j0,
-                                              int live, int t0, int lane) {
+                                              int live, int t0, int lane,
+                                              int L, const MeasureArgs& m) {
   constexpr unsigned kFull = 0xffffffffu;
   float e1, e2 = kInf;
   if (S1 == 1) {
@@ -451,35 +562,88 @@ __device__ __forceinline__ void corridor_diag(float* cur, const float* p1,
   for (int c = 0; c < C; ++c) {
     const float up1 = (c < C - 1) ? p1[c < C - 1 ? c + 1 : 0] : e1;
     const float dn1 = (c > 0) ? p1[c > 0 ? c - 1 : 0] : e1;
-    const float h = S1 == 1 ? up1 : p1[c];
-    const float v = S1 == 1 ? p1[c] : dn1;
+    float h = S1 == 1 ? up1 : p1[c];
+    float v = S1 == 1 ? p1[c] : dn1;
     float dg = p2[c];
     if (SD == 1) dg = (c < C - 1) ? p2[c < C - 1 ? c + 1 : 0] : e2;
     if (SD == -1) dg = (c > 0) ? p2[c > 0 ? c - 1 : 0] : e2;
-    const float df = a[i0 + c] - b[j0 - c];
+    const int i = i0 + c, j = j0 - c;
+    if (BORDER)
+      erp_borders(i, j, min(max(i, 0), L - 1), min(max(j, 0), L - 1), L, m,
+                  h, v, dg);
+    float xp = 0.f, yp = 0.f, wgt = 0.f;
+    if (MEAS == kMSM) {
+      xp = a[max(i - 1, 0)];
+      yp = b[max(j - 1, 0)];
+    }
+    if (MEAS == kWDTW) wgt = m.wt[min(abs(i - j), L - 1)];
     const float cell =
-        fminf(__fmaf_rn(df, df, fminf(fminf(dg, h), v)), kInf);
+        corridor_cell<MEAS>(a[i], b[j], xp, yp, h, v, dg, wgt, m.p);
     cur[c] = (t0 + c <= live) ? cell : kInf;
   }
 }
 
-template <int C>
+// The body of one diagonal for its case code = 3 * s1 + s2 + 1.
+template <int MEAS, int C, bool BORDER>
+__device__ __forceinline__ void corridor_case(int code, float* cur,
+                                              const float* p1,
+                                              const float* p2, const float* a,
+                                              const float* b, int i0, int j0,
+                                              int live, int t0, int lane,
+                                              int L, const MeasureArgs& m) {
+  switch (code) {
+    case 0:
+      corridor_diag<MEAS, C, 0, -1, BORDER>(cur, p1, p2, a, b, i0, j0, live,
+                                            t0, lane, L, m);
+      break;
+    case 1:
+      corridor_diag<MEAS, C, 0, 0, BORDER>(cur, p1, p2, a, b, i0, j0, live,
+                                           t0, lane, L, m);
+      break;
+    case 2:
+      corridor_diag<MEAS, C, 0, 1, BORDER>(cur, p1, p2, a, b, i0, j0, live,
+                                           t0, lane, L, m);
+      break;
+    case 3:
+      corridor_diag<MEAS, C, 1, -1, BORDER>(cur, p1, p2, a, b, i0, j0, live,
+                                            t0, lane, L, m);
+      break;
+    case 4:
+      corridor_diag<MEAS, C, 1, 0, BORDER>(cur, p1, p2, a, b, i0, j0, live,
+                                           t0, lane, L, m);
+      break;
+    default:
+      corridor_diag<MEAS, C, 1, 1, BORDER>(cur, p1, p2, a, b, i0, j0, live,
+                                           t0, lane, L, m);
+      break;
+  }
+}
+
+template <int MEAS, int C>
 __device__ bool corridor_cost_warp_padded(const float* a, const float* b,
                                           const int* __restrict__ lo,
                                           const int* __restrict__ hi, int L,
-                                          int W, int lane, float* cost) {
+                                          int W, int lane, float* cost,
+                                          MeasureArgs m) {
   constexpr unsigned kFull = 0xffffffffu;
+  // the packed int: live << kShift | erp's border flag << 3 | case code
+  constexpr int kShift = MEAS == kERP ? 4 : 3;
   const int t0 = lane * C;  // this lane's first slot
   const int D = 2 * L - 1;
-  // cell (0, 0): corridor_cost_warp's expression with dg = 0, h = v = +inf
-  const float df0 = a[0] - b[0];
-  const float c00 = fminf(__fmaf_rn(df0, df0, 0.f), kInf);
+  // cell (0, 0): corridor_cost_warp's cell with dg = 0, h = v = +inf
+  float h00 = kInf, v00 = kInf;
+  if (MEAS == kERP) {
+    h00 = m.ga[0];
+    v00 = m.gb[0];
+  }
+  const float c00 = corridor_cell<MEAS>(a[0], b[0], a[0], b[0], h00, v00, 0.f,
+                                        MEAS == kWDTW ? m.wt[0] : 0.f, m.p);
   float cur[C], p1[C], p2[C];
   int l = 0;  // lo[d], carried
   for (int d0 = 0; d0 < D; d0 += 32) {
     const int dl = d0 + lane;
     bool ok = true;
-    int pk = 0;  // live * 8 + 3 * s1 + (s2 + 1)
+    int pk = 0;
     if (dl < D) {
       const int ld = lo[dl];
       const int s1 = ld - lo[max(dl - 1, 0)];
@@ -488,13 +652,14 @@ __device__ bool corridor_cost_warp_padded(const float* a, const float* b,
       ok = ld >= 0 && ld <= min(dl, L - 1) && dl - ld <= L - 1 &&
            (dl == 0 ? ld == 0 : (s1 == 0 || s1 == 1)) &&
            ld + live <= min(dl, L - 1);
-      pk = live * 8 + 3 * s1 + s2 + 1;
+      pk = live * (1 << kShift) + 3 * s1 + s2 + 1;
+      if (MEAS == kERP && (ld == 0 || dl - ld < 32 * C)) pk += 8;
     }
     if (!__all_sync(kFull, ok)) return false;
     const int nd = min(32, D - d0);
     int k = 0;
     if (d0 == 0) {  // diagonal 0
-      const bool live0 = (__shfl_sync(kFull, pk, 0) >> 3) >= 0;
+      const bool live0 = (__shfl_sync(kFull, pk, 0) >> kShift) >= 0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         p1[c] = (t0 + c == 0 && live0) ? c00 : kInf;
@@ -504,30 +669,16 @@ __device__ bool corridor_cost_warp_padded(const float* a, const float* b,
     }
     for (; k < nd; ++k) {
       const int q = __shfl_sync(kFull, pk, k);
-      const int live = q >> 3;
+      const int live = q >> kShift;
       const int code = q & 7;
       l += code >= 3;
       const int i0 = l + t0, j0 = d0 + k - l - t0;
-      switch (code) {
-        case 0:
-          corridor_diag<C, 0, -1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
-          break;
-        case 1:
-          corridor_diag<C, 0, 0>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
-          break;
-        case 2:
-          corridor_diag<C, 0, 1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
-          break;
-        case 3:
-          corridor_diag<C, 1, -1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
-          break;
-        case 4:
-          corridor_diag<C, 1, 0>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
-          break;
-        default:
-          corridor_diag<C, 1, 1>(cur, p1, p2, a, b, i0, j0, live, t0, lane);
-          break;
-      }
+      if (MEAS == kERP && (q & 8))
+        corridor_case<MEAS, C, true>(code, cur, p1, p2, a, b, i0, j0, live,
+                                     t0, lane, L, m);
+      else
+        corridor_case<MEAS, C, false>(code, cur, p1, p2, a, b, i0, j0, live,
+                                      t0, lane, L, m);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         p2[c] = p1[c];
@@ -701,16 +852,33 @@ __device__ float band_cost_warp(const float* a, const float* b, int L, int w,
 // test and MSM's b[j-1] at j = 0 reads b[0], band_cost's sentinel.  wt:
 // WDTW's weights by |i - j| = |w - k| (the caller stages them in shared
 // memory beside the row).
+//
+// Chunked sweep: a caller may pass a restage functor and a row count; then
+// before rows 0, rows, 2 rows, ... it calls b = restage(i) and reads b[j]
+// for rows [i, i + rows) only in [i - w - 1, i + rows - 1 - w + WB - 2]
+// (dtw_band.cu's zipped pairs restage their B columns so).  Without one
+// (NoRestage) that test is compiled out.
 
-template <int MEAS, int WB>
+struct NoRestage {
+  __device__ const float* operator()(int) const { return nullptr; }
+};
+
+template <int MEAS, int WB, class Restage = NoRestage>
 __device__ float band_cost_reg(const float* __restrict__ a, const float* b,
                                int L, int w, float p, const float* wt,
-                               int as) {
+                               int as, Restage restage = Restage{},
+                               int rows = 0) {
+  constexpr bool kChunked = !std::is_same<Restage, NoRestage>::value;
   float r[WB];
 #pragma unroll
   for (int s = 0; s < WB; ++s) r[s] = (s == w) ? 0.f : kInf;
   float ga = 0.f;
+  int next = 0;  // the next row at which to restage
   for (int i = 0; i < L; ++i) {
+    if (kChunked && i == next) {
+      b = restage(i);
+      next += rows;
+    }
     const float x = a[(size_t)i * as];
     const float xp = (i > 0) ? a[(size_t)(i - 1) * as] : a[0];
     const float ga_prev = ga;

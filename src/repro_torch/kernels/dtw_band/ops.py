@@ -4,14 +4,17 @@ A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises.  Each wrapper counts its launches in
 :data:`repro_torch.kernels._build.LAUNCHES`.
 
-Band rows (``2w+2`` floats per thread; the adaptive sweep's three
-diagonals, ``3 * width``) live in shared memory when a block of at least
-32 threads fits in the default 48 KB, i.e. up to ``w = 190``; beyond that
-they live in a device scratch buffer allocated here and capped at 1 GiB,
-with the grid cut to match (the kernels walk their pairs grid-stride).
-So every ``(L, window)`` the reference takes is taken.  The all-pairs
-form keeps the band row in registers instead where :func:`cdist_bucket`
-finds a bucket for it (narrow bands), with the same bits.
+Where :func:`cdist_bucket` finds a register bucket for the band (narrow
+bands), the zipped and all-pairs forms keep the band row in registers
+(:func:`pairs_reg_geometry`, :func:`reg_grid`); the adaptive form sweeps
+each pair with one warp up to width 256 (:func:`adaptive_warp_geometry`).
+Elsewhere one thread sweeps a pair, its band row (``2w+2`` floats; the
+adaptive sweep's three diagonals, ``3 * width``) in shared memory when a
+block of at least 32 threads fits in the default 48 KB, i.e. up to
+``w = 190``, beyond that in a device scratch buffer allocated here and
+capped at 1 GiB, with the grid cut to match (the kernels walk their pairs
+grid-stride).  So every ``(L, window)`` the reference takes is taken, and
+each form gives the same bits.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ from .ref import (dtw_band_adaptive_ref, dtw_band_cdist_ref,
 __all__ = ["dtw_band", "dtw_band_cdist", "dtw_band_adaptive",
            "launch_dtw_band_adaptive",
            "launch_dtw_band_full", "band_geometry", "band_width",
-           "cdist_bucket", "reg_grid", "full_warp_geometry",
-           "adaptive_launch_name", "check_corridor"]
+           "cdist_bucket", "reg_grid", "pairs_reg_geometry",
+           "full_warp_geometry", "warp_cells", "adaptive_variant",
+           "adaptive_warp_geometry", "adaptive_launch_name",
+           "check_corridor"]
 
 _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
@@ -47,6 +52,10 @@ _DTW, _WDTW, _ERP, _MSM = 0, 1, 2, 3  # wavefront.cuh's Measure
 # dtw_band.cu: rows a lane of the full-width sweep's warp form (L <= 1024)
 FULL_WARP_CELLS = (1, 2, 4, 8, 16, 32)
 _FULL_WARPS = 4  # warps (pairs) a block
+PAIR_ROWS = 32   # dtw_band.cu::kPairRows: table rows a staged chunk
+WARP_MAX_WIDTH = 256  # the adaptive warp forms: at most 8 slots a lane
+_WARPS = 4       # warps a block of the zipped and adaptive warp forms
+_SMEM_MAX = 227 * 1024
 
 
 def cdist_bucket(w: int, kid: int, length: int) -> Optional[int]:
@@ -88,6 +97,85 @@ def reg_grid(N: int, M: int) -> Tuple[bool, int, int]:
     return swap, -(-rows // _THREADS), max(1, min(other, _GRID_Y))
 
 
+def pairs_reg_geometry(n: int, L: int, w: int, kid: int
+                       ) -> Optional[Tuple[int, int, int]]:
+    """``(bucket, warps, blocks)`` of ``dtw_band``'s register form for
+    ``n`` zipped pairs of length ``L`` at effective band ``w`` under kernel
+    measure ``kid``: the bucket :func:`cdist_bucket` gives, each warp
+    staging its 32 pairs' ``PAIR_ROWS + bucket - 1`` columns in shared
+    memory (wdtw's ``L`` weights beside them), up to 4 warps a block within
+    48 KB, a block for every 128 pairs (the kernel walks them
+    grid-stride); ``None`` (the shared-memory form) where no bucket holds
+    the band.
+
+    >>> pairs_reg_geometry(1572864, 74, 7, 0)
+    (16, 4, 12288)
+    >>> pairs_reg_geometry(5, 512, 51, 0)
+    (128, 2, 1)
+    >>> pairs_reg_geometry(9, 74, 16, 3) is None
+    True
+    """
+    bucket = cdist_bucket(w, kid, L)
+    if bucket is None:
+        return None
+    fixed = L * 4 if int(kid) == _WDTW else 0  # within 48 KB by the bucket
+    per_warp = 32 * (PAIR_ROWS + bucket - 1) * 4
+    warps = max(1, min(_WARPS, (_SMEM_LIMIT - fixed) // per_warp))
+    return bucket, warps, max(1, min(-(-n // (32 * warps)), _INT_MAX))
+
+
+def warp_cells(w: int) -> int:
+    """Cells (or corridor slots) a lane of the warp forms keeps for
+    ``w + 1`` of them: ``ceil((w+1)/32)`` rounded up to 1, 2, 4 or 8
+    (the template ``C`` of ``lb_cascade.cu`` and of ``dtw_band.cu``'s
+    adaptive warp form).
+
+    >>> [warp_cells(w) for w in (0, 31, 32, 51, 64, 255)]
+    [1, 1, 2, 2, 4, 8]
+    """
+    need = -(-(int(w) + 1) // 32)
+    return next(c for c in (1, 2, 4, 8) if c >= need)
+
+
+def adaptive_variant(width: int) -> str:
+    """The adaptive kernels' form for a register ``width``: ``"warp"``
+    (one warp per pair, the corridor's slots across the lanes) up to
+    :data:`WARP_MAX_WIDTH`, ``"thread"`` (one thread per pair) beyond.
+
+    >>> adaptive_variant(32), adaptive_variant(256), adaptive_variant(257)
+    ('warp', 'warp', 'thread')
+    """
+    return "warp" if int(width) <= WARP_MAX_WIDTH else "thread"
+
+
+def adaptive_warp_geometry(n: int, L: int, width: int, kid: int
+                           ) -> Optional[Tuple[int, int]]:
+    """``(warps, blocks)`` of ``dtw_band_adaptive``'s warp form for ``n``
+    pairs of length ``L`` at register ``width`` under kernel measure
+    ``kid``: each warp stages its pair as ``[a | 32 C floats | b]`` (``C =
+    warp_cells(width - 1)``), for erp followed by the border sums (``2 L``
+    floats more), wdtw's ``L`` weights once a block; up to 4 warps a
+    block within the card's 227 KB.  ``None`` (the thread form) beyond
+    :data:`WARP_MAX_WIDTH` or where one warp's rows do not fit.
+
+    >>> adaptive_warp_geometry(7680, 512, 32, 0)
+    (4, 1920)
+    >>> adaptive_warp_geometry(7680, 512, 257, 0) is None
+    True
+    >>> adaptive_warp_geometry(3, 15000, 32, 2) is None
+    True
+    """
+    if adaptive_variant(width) != "warp":
+        return None
+    per_warp = (2 * L + 32 * warp_cells(int(width) - 1)
+                + (2 * L if int(kid) == _ERP else 0)) * 4
+    fixed = L * 4 if int(kid) == _WDTW else 0
+    if fixed + per_warp > _SMEM_MAX:
+        return None
+    warps = max(1, min(_WARPS, (_SMEM_MAX - fixed) // per_warp))
+    return warps, max(1, -(-n // warps))
+
+
 def full_warp_geometry(n: int, L: int) -> Optional[Tuple[int, int, int]]:
     """``(cells, warps, blocks)`` of the full-width sweep's warp form for
     ``n`` pairs of length ``L``: one warp a pair, each lane holding
@@ -108,14 +196,14 @@ def full_warp_geometry(n: int, L: int) -> Optional[Tuple[int, int, int]]:
 
 def adaptive_launch_name(kid: int) -> str:
     """The launch ledger's name of an adaptive sweep under kernel measure
-    ``kid``: the bare name for dtw and wdtw, ``op[measure]`` for erp and
-    msm.
+    ``kid``: the bare name for dtw, ``op[measure]`` for the others (the
+    dispatch ledger's key form).
 
     >>> [adaptive_launch_name(k) for k in range(4)]
-    ['dtw_band_adaptive', 'dtw_band_adaptive', 'dtw_band_adaptive[erp]', \
-'dtw_band_adaptive[msm]']
+    ['dtw_band_adaptive', 'dtw_band_adaptive[wdtw]', \
+'dtw_band_adaptive[erp]', 'dtw_band_adaptive[msm]']
     """
-    suffix = {_ERP: "[erp]", _MSM: "[msm]"}.get(int(kid), "")
+    suffix = {_WDTW: "[wdtw]", _ERP: "[erp]", _MSM: "[msm]"}.get(int(kid), "")
     return "dtw_band_adaptive" + suffix
 
 
@@ -204,10 +292,16 @@ def dtw_band(A: torch.Tensor, B: torch.Tensor, window: Optional[int] = None,
         return out
     w = effective_window(L, window)
     kid, param, wt = _measure_args(spec, L, dev)
-    threads, blocks, scratch = band_geometry(n, w, dev)
+    reg = pairs_reg_geometry(n, L, w, kid)
+    if reg is not None:
+        bucket, warps, blocks = reg
+        threads, scratch = 32 * warps, None
+    else:
+        bucket = 0
+        threads, blocks, scratch = band_geometry(n, w, dev)
     status = _build.lib().pq_dtw_band(
         A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt),
-        _build.ptr(scratch), n, L, w, kid, param, threads, blocks,
+        _build.ptr(scratch), n, L, w, kid, param, bucket, threads, blocks,
         _build.stream(dev))
     _build.check(status, "dtw_band")
     _build.count_launch("dtw_band")
@@ -341,24 +435,33 @@ def launch_dtw_band_adaptive(A: torch.Tensor, B: torch.Tensor,
                              out: torch.Tensor, param: float = 0.0) -> None:
     """The launch alone, into ``out (N,)``, for inputs
     :func:`dtw_band_adaptive` has checked; ``param`` is the measure's
-    (erp's gap value, msm's split cost).  Counted under
-    :func:`adaptive_launch_name`."""
+    (erp's gap value, msm's split cost).  Up to width 256 one warp sweeps
+    a pair (:func:`adaptive_warp_geometry`, erp's border sums formed in
+    shared memory); beyond, one thread a pair, its three diagonals laid
+    out as :func:`row_geometry` says and erp's border sums in a scratch
+    buffer of ``2L`` floats a thread, the grid cut to fit 1 GiB.  Counted
+    under :func:`adaptive_launch_name`."""
     n, L = A.shape
     if n > _INT_MAX:
         raise ValueError(f"{n} pairs exceed one launch")
     if n == 0:
         return
-    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
-    gaps = None
-    if kid == _ERP:  # 2L floats a thread, the grid cut to fit 1 GiB
-        blocks = max(1, min(blocks, _SCRATCH_LIMIT // (8 * L * threads)))
-        gaps = torch.empty(2 * L * threads * blocks, dtype=torch.float32,
-                           device=A.device)
+    warp = adaptive_warp_geometry(n, L, width, kid)
+    gaps = scratch = None
+    if warp is not None:
+        (warps, blocks), threads = warp, 0
+    else:
+        warps = 0
+        threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+        if kid == _ERP:
+            blocks = max(1, min(blocks, _SCRATCH_LIMIT // (8 * L * threads)))
+            gaps = torch.empty(2 * L * threads * blocks,
+                               dtype=torch.float32, device=A.device)
     status = _build.lib().pq_dtw_band_adaptive(
         A.data_ptr(), B.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         out.data_ptr(), _build.ptr(wt), _build.ptr(scratch),
         _build.ptr(gaps), n, L, width, kid, float(param), threads, blocks,
-        _build.stream(A.device))
+        warps, _build.stream(A.device))
     name = adaptive_launch_name(kid)
     _build.check(status, name)
     _build.count_launch(name)

@@ -32,7 +32,8 @@ from .. import _build
 from ...core import measures
 from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
-from ..dtw_band.ops import band_geometry, check_corridor, row_geometry
+from ..dtw_band.ops import (adaptive_variant, band_geometry,
+                           check_corridor, row_geometry, warp_cells)
 from .ref import lb_refine_ref
 
 __all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive",
@@ -41,7 +42,6 @@ __all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive",
 
 _INT_MAX = 2 ** 31 - 1
 WARP_MAX_W = 255          # lb_cascade.cu: at most 8 band cells a lane
-WARP_MAX_WIDTH = 256      # lb_cascade.cu: at most 8 corridor slots a lane
 _WARPS = 4                # warps (pairs) per CTA of the warp form
 _SMEM_MAX = 227 * 1024
 
@@ -55,17 +55,6 @@ def refine_variant(w: int) -> str:
     ('warp', 'warp', 'thread')
     """
     return "warp" if int(w) <= WARP_MAX_W else "thread"
-
-
-def warp_cells(w: int) -> int:
-    """Band cells each lane of the warp form keeps: ``ceil((w+1)/32)``
-    rounded up to 1, 2, 4 or 8 (``lb_cascade.cu``'s template ``C``).
-
-    >>> [warp_cells(w) for w in (0, 31, 32, 51, 64, 255)]
-    [1, 1, 2, 2, 4, 8]
-    """
-    need = -(-(int(w) + 1) // 32)
-    return next(c for c in (1, 2, 4, 8) if c >= need)
 
 
 def warp_geometry(n_pairs: int, L: int, w: int) -> Tuple[int, int, int]:
@@ -85,17 +74,6 @@ def warp_geometry(n_pairs: int, L: int, w: int) -> Tuple[int, int, int]:
     warps = max(1, min(_WARPS, _SMEM_MAX // per_warp))
     smem = warps * per_warp if per_warp <= _SMEM_MAX else 0
     return warps, max(1, -(-n_pairs // warps)), smem
-
-
-def adaptive_variant(width: int) -> str:
-    """The adaptive kernel's form for a register ``width``: ``"warp"`` (one
-    warp per pair, the corridor's slots across the lanes) up to
-    :data:`WARP_MAX_WIDTH`, ``"thread"`` (one thread per pair) beyond.
-
-    >>> adaptive_variant(32), adaptive_variant(256), adaptive_variant(257)
-    ('warp', 'warp', 'thread')
-    """
-    return "warp" if int(width) <= WARP_MAX_WIDTH else "thread"
 
 
 def corridor_warp_geometry(n_pairs: int, L: int,

@@ -33,7 +33,15 @@ finite on a corridor that breaks the invariants; ``dtw_band_cdist``'s
 register form equals its shared-memory form bit for bit; the full-width
 sweep's warp form (``L <= 1024``) equals its thread form, and
 ``prealign_encode``'s register form its shared-memory form, bit for bit,
-the first index winning among duplicated centroids.
+the first index winning among duplicated centroids; ``dtw_band``'s
+register form equals its shared-memory form bit for bit, on both sides of
+every bucket's edge and when one grid walks the pairs several times; and
+``dtw_band_adaptive``'s warp form (width <= 256) equals its thread form
+and the plain version bit for bit under every measure, in built, dilated
+and static corridors and in corridors along the table's edges (cells at
+i = 0 and j = 0 deep into the sweep), and equals its thread form on
+corridors that break the invariants.  The earlier forms are reached
+through ``_build.lib()``.
 """
 
 import pytest
@@ -43,7 +51,8 @@ from repro_torch.core import corridor as tcorr
 from repro_torch.core import lb as tlb
 from repro_torch.core import lb_search
 from repro_torch.kernels import _build, tune
-from repro_torch.kernels.dtw_band.ops import (band_width, dtw_band,
+from repro_torch.kernels.dtw_band.ops import (adaptive_launch_name,
+                                              band_width, dtw_band,
                                               dtw_band_adaptive,
                                               dtw_band_cdist)
 from repro_torch.kernels.dtw_band.ref import (dtw_band_adaptive_ref,
@@ -201,9 +210,10 @@ def _corridor(gen, n, L, window, width=None):
                                       (300, None)])
 def test_dtw_band_adaptive_matches_plain(gen, measure, L, window):
     A, B, lo, hi, width = _corridor(gen, 203, L, window)
-    before = _build.LAUNCHES["dtw_band_adaptive"]
+    name = adaptive_launch_name(0 if measure == "dtw" else 1)  # [wdtw]
+    before = _build.LAUNCHES[name]
     got = dtw_band_adaptive(A, B, (lo, hi), width, window, measure)
-    assert _build.LAUNCHES["dtw_band_adaptive"] == before + 1
+    assert _build.LAUNCHES[name] == before + 1
     assert torch.equal(got, dtw_band_adaptive_ref(A, B, lo, hi, window,
                                                   width, measure))
     # the dilated corridor at width + 2 (certify_adaptive's second sweep)
@@ -865,3 +875,191 @@ def test_prealign_encode_register_form(gen, monkeypatch, measure, w, K):
     assert torch.equal(got, old)
     assert torch.equal(got, prealign_encode_ref(X, cents, level, tail, w,
                                                 measure))
+
+
+def _adaptive_thread_sweep(A, B, lo, hi, width, measure):
+    """Row 7's thread form (the wrapper's choice beyond width 256, and its
+    design before the warp form) launched directly, at any width; erp's
+    border sums in a scratch buffer."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels.dtw_band.ops import row_geometry
+    spec = tmeas.resolve(measure)
+    n, L = A.shape
+    kid = tmeas.kernel_measure_id(spec)
+    wt = tmeas.wdtw_weights(spec, L, "cuda") if spec.uses_position else None
+    threads, blocks, scratch = row_geometry(n, 3 * width, A.device)
+    gaps = (torch.empty(2 * L * threads * blocks, device=A.device)
+            if kid == 2 else None)
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+    _build.check(_build.lib().pq_dtw_band_adaptive(
+        A.data_ptr(), B.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        out.data_ptr(), _build.ptr(wt), _build.ptr(scratch),
+        _build.ptr(gaps), n, L, width, kid,
+        float(tmeas.kernel_param(spec)), threads, blocks, 0,
+        _build.stream(A.device)), "dtw_band_adaptive (thread form)")
+    return out
+
+
+def _edge_corridor(kind, n, L, width):
+    """A valid corridor along the table's edges: ``j0`` down column 0 to
+    row L-1, then along it (live cells at j = 0 on diagonals with lo > 0);
+    ``i0`` along row 0, then down column L-1."""
+    d = torch.arange(2 * L - 1, device="cuda")
+    if kind == "edge_j0":
+        lo = torch.clamp(d - width + 1, 0, L - 1)
+        hi = torch.clamp(d, max=L - 1)
+    else:
+        lo = torch.clamp(d - L + 1, min=0)
+        hi = torch.minimum(lo + width - 1, torch.clamp(d, max=L - 1))
+    return (lo.to(torch.int32).expand(n, -1).contiguous(),
+            hi.to(torch.int32).expand(n, -1).contiguous())
+
+
+def _break_corridors(clo, chi, width):
+    """Every other pair's corridor broken at one diagonal, in the first,
+    second or last block of 32 diagonals: a live cell off the table, a
+    drift of 2, or a negative base."""
+    clo, chi = clo.clone(), chi.clone()
+    n, D = clo.shape
+    L = (D + 1) // 2
+    for q in range(1, n, 2):
+        d = (0, 5, 31, 32, 40, D - 2)[q // 2 % 6]
+        how, cap = q // 2 % 3, min(d, L - 1)
+        if how == 0:
+            chi[q, d] = cap + 1
+            clo[q, d] = max(cap + 2 - width, 0)
+        elif how == 1:
+            clo[q, d:] += 2
+        else:
+            clo[q, d] = -1
+    return clo, chi
+
+
+@pytest.mark.parametrize("kind", ["built", "dilated", "static", "edge_j0",
+                                  "edge_i0", "broken"])
+@pytest.mark.parametrize("L,window,width", [
+    (64, 6, 8), (65, 12, 32), (96, 20, 34), (129, 40, 64),
+    (300, 140, 256)])
+@pytest.mark.parametrize("measure", MEASURES)
+def test_dtw_band_adaptive_warp_form(gen, monkeypatch, measure, L, window,
+                                     width, kind):
+    """Row 7's warp form (one warp a pair, C = 1, 2, 4 or 8 slots a lane)
+    against its thread form and the plain version, bit for bit, for every
+    measure: widths 8, 32, 34 (certify's W + 2), 64 and 256, L odd and
+    even, 37 pairs (the last block of 4 warps ragged).  Built corridors,
+    dilated ones (width + 2), the static band, corridors along the edges
+    (erp's and msm's border cells at i = 0 and j = 0), and corridors broken
+    in the first, a middle and the last block of diagonals (the padded
+    sweep falls back to the clamped one: equal to the thread form, and
+    finite where unbroken)."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels.dtw_band.ops import adaptive_warp_geometry
+    n = 37
+    A, B, lo, hi, width = _corridor(gen, n, L, window, width)
+    if kind == "dilated":
+        lo, hi = tcorr.dilate(lo, hi, L, window)
+        width += 2
+    elif kind == "static":
+        lo, hi = tcorr.static_band(L, window, A.device)
+        lo, hi = lo.expand(n, -1), hi.expand(n, -1)
+        width = band_width(L, window)
+    elif kind in ("edge_j0", "edge_i0"):
+        lo, hi = _edge_corridor(kind, n, L, width)
+        window = None
+    elif kind == "broken":
+        lo, hi = _break_corridors(lo, hi, width)
+    lo, hi = lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
+    kid = tmeas.kernel_measure_id(tmeas.resolve(measure))
+    spy = _Spy(_build.lib())
+    monkeypatch.setattr(_build, "lib", lambda: spy)
+    name = adaptive_launch_name(kid)
+    before = _build.LAUNCHES[name]
+    got = dtw_band_adaptive(A, B, (lo, hi), width, window, measure)
+    assert _build.LAUNCHES[name] == before + 1
+    (entry, args), = spy.called
+    assert entry == "pq_dtw_band_adaptive"
+    geo = adaptive_warp_geometry(n, L, width, kid)
+    assert (geo is None) == (width > 256)   # dilated 256: the thread form
+    if geo is not None:   # (warps, blocks); no threads, scratch or gaps
+        assert (args[15], args[14]) == geo and args[13] == 0
+        assert args[6] is None and args[7] is None
+    thread = _adaptive_thread_sweep(A, B, lo, hi, width, measure)
+    assert torch.equal(got, thread)
+    if kind == "broken":
+        assert bool(torch.isfinite(got[0::2]).all())
+    else:
+        assert torch.equal(got, dtw_band_adaptive_ref(A, B, lo, hi, window,
+                                                      width, measure))
+
+
+def _pairs_shared_form(A, B, w, measure):
+    """Row 1's shared-memory form (the wrapper's choice where no register
+    bucket holds the band) launched directly, at any band."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels.dtw_band.ops import band_geometry
+    spec = tmeas.resolve(measure)
+    n, L = A.shape
+    wt = tmeas.wdtw_weights(spec, L, "cuda") if spec.uses_position else None
+    threads, blocks, scratch = band_geometry(n, w, A.device)
+    out = torch.empty(n, dtype=torch.float32, device=A.device)
+    _build.check(_build.lib().pq_dtw_band(
+        A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt),
+        _build.ptr(scratch), n, L, w, tmeas.kernel_measure_id(spec),
+        float(tmeas.kernel_param(spec)), 0, threads, blocks,
+        _build.stream(A.device)), "dtw_band (shared-memory form)")
+    return out
+
+
+@pytest.mark.parametrize("L", [74, 75])
+@pytest.mark.parametrize("w", [0, 7, 8, 15, 16, 31, 32, 63, 64])
+@pytest.mark.parametrize("measure", MEASURES)
+def test_dtw_band_register_form(gen, monkeypatch, measure, w, L):
+    """Row 1's register form against the shared-memory form (bit for bit)
+    and the plain version (TOL), on both sides of each bucket's edge (w =
+    7/8 and 15/16 for every measure, 31/32 and 63/64 for dtw), where the
+    wrapper takes the register form exactly where cdist_bucket gives a
+    bucket; 300 pairs, so the last warp's group of 32 is ragged."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels.dtw_band.ops import (cdist_bucket,
+                                                  pairs_reg_geometry)
+    n = 300
+    A, B = _randn(gen, n, L), _randn(gen, n, L)
+    kid = tmeas.kernel_measure_id(tmeas.resolve(measure))
+    spy = _Spy(_build.lib())
+    monkeypatch.setattr(_build, "lib", lambda: spy)
+    before = _build.LAUNCHES["dtw_band"]
+    got = dtw_band(A, B, w, measure)
+    assert _build.LAUNCHES["dtw_band"] == before + 1
+    (entry, args), = spy.called
+    geo = pairs_reg_geometry(n, L, w, kid)
+    assert (geo is None) == (cdist_bucket(w, kid, L) is None)
+    if geo is not None:
+        assert args[10:13] == (geo[0], 32 * geo[1], geo[2])
+    else:
+        assert args[10] == 0
+    assert torch.equal(got, _pairs_shared_form(A, B, w, measure))
+    torch.testing.assert_close(got, dtw_band_ref(A, B, w, measure), **TOL)
+
+
+@pytest.mark.parametrize("measure", MEASURES)
+def test_dtw_band_register_form_grid_stride(gen, measure):
+    """Row 1's register form with a grid of one and of three blocks: each
+    warp walks several groups of 32 pairs (n above one grid's reach), and
+    the last group is ragged; the same bits as the shared-memory form."""
+    from repro_torch.core import measures as tmeas
+    from repro_torch.kernels.dtw_band.ops import pairs_reg_geometry
+    n, L, w = 1000, 74, 7
+    A, B = _randn(gen, n, L), _randn(gen, n, L)
+    spec = tmeas.resolve(measure)
+    kid = tmeas.kernel_measure_id(spec)
+    wt = tmeas.wdtw_weights(spec, L, "cuda") if spec.uses_position else None
+    bucket, warps, blocks = pairs_reg_geometry(n, L, w, kid)
+    assert blocks > 3
+    old = _pairs_shared_form(A, B, w, measure)
+    for grid in (1, 3):
+        out = torch.full((n,), float("nan"), device="cuda")
+        _build.check(_build.lib().pq_dtw_band(
+            A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt), None,
+            n, L, w, kid, float(tmeas.kernel_param(spec)), bucket,
+            32 * warps, grid, _build.stream(A.device)), "dtw_band")
+        assert torch.equal(out, old), grid

@@ -327,3 +327,152 @@ def test_prealign_encode_hands_its_form(monkeypatch, measure, kid, param,
     assert sent.is_contiguous()
     assert torch.equal(sent, cents.transpose(1, 2) if bucket else cents)
     assert (args[3] is not None) == (kid == 1)   # wdtw's weights
+
+
+@pytest.mark.parametrize("measure", ["dtw", "wdtw:g=0.1", "erp:g=0.3",
+                                     "msm:c=0.5"])
+@pytest.mark.parametrize("L,window", [(74, 7), (74, 8), (74, 15), (74, 16),
+                                      (75, 31), (75, 32), (512, 51),
+                                      (512, 63), (512, 64), (12257, 7)])
+def test_dtw_band_picks_the_register_form(monkeypatch, measure, L, window):
+    """Row 1 takes the register form exactly where cdist_bucket gives a
+    bucket (from w, the measure and L alone), in that bucket, with
+    pairs_reg_geometry's warps and grid and no scratch; else the
+    shared-memory form (bucket 0) with band_geometry's."""
+    n = 5
+    A = torch.zeros(n, L)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(dtw_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "dtw_band", 0)
+    out = dtw_ops.dtw_band(A, A, window, measure)
+    assert out.shape == (n,)
+    assert _build.LAUNCHES["dtw_band"] == 1
+    (name, args), = lib.called
+    assert name == "pq_dtw_band"
+    kid = measures.kernel_measure_id(measures.resolve(measure))
+    assert args[5:9] == (n, L, window, kid)
+    bucket = dtw_ops.cdist_bucket(window, kid, L)
+    if bucket is None:
+        threads, blocks, scratch = dtw_ops.band_geometry(n, window, A.device)
+        assert args[10:13] == (0, threads, blocks)
+        assert (args[4] is None) == (scratch is None)
+    else:
+        _, warps, blocks = dtw_ops.pairs_reg_geometry(n, L, window, kid)
+        assert args[10:13] == (bucket, 32 * warps, blocks)
+        assert args[4] is None
+    assert (args[3] is not None) == (kid == 1)   # wdtw's weights
+
+
+@pytest.mark.parametrize("kid", [0, 1, ERP, MSM])
+@pytest.mark.parametrize("n,L,w", [(1, 74, 7), (1572864, 74, 7),
+                                   (300, 75, 15), (7680, 512, 51),
+                                   (33, 512, 31), (5, 6000, 7)])
+def test_pairs_reg_geometry_fits_and_covers(kid, n, L, w):
+    """Row 1's register form: a warp's slice (32 pairs x (32 + bucket - 1)
+    columns, an odd pitch) and wdtw's weights within 48 KB, up to 4 warps,
+    and a warp for every 32 pairs."""
+    geo = dtw_ops.pairs_reg_geometry(n, L, w, kid)
+    bucket = dtw_ops.cdist_bucket(w, kid, L)
+    if bucket is None:
+        assert geo is None
+        return
+    got_bucket, warps, blocks = geo
+    pitch = dtw_ops.PAIR_ROWS + bucket - 1
+    assert got_bucket == bucket and pitch % 2 == 1
+    assert 1 <= warps <= 4
+    smem = (L * 4 if kid == 1 else 0) + warps * 32 * pitch * 4
+    assert smem <= 48 * 1024
+    assert blocks * warps * 32 >= n > (blocks - 1) * warps * 32
+
+
+@pytest.mark.parametrize("kid", [0, 1, ERP, MSM])
+@pytest.mark.parametrize("n,L,width", [(1, 2, 1), (37, 65, 34),
+                                       (7680, 512, 32), (9, 300, 256),
+                                       (9, 300, 257), (3, 13000, 32),
+                                       (3, 15000, 32), (3, 20000, 8)])
+def test_adaptive_warp_geometry_fits_and_covers(kid, n, L, width):
+    """Row 7's warp form up to width 256 where one warp's staged rows
+    ([a | 32 C | b], erp's border sums, wdtw's weights) fit in 227 KB, up
+    to 4 warps a block, a warp for every pair; None (the thread form)
+    elsewhere."""
+    geo = dtw_ops.adaptive_warp_geometry(n, L, width, kid)
+    if width > 256:
+        assert geo is None
+        return
+    per_warp = (2 * L + 32 * dtw_ops.warp_cells(width - 1)
+                + (2 * L if kid == ERP else 0)) * 4
+    fixed = L * 4 if kid == 1 else 0
+    if fixed + per_warp > 227 * 1024:
+        assert geo is None
+        return
+    warps, blocks = geo
+    assert 1 <= warps <= 4 and fixed + warps * per_warp <= 227 * 1024
+    assert warps * blocks >= n > warps * (blocks - 1)
+
+
+@pytest.mark.parametrize("measure", ["dtw", "wdtw:g=0.1", "erp:g=0.3",
+                                     "msm:c=0.5"])
+@pytest.mark.parametrize("width", [8, 32, 34, 64, 256, 257])
+def test_dtw_band_adaptive_picks_the_warp_form(monkeypatch, measure, width):
+    """Row 7 takes the warp form (warps > 0, threads 0) from the width
+    for every measure, up to 256; the thread form (warps 0) beyond, with
+    row_geometry's threads and grid; counted under the measure's name."""
+    n, L = 6, 300
+    A = torch.zeros(n, L)
+    lo, hi = tcorr.static_band(L, None, A.device)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(dtw_ops._build, "stream", lambda dev: 0)
+    kid = measures.kernel_measure_id(measures.resolve(measure))
+    name = dtw_ops.adaptive_launch_name(kid)
+    monkeypatch.setitem(_build.LAUNCHES, name, 0)
+    dtw_ops.dtw_band_adaptive(A, A, (lo.expand(n, -1), hi.expand(n, -1)),
+                              width, None, measure)
+    assert _build.LAUNCHES[name] == 1
+    (entry, args), = lib.called
+    assert entry == "pq_dtw_band_adaptive"
+    assert args[8:12] == (n, L, width, kid)
+    if width <= 256:
+        warps, blocks = dtw_ops.adaptive_warp_geometry(n, L, width, kid)
+        assert args[13:16] == (0, blocks, warps)
+        assert args[6] is None
+    else:
+        threads, blocks, _ = dtw_ops.row_geometry(n, 3 * width, A.device)
+        assert args[13:16][0] == threads and args[15] == 0
+    assert (args[5] is not None) == (kid == 1)   # wdtw's weights
+
+
+@pytest.mark.parametrize("width", [32, 256, 257])
+def test_erp_warp_form_needs_no_gaps(monkeypatch, width):
+    """erp's warp form forms its border sums in shared memory: no gaps
+    buffer is allocated or passed; the thread form (beyond width 256)
+    still takes one of 2L floats a thread."""
+    n, L = 6, 300
+    A = torch.zeros(n, L)
+    lo, hi = tcorr.static_band(L, None, A.device)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(dtw_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "dtw_band_adaptive[erp]", 0)
+    made = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        made.append(out.numel())
+        return out
+
+    monkeypatch.setattr(dtw_ops.torch, "empty", empty)
+    dtw_ops.dtw_band_adaptive(A, A, (lo.expand(n, -1), hi.expand(n, -1)),
+                              width, None, "erp:g=0.3")
+    (_, args), = lib.called
+    if width <= 256:
+        assert args[7] is None and made == [n]   # the output alone
+    else:
+        threads, blocks = args[13], args[14]
+        assert args[7] is not None
+        assert made[-1] == 2 * L * threads * blocks
