@@ -102,7 +102,11 @@ the band row in shared memory (the wrapper's choice for wider bands), for
 shared memory (the wrapper's choice for wider bands; ``dtw_band``'s timed
 as the launch alone, its ``ms`` as the wrapper call), for
 ``dtw_band_adaptive`` under each measure the thread-per-pair form (the
-wrapper's choice beyond width 256), each equal to the new form bit for bit;
+wrapper's choice beyond width 256), for ``adc_sym`` and ``adc_sym_quant``
+the thread-per-output form (the wrapper's choice where a tile of 8
+queries' table rows does not fit in shared memory; ``prev_device_ms``
+beside it, and the row-staged form at the other tiles that fit as
+``other_tiles_device_ms``), each equal to the new form bit for bit;
 ``lb_refine_adaptive``'s phase line also times its warp form with the
 clamped sweep for every pair (``clamped_warp_form_ms``).  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
@@ -198,7 +202,12 @@ DESIGNS = {
     "dtw_band_adaptive": "one warp per pair, corridor slots across the lanes "
                          "on rows staged in shared memory, erp's border sums "
                          "formed there (thread per pair beyond width 256)",
+    "adc_sym": "each query's table rows staged in shared memory, a lane per "
+               "query, each warp walking groups of 16 codes_b rows, the "
+               "outputs stored through the warp's tile (an output a thread "
+               "where 8 queries' rows do not fit)",
 }
+DESIGNS["adc_sym_quant"] = DESIGNS["adc_sym"]
 # the adaptive sweep's other measures on the card (row 7's op[measure])
 ADAPTIVE_MEASURES = {"wdtw": "wdtw:g=0.1", "erp": "erp:g=0.3",
                      "msm": "msm:c=0.5"}
@@ -311,6 +320,7 @@ def main() -> int:
 def main_path(torch, _build) -> dict:
     from repro_torch.core import dispatch, knn, metrics, pq
     from repro_torch.data.timeseries import make_dataset
+    from repro_torch.kernels.pq_adc.ops import sym_geometry
 
     X, y = make_dataset("cbf", TRAIN_PER_CLASS, 512, seed=0)
     Q, yq = make_dataset("cbf", QUERIES_PER_CLASS, 512, seed=100)
@@ -371,6 +381,8 @@ def main_path(torch, _build) -> dict:
     check(routes == ["cuda"], f"main path routes {routes}")
     check(all(launches[k] > 0 for k in MAIN_PATH_KERNELS),
           f"every kernel launched on the main path: {launches}")
+    check(sym_geometry(Nq, N, M, K, 4).form == "rows",
+          "the main path's symmetric scans take the row-staged form")
     acc = {
         "sym": 1.0 - metrics.error_rate(yq, pred_sym),
         "asym": 1.0 - metrics.error_rate(yq, pred_asym),
@@ -819,6 +831,7 @@ def quant_path(torch, _build, ctx) -> dict:
     reference's bound against float32 (max error under 2% of the float32
     maximum), and the 1-NN predictions they give."""
     from repro_torch.core import dispatch, metrics, pq
+    from repro_torch.kernels.pq_adc.ops import sym_geometry
     cfg, cb, D = ctx["cfg"], ctx["cb"], ctx["D"]
     q_codes, codes, yd, yq = (ctx["q_codes"], ctx["codes"], ctx["yd"],
                               ctx["yq"])
@@ -837,6 +850,10 @@ def quant_path(torch, _build, ctx) -> dict:
     routes = sorted({r for _, r in dispatch.stats})
     check(launches["adc_sym_quant"] == 2 and launches["adc_lookup_quant"] == 2,
           f"quant path launched both quantised kernels: {launches}")
+    (Nq, M), N, K = q_codes.shape, codes.shape[0], cb.lut.shape[1]
+    check(all(sym_geometry(Nq, N, M, K, size).form == "rows"
+              for size in (1, 2)),
+          "the quant path's symmetric scans take the row-staged form")
     check(routes == ["cuda"], f"quant path routes {routes}")
     full = {"sym": pq.cdist_sym(q_codes, codes, cb.lut),
             "lookup": dispatch.adc_lookup(codes, luts)}
@@ -1155,7 +1172,10 @@ def quant_kernel_phases(torch, ctx) -> list:
             Nq * N * (3 * M + 2),
             launch_fn=lambda: (launch_adc_sym_quant(
                 q_codes, codes, q, scv, zpv, sym_out), sym_out)[1],
-            table=table, exact=True, profiled=True)
+            table=table, exact=True, profiled=True,
+            extra=_sym_forms(torch, f"adc_sym_quant {dt}", q_codes, codes, q,
+                             scv, zpv,
+                             adc_sym_cdist_quant(q_codes, codes, q, sc, zp)))
         qq, qs, qz = quantize_lut(luts.reshape(Nq * M, K), dt)
         qq = qq.reshape(Nq, M, K).contiguous()
         qs, qz = qs.reshape(Nq, M, 1), qz.reshape(Nq, M, 1)
@@ -1701,6 +1721,21 @@ def _errors(torch, got, want):
     return float(diff.max()), rel, ok
 
 
+def _device_ms(torch, launch_fn, name):
+    """``launch_fn``'s own device time under ``torch.profiler``: the mean
+    over the kernels it records of ``REPS`` launches (it may miss one; a
+    window with no record at all is profiled again, ``PROFILE_ATTEMPTS``
+    times at most), the kernels seen and the profiles taken."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
+        if prof["kernels"]:
+            break
+    n_seen = prof["kernels"]
+    check(1 <= n_seen <= REPS, f"{name}: {n_seen} kernels under the "
+          f"profiler for {REPS} launches ({attempt} profiles)")
+    return prof["device_busy_ms"] / n_seen, n_seen, attempt
+
+
 def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
                library_fn, nbytes, ops, launch_fn=None, table=True,
                exact=False, extra=None, profiled=False):
@@ -1731,14 +1766,8 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
     library_ms = (None if library_fn is None
                   else _mean_ms(torch, library_fn, REPS))
     if profiled:
-        for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
-            if prof["kernels"]:
-                break
-        n_seen = prof["kernels"]
-        check(1 <= n_seen <= REPS, f"{name}: {n_seen} kernels under the "
-              f"profiler for {REPS} launches ({attempt} profiles)")
-        extra = {**(extra or {}), "device_ms": prof["device_busy_ms"] / n_seen,
+        device_ms, n_seen, attempt = _device_ms(torch, launch_fn, name)
+        extra = {**(extra or {}), "device_ms": device_ms,
                  "device_ms_kernels": n_seen, "device_ms_profiles": attempt}
     bound_ms, bound_by = bound(nbytes, ops)
     row = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1847,7 +1876,9 @@ def kernel_phases(torch, ctx) -> list:
               "bound_by": bound_by, "wrapper_form": "registers"})
     del Xe
 
-    # 3. symmetric ADC: query codes x training codes through the LUT
+    # 3. symmetric ADC: query codes x training codes through the LUT, the
+    # row-staged form, with the thread form and the other tiles timed
+    # beside it, all equal bit for bit
     lut = cb.lut.contiguous()
     m_idx = torch.arange(M, device=lut.device)[:, None, None]
     qa, tb = q_codes.long().T[:, :, None], codes.long().T[:, None, :]
@@ -1859,7 +1890,9 @@ def kernel_phases(torch, ctx) -> list:
           lambda: torch.sqrt(lut[m_idx, qa, tb].sum(0).clamp_min(0.0)),
           ((Nq + N) * M + M * K * K + Nq * N) * 4, Nq * N * (M + 2),
           launch_fn=lambda: (launch_adc_sym(q_codes, codes, lut, sym_out),
-                             sym_out)[1], profiled=True)
+                             sym_out)[1], profiled=True, exact=True,
+          extra=_sym_forms(torch, "adc_sym", q_codes, codes, lut, None, None,
+                           adc_sym_cdist(q_codes, codes, lut)))
 
     # 4. asymmetric ADC: every query's (M, K) table x training codes
     luts = pq.query_lut_batch(pq.segment(Qd, cfg), cb, w, False,
@@ -1906,6 +1939,86 @@ def kernel_phases(torch, ctx) -> list:
     check(same_prev, "prealign_encode: the register form's codes equal the "
           "shared-memory form's bit for bit")
     return rows
+
+
+def _sym_launcher(torch, ca, cb, table, scale, zero, out, ta=None,
+                  pitch=None):
+    """The symmetric scan straight through the kernel library into
+    ``out``: its thread form (``ta=None``) or its row-staged form at
+    ``ta`` queries a tile (and ``pitch`` words a staged row, the
+    selector's by default).  Not a launch of the path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc.ops import (TABLE_TYPES, sym_geometry,
+                                               sym_thread_geometry)
+    (Na, M), Nb, K = ca.shape, cb.shape[0], table.shape[1]
+    lib, stream = _build.lib(), _build.stream(out.device)
+    size, code = table.element_size(), TABLE_TYPES[table.dtype]
+    ptrs = (ca.data_ptr(), cb.data_ptr(), table.data_ptr())
+    if ta is not None:
+        geo = sym_geometry(Na, Nb, M, K, size, ta=ta)
+        return lambda: _build.check(lib.pq_adc_sym_rows(
+            *ptrs, _build.ptr(scale), _build.ptr(zero), out.data_ptr(), Na,
+            Nb, M, K, code, ta, pitch or geo.pitch, geo.chunk, geo.grid[1],
+            stream), f"adc_sym (rows form, {ta} queries a tile)")
+    grid_y = sym_thread_geometry(Na, Nb, M, size).grid[1]
+    if scale is None:
+        return lambda: _build.check(lib.pq_adc_sym(
+            *ptrs, out.data_ptr(), Na, Nb, M, K, grid_y, stream),
+            "adc_sym (thread form)")
+    return lambda: _build.check(lib.pq_adc_sym_quant(
+        *ptrs, scale.data_ptr(), zero.data_ptr(), out.data_ptr(), Na, Nb, M,
+        K, code, grid_y, stream), "adc_sym_quant (thread form)")
+
+
+def _sym_forms(torch, name, ca, cb, table, scale, zero, want) -> dict:
+    """Rows 3 and 9's record fields beside the wrapper's form: its
+    geometry (``variant``), the thread form's ``prev_ms`` (``REPS``
+    launches by CUDA events) and ``prev_device_ms`` (under the profiler),
+    and the row-staged form at every other tile that fits
+    (``other_tiles``: ``ta`` -> its device ms) and, where the selector's
+    pitch is not 1 (mod 32) words, at that pitch
+    (``pitch_1_mod_32_device_ms``), each output equal to ``want`` (the
+    wrapper's) bit for bit.  Not launches of the path."""
+    from repro_torch.kernels.pq_adc.ops import ROWS_TA, sym_geometry
+    (Na, M), Nb, K = ca.shape, cb.shape[0], table.shape[1]
+    geo = sym_geometry(Na, Nb, M, K, table.element_size())
+    check(geo.form == "rows", f"{name}: the path's codes take the "
+          "row-staged form")
+    out = torch.empty_like(want)
+    launch = _sym_launcher(torch, ca, cb, table, scale, zero, out)
+    prev_ms = _mean_ms(torch, launch, REPS)
+    check(torch.equal(out, want), f"{name}: the thread form equals the "
+          "row-staged form bit for bit")
+    prev_device_ms, _, _ = _device_ms(torch, launch, f"{name} thread form")
+    others = {}
+    for ta in ROWS_TA:
+        if ta == geo.ta:
+            continue
+        try:
+            launch = _sym_launcher(torch, ca, cb, table, scale, zero, out, ta)
+        except ValueError:  # the tile's rows do not fit
+            continue
+        out.zero_()
+        launch()
+        check(torch.equal(out, want), f"{name}: the row-staged form at {ta} "
+              "queries a tile equals the wrapper's bit for bit")
+        others[str(ta)] = _device_ms(torch, launch, f"{name} ta={ta}")[0]
+    pitch_1 = None
+    if geo.pitch % 32 != 1:
+        launch = _sym_launcher(torch, ca, cb, table, scale, zero, out,
+                               geo.ta, geo.pitch - 32 // geo.ta + 1)
+        out.zero_()
+        launch()
+        check(torch.equal(out, want), f"{name}: the row-staged form at a "
+              "pitch of 1 (mod 32) equals the wrapper's bit for bit")
+        pitch_1 = _device_ms(torch, launch, f"{name} pitch 1 mod 32")[0]
+    return {"design": DESIGNS["adc_sym"],
+            "variant": {"ta": geo.ta, "chunk": geo.chunk,
+                        "smem_bytes": geo.smem, "pitch_words": geo.pitch,
+                        "grid": list(geo.grid)},
+            "prev_ms": prev_ms, "prev_device_ms": prev_device_ms,
+            "other_tiles_device_ms": others,
+            "pitch_1_mod_32_device_ms": pitch_1}
 
 
 def _pairs_shared_form_ms(torch, A, B, w, want) -> float:
@@ -2128,15 +2241,20 @@ def measure_sweep(torch) -> None:
     """Both DP kernels for every measure at the main path's subsequence
     geometry (S=74, w=7) and at the exact-NN geometry (L=512, w=51), plus
     the unbanded L=600 case whose band rows live in device scratch,
-    ``adc_sym`` on 1024 x 6144 random codes, and the fused encode under
-    every measure, its register form against the plain version and its
+    ``adc_sym`` on 1024 x 6144 random codes and at edge shapes (float32,
+    int8, bfloat16) in its row-staged form, bit for bit against the plain
+    version and the thread form, and the fused encode under every
+    measure, its register form against the plain version and its
     shared-memory form."""
     from repro_torch.core.modwt import linspace01
     from repro_torch.kernels.dtw_band.ops import dtw_band, dtw_band_cdist
     from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
                                                   dtw_band_ref)
-    from repro_torch.kernels.pq_adc.ops import adc_sym_cdist
-    from repro_torch.kernels.pq_adc.ref import adc_sym_cdist_ref
+    from repro_torch.kernels.pq_adc.ops import (adc_sym_cdist,
+                                               adc_sym_cdist_quant,
+                                               quantize_lut, sym_geometry)
+    from repro_torch.kernels.pq_adc.ref import (adc_sym_cdist_quant_ref,
+                                               adc_sym_cdist_ref)
     from repro_torch.kernels.prealign_encode.ops import prealign_encode
     from repro_torch.kernels.prealign_encode.ref import prealign_encode_ref
 
@@ -2164,17 +2282,45 @@ def measure_sweep(torch) -> None:
                               "form": form, "max_abs_err": max_abs,
                               "max_rel_err": max_rel, "agrees": ok})
                 check(ok, f"dtw_band {form} {measure} L={L} w={window}")
-    lut = randn(8, 256, 256).abs()
-    ca = torch.randint(0, 256, (1024, 8), generator=g, device="cuda",
-                       dtype=torch.int32)
-    cb = torch.randint(0, 256, (6144, 8), generator=g, device="cuda",
-                       dtype=torch.int32)
-    max_abs, max_rel, ok = _errors(torch, adc_sym_cdist(ca, cb, lut),
-                                   adc_sym_cdist_ref(ca, cb, lut))
-    cases.append({"form": "adc_sym", "codes": [[1024, 8], [6144, 8]],
-                  "max_abs_err": max_abs, "max_rel_err": max_rel,
-                  "agrees": ok})
-    check(ok, "adc_sym 1024 x 6144")
+    # the symmetric scan: 1024 x 6144 random codes, then edge shapes (one
+    # query, tiles and chunks cut short, M = 3 at K = 16, M = 16), each
+    # through the wrapper's row-staged form, equal to the plain version
+    # and the thread form bit for bit
+    for Na, Nb, M, K, dtypes in (
+            (1024, 6144, 8, 256, ("float32",)),
+            (1, 6144, 8, 256, ("float32", "int8", "bfloat16")),
+            (77, 301, 8, 256, ("float32", "int8", "bfloat16")),
+            (9, 5, 3, 16, ("float32", "int8", "bfloat16")),
+            (33, 1000, 16, 256, ("float32",))):
+        lut = randn(M, K, K).abs()
+        ca = torch.randint(0, K, (Na, M), generator=g, device="cuda",
+                           dtype=torch.int32)
+        cb = torch.randint(0, K, (Nb, M), generator=g, device="cuda",
+                           dtype=torch.int32)
+        for dt in dtypes:
+            if dt == "float32":
+                table, sc, zp = lut, None, None
+                got = adc_sym_cdist(ca, cb, lut)
+                want = adc_sym_cdist_ref(ca, cb, lut)
+            else:
+                table, sc, zp = quantize_lut(lut, dt)
+                got = adc_sym_cdist_quant(ca, cb, table, sc, zp)
+                want = adc_sym_cdist_quant_ref(ca, cb, table, sc, zp)
+                sc, zp = sc.reshape(M).contiguous(), zp.reshape(M).contiguous()
+            geo = sym_geometry(Na, Nb, M, K, table.element_size())
+            prev = torch.empty_like(got)
+            _sym_launcher(torch, ca, cb, table, sc, zp, prev)()
+            max_abs, max_rel, _ = _errors(torch, got, want)
+            ok = bool(torch.equal(got, want))
+            same = bool(torch.equal(got, prev))
+            cases.append({"form": "adc_sym", "dtype": dt,
+                          "codes": [[Na, M], [Nb, M]], "K": K,
+                          "ta": geo.ta, "max_abs_err": max_abs,
+                          "max_rel_err": max_rel, "agrees": ok,
+                          "equals_prev_form": same})
+            check(geo.form == "rows" and ok and same,
+                  f"adc_sym {dt} {Na} x {Nb}, M={M}, K={K}: the row-staged "
+                  "form equals the plain version and the thread form")
     X = torch.cumsum(randn(128, 512), dim=1)
     cents = randn(8, 32, 74)
     lin = linspace01(74, X.device)

@@ -72,6 +72,7 @@ _SIGNATURES = {
     "pq_lb_refine_adaptive": [_P] * 10 + [_I] * 5 + [_P],
     "pq_lb_refine_adaptive_warp": [_P] * 9 + [_I] * 7 + [_P],
     "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],
+    "pq_adc_sym_rows": [_P] * 6 + [_I] * 9 + [_P],
     "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
     "pq_attn": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 3 + [_P],
     "pq_dtw_band_full": [_P] * 4 + [_I] * 6 + [_P],
@@ -170,6 +171,8 @@ def lib() -> ctypes.CDLL:
         handle.pq_error_string.restype = ctypes.c_char_p
         handle.pq_attn_smem_bytes.argtypes = [ctypes.c_int] * 7
         handle.pq_attn_smem_bytes.restype = ctypes.c_size_t
+        handle.pq_adc_sym_rows_smem_bytes.argtypes = [ctypes.c_int] * 4
+        handle.pq_adc_sym_rows_smem_bytes.restype = ctypes.c_size_t
         _lib = handle
     return _lib
 

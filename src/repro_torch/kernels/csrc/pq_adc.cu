@@ -14,18 +14,24 @@
 // contracts that line into a fused multiply-add), per subspace m.
 //
 // What bounds them on the H100: no arithmetic to speak of (M adds per
-// output, M fused multiply-adds more when quantised).  adc_sym is bound by
-// M dependent gathers per output from a LUT that stays in L2 (8 x 256 x
-// 256 at the main-path geometry: 2 MiB in float32, 512 KiB in int8) plus
-// writing the (Na, Nb) output; adc_lookup by the output write, with each
-// query's M x K table staged once per block in shared memory.  Codes of a
-// tile are staged in shared memory so that each code is read from device
-// memory once per tile, not once per output.
+// output, M fused multiply-adds more when quantised), so the (Na, Nb)
+// output's write, and before it the M gathers an output makes.
+//
+// The symmetric scan has two forms.  The row-staged form
+// (adc_sym_rows_kernel, the wrapper's choice wherever one tile of 8
+// queries' table rows fits in shared memory) stages each query's M table
+// rows LUT[m, a^m, 0:K] once per block and gathers from shared memory, a
+// lane per query (see the note above it).  The thread form
+// (adc_sym_kernel, an output a thread, every gather from the LUT in
+// L1/L2: a warp's 32 lanes read one table row at 32 random columns) takes
+// the shapes whose rows do not fit.  Both give the same bits.  adc_lookup
+// stages each query's M x K table once per block in shared memory.
 //
 // The sum over subspaces runs in the reference's order:
 //   acc = 0; for m: acc += entry(m, ...); out = sqrtf(fmaxf(acc, 0)).
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -36,7 +42,7 @@ namespace {
 constexpr int kTileJ = 32;  // outputs along Nb (threadIdx.x): coalesced writes
 constexpr int kTileI = 8;   // outputs along Na (threadIdx.y)
 
-enum TableType : int { kInt8 = 0, kBF16 = 1 };
+enum TableType : int { kInt8 = 0, kBF16 = 1, kF32 = 2 };
 
 __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
@@ -112,6 +118,237 @@ __global__ void adc_sym_kernel(const int* __restrict__ ca,
   }
 }
 
+// The row-staged symmetric scan.  A block owns a tile of TA queries
+// (codes_a rows) and a chunk of codes_b rows.  It stages the tile's table
+// rows LUT[m, a_i^m, 0:K] in shared memory, laid out [m][i][pitch] (pitch
+// in 4-byte words, = 32/TA (mod 32): 1 at TA = 32), by 4-byte asynchronous
+// copies (the pitch leaves a row 4-byte aligned only), once for the whole
+// chunk.  Lane (i, s) of a warp owns query i of the tile and, in each
+// step, codes_b row s of the step's 32/TA rows: it reads entry c = b^m of
+// row (m, i) at word (m TA + i) pitch + c / (4 / sizeof T), in bank
+// (32/TA) i + c / (4 / sizeof T) (mod 32): the TA lanes of one codes_b row
+// hit TA different banks, and at TA = 32 a warp's gather is conflict-free
+// (at TA = 16 the two rows' lanes fall on the same 16 banks when their
+// columns have the same parity: two wavefronts).  Each warp walks groups
+// of 16 codes_b rows on its own, 32 warps a block: it holds the next
+// group's codes in registers while it works on this one, stages this
+// group's as byte offsets (m TA pitch + b^m) sizeof T into the rows (read
+// by broadcast, so a gather is one add and one load from a 32-bit shared
+// address), takes two rows a lane at a time, writes its TA x 16 outputs
+// to its own tile in shared memory, and stores them a query row at a
+// time, 16 consecutive floats: coalesced along Nb.  No block-wide barrier
+// after the staging.  What bounds it: the instructions a warp step issues
+// (an exact sqrtf a good share of them) and the shared-memory wavefronts
+// of its M gathers, the broadcast offsets and the output tile.  The sum
+// runs as in adc_sym_kernel, so the bits are the same.
+constexpr int kRowsWarps = 32;
+constexpr int kRowsThreads = 32 * kRowsWarps;
+constexpr int kGroupRows = 16;  // codes_b rows a warp takes at a time
+
+// Words of shared memory a warp of the row-staged form keeps for itself:
+// its group's code offsets, then its TA x (16 + 32/TA) output tile (the
+// pitch over 32/TA is odd, so lanes (i, s) write 32 different banks).
+__host__ __device__ inline int rows_warp_words(int ta, int M) {
+  return kGroupRows * M + ta * (kGroupRows + 32 / ta);
+}
+
+__host__ __device__ inline size_t rows_smem_bytes(int ta, int M, int pitch,
+                                                  bool quant) {
+  return 4 * ((size_t)M * ta * pitch + (size_t)kRowsWarps *
+              rows_warp_words(ta, M) + (quant ? 2 * (size_t)M : 0));
+}
+
+// A staged table entry at a 32-bit shared-memory address (on sm_90 the
+// shared window's base is not a constant, so a generic pointer would cost
+// each gather two additions).
+template <typename T>
+__device__ __forceinline__ T lds(unsigned addr);
+template <>
+__device__ __forceinline__ float lds<float>(unsigned addr) {
+  float v;
+  asm("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+template <>
+__device__ __forceinline__ int8_t lds<int8_t>(unsigned addr) {
+  int v;
+  asm("ld.shared.s8 %0, [%1];" : "=r"(v) : "r"(addr));
+  return static_cast<int8_t>(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 lds<__nv_bfloat16>(unsigned addr) {
+  unsigned short v;
+  asm("ld.shared.u16 %0, [%1];" : "=h"(v) : "r"(addr));
+  return __ushort_as_bfloat16(v);
+}
+
+template <typename T, int TA, int MC>
+__global__ void __launch_bounds__(kRowsThreads, 1)
+    adc_sym_rows_kernel(const int* __restrict__ ca, const int* __restrict__ cb,
+                        const T* __restrict__ lut,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ zero,
+                        float* __restrict__ out, int Na, int Nb, int M_arg,
+                        int K, int pitch, int chunk) {
+  constexpr int R = 32 / TA;            // codes_b rows a warp step
+  constexpr int OP = kGroupRows + R;    // output tile pitch
+  constexpr bool kQuant = !std::is_same<T, float>::value;
+  // codes a lane holds for the next group (M known)
+  constexpr int kPer = MC > 0 ? kGroupRows * MC / 32 : 1;
+  static_assert(MC == 0 || (kGroupRows * MC) % 32 == 0, "whole lanes");
+  const int M = MC > 0 ? MC : M_arg;
+  const int pe = pitch * (4 / (int)sizeof(T));  // the pitch in entries
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  int* offs = reinterpret_cast<int*>(smem_w) + (size_t)M * TA * pitch +
+              (size_t)(threadIdx.x / 32) * rows_warp_words(TA, M);
+  float* so = reinterpret_cast<float*>(offs + kGroupRows * M);
+  float* s_sc = reinterpret_cast<float*>(smem_w) + (size_t)M * TA * pitch +
+                (size_t)kRowsWarps * rows_warp_words(TA, M);
+  float* s_zp = s_sc + M;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int qi = lane % TA, sub = lane / TA;
+
+  // a quantised table's affine: in registers where M is known, else in
+  // shared memory
+  float r_sc[MC > 0 ? MC : 1], r_zp[MC > 0 ? MC : 1];
+  if constexpr (kQuant && MC > 0) {
+#pragma unroll
+    for (int m = 0; m < MC; ++m) {
+      r_sc[m] = __ldg(scale + m);
+      r_zp[m] = __ldg(zero + m);
+    }
+  } else if constexpr (kQuant) {
+    for (int m = threadIdx.x; m < M; m += kRowsThreads) {
+      s_sc[m] = scale[m];
+      s_zp[m] = zero[m];
+    }
+  }
+
+  const int j_begin = blockIdx.x * chunk;
+  const int j_end = min(j_begin + chunk, Nb);
+  const int first = j_begin + warp * kGroupRows;
+  constexpr int kStride = kRowsWarps * kGroupRows;
+  const int words = K * (int)sizeof(T) / 4;  // K sizeof(T) % 4 == 0
+  const int n_tiles = (Na + TA - 1) / TA;
+  // byte offset of entry c of row (m, i) from row (0, i)
+  auto offset = [&](int m, int c) {
+    return (m * TA * pe + c) * (int)sizeof(T);
+  };
+  // a group's codes, lane-strided: code e = r M + m of rows j0 ..
+  auto load_codes = [&](int j0, int* dst) {
+    const int* src = cb + (long long)j0 * M + lane;
+    const int left = min(kGroupRows, j_end - j0) * M - lane;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      dst[k] = 32 * k < left ? __ldg(src + 32 * k) : 0;
+  };
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    const int i0 = tile * TA;
+    const int valid = min(TA, Na - i0);
+    __syncthreads();  // the previous tile's rows are no longer read
+    // warp w copies rows w, w + 32, ...: lane k reads the code of the
+    // warp's k-th row up front (one round trip, not one a row), 32 rows a
+    // round
+    for (int row0 = warp; row0 < M * TA; row0 += 32 * kRowsWarps) {
+      const int lane_row = row0 + lane * kRowsWarps;
+      int a = 0;
+      if (lane_row < M * TA && lane_row % TA < valid)
+        a = __ldg(ca + (long long)(i0 + lane_row % TA) * M + lane_row / TA);
+      for (int k = 0; k < 32; ++k) {
+        const int row = row0 + k * kRowsWarps;
+        if (row >= M * TA) break;
+        const int ak = __shfl_sync(0xffffffffu, a, k);
+        if (row % TA >= valid) continue;
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            lut + ((long long)(row / TA) * K + ak) * K);
+        uint32_t* dst = smem_w + (size_t)row * pitch;
+        for (int w = lane; w < words; w += 32)
+          __pipeline_memcpy_async(dst + w, src + w, 4);
+      }
+    }
+    __pipeline_commit();
+    int next[kPer];
+    if (MC > 0 && first < j_end) load_codes(first, next);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    // lanes past the tile's last query read its rows; they store nothing
+    const unsigned mine =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem_w)) +
+        min(qi, valid - 1) * pe * (int)sizeof(T);
+    for (int j0 = first; j0 < j_end; j0 += kStride) {
+      const int nj = min(kGroupRows, j_end - j0);
+      __syncwarp();  // the last group's offsets and outputs are read
+      if constexpr (MC > 0) {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int e = lane + 32 * k;
+          offs[e] = offset(e % MC, next[k]);
+        }
+        if (j0 + kStride < j_end) load_codes(j0 + kStride, next);
+      } else {
+        for (int e = lane; e < kGroupRows * M; e += 32) {
+          const int c = e / M < nj ? __ldg(cb + (long long)j0 * M + e) : 0;
+          offs[e] = offset(e % M, c);
+        }
+      }
+      __syncwarp();
+      if constexpr (MC > 0) {
+        // two codes_b rows a lane at a time: r and r + R
+#pragma unroll 1
+        for (int r = sub; r < kGroupRows; r += 2 * R) {
+          int o0[MC], o1[MC];
+#pragma unroll
+          for (int q = 0; q < MC / 4; ++q) {
+            const int4 u = reinterpret_cast<const int4*>(offs + r * MC)[q];
+            const int4 v =
+                reinterpret_cast<const int4*>(offs + (r + R) * MC)[q];
+            o0[4 * q] = u.x, o0[4 * q + 1] = u.y, o0[4 * q + 2] = u.z;
+            o0[4 * q + 3] = u.w;
+            o1[4 * q] = v.x, o1[4 * q + 1] = v.y, o1[4 * q + 2] = v.z;
+            o1[4 * q + 3] = v.w;
+          }
+          T e0[MC], e1[MC];
+#pragma unroll
+          for (int m = 0; m < MC; ++m) {
+            e0[m] = lds<T>(mine + o0[m]);
+            e1[m] = lds<T>(mine + o1[m]);
+          }
+          float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+          for (int m = 0; m < MC; ++m) {
+            acc0 += entry<T>(e0[m], r_sc, r_zp, m);
+            acc1 += entry<T>(e1[m], r_sc, r_zp, m);
+          }
+          so[qi * OP + r] = sqrtf(fmaxf(acc0, 0.f));
+          so[qi * OP + r + R] = sqrtf(fmaxf(acc1, 0.f));
+        }
+      } else {
+        for (int r = sub; r < kGroupRows; r += R) {
+          const int* o = offs + r * M;
+          float acc = 0.f;
+          for (int m = 0; m < M; ++m)
+            acc += entry<T>(lds<T>(mine + o[m]), s_sc, s_zp, m);
+          so[qi * OP + r] = sqrtf(fmaxf(acc, 0.f));
+        }
+      }
+      __syncwarp();
+      // lane l stores column l % 16 of query rows l / 16, + 2, ...
+      constexpr int kRowsAStore = 32 / kGroupRows;
+      const int c = lane % kGroupRows;
+      if (c < nj) {
+        const float* src = so + (lane / kGroupRows) * OP + c;
+        float* dst = out + (long long)(i0 + lane / kGroupRows) * Nb + j0 + c;
+#pragma unroll 4
+        for (int i = lane / kGroupRows; i < valid; i += kRowsAStore) {
+          *dst = *src;
+          src += kRowsAStore * OP;
+          dst += (long long)kRowsAStore * Nb;
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void adc_lookup_kernel(const T* __restrict__ qlut,
                                   const float* __restrict__ scale,
@@ -167,6 +404,52 @@ int launch_sym(const int* ca, const int* cb, const T* lut, const float* sc,
   adc_sym_kernel<T><<<grid, block, smem, stream>>>(ca, cb, lut, sc, zp, out,
                                                    Na, Nb, M, K);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int TA, int MC>
+int launch_sym_rows_t(const int* ca, const int* cb, const T* lut,
+                      const float* sc, const float* zp, float* out, int Na,
+                      int Nb, int M, int K, int pitch, int chunk, int grid_y,
+                      cudaStream_t stream) {
+  const size_t smem =
+      rows_smem_bytes(TA, M, pitch, !std::is_same<T, float>::value);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        adc_sym_rows_kernel<T, TA, MC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((Nb + chunk - 1) / chunk, grid_y);
+  adc_sym_rows_kernel<T, TA, MC><<<grid, kRowsThreads, smem, stream>>>(
+      ca, cb, lut, sc, zp, out, Na, Nb, M, K, pitch, chunk);
+  return (int)cudaGetLastError();
+}
+
+// TA queries a tile (8, 16 or 32), the subspaces' loop unrolled at M = 8
+template <typename T>
+int launch_sym_rows(const int* ca, const int* cb, const T* lut,
+                    const float* sc, const float* zp, float* out, int Na,
+                    int Nb, int M, int K, int ta, int pitch, int chunk,
+                    int grid_y, cudaStream_t stream) {
+  if ((K * (int)sizeof(T)) % 4 != 0 || pitch < K * (int)sizeof(T) / 4 ||
+      chunk < 1 || grid_y < 1)
+    return (int)cudaErrorInvalidValue;
+#define PQ_ADC_ROWS(TA)                                                     \
+  (M == 8 ? launch_sym_rows_t<T, TA, 8>(ca, cb, lut, sc, zp, out, Na, Nb, M, \
+                                        K, pitch, chunk, grid_y, stream)    \
+          : launch_sym_rows_t<T, TA, 0>(ca, cb, lut, sc, zp, out, Na, Nb, M, \
+                                        K, pitch, chunk, grid_y, stream))
+  switch (ta) {
+    case 8:
+      return PQ_ADC_ROWS(8);
+    case 16:
+      return PQ_ADC_ROWS(16);
+    case 32:
+      return PQ_ADC_ROWS(32);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PQ_ADC_ROWS
 }
 
 template <typename T>
@@ -241,6 +524,37 @@ int pq_adc_lookup_quant(const void* qlut, const float* scale,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The row-staged symmetric scan over a float32 (type 2), int8 (0) or
+// bfloat16 (1) table; scale and zero are read for the last two only.
+int pq_adc_sym_rows(const int* ca, const int* cb, const void* lut,
+                    const float* scale, const float* zero, float* out, int Na,
+                    int Nb, int M, int K, int type, int ta, int pitch,
+                    int chunk, int grid_y, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (type) {
+    case kF32:
+      return launch_sym_rows<float>(ca, cb, static_cast<const float*>(lut),
+                                    nullptr, nullptr, out, Na, Nb, M, K, ta,
+                                    pitch, chunk, grid_y, s);
+    case kInt8:
+      return launch_sym_rows<int8_t>(ca, cb, static_cast<const int8_t*>(lut),
+                                     scale, zero, out, Na, Nb, M, K, ta, pitch,
+                                     chunk, grid_y, s);
+    case kBF16:
+      return launch_sym_rows<__nv_bfloat16>(
+          ca, cb, static_cast<const __nv_bfloat16*>(lut), scale, zero, out,
+          Na, Nb, M, K, ta, pitch, chunk, grid_y, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Shared memory a block of the row-staged form takes (the selector in
+// pq_adc/ops.py computes the same).
+size_t pq_adc_sym_rows_smem_bytes(int type, int ta, int M, int pitch) {
+  return rows_smem_bytes(ta, M, pitch, type != kF32);
 }
 
 }  // extern "C"

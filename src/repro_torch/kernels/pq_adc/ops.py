@@ -11,9 +11,17 @@ Quantised tables (:func:`quantize_lut`, the reference's per-subspace
 affine int8 or plain bfloat16) go through :func:`adc_sym_cdist_quant` and
 :func:`adc_lookup_quant`, the kernels' templated forms over the table's
 type, counted as ``adc_sym_quant`` and ``adc_lookup_quant``.
+
+The symmetric scan has two forms, picked from the shapes alone by
+:func:`sym_geometry`: the row-staged form (each query's table rows in
+shared memory, a lane per query) wherever a tile of 8 queries' rows fits,
+else the thread form (an output a thread, gathering from the LUT in
+L1/L2).  Both give the same bits and count under the same name.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,13 +32,134 @@ from .ref import (adc_lookup_quant_ref, adc_lookup_ref,
 __all__ = ["adc_sym_cdist", "adc_lookup", "launch_adc_sym",
            "launch_adc_lookup", "quantize_lut", "adc_sym_cdist_quant",
            "adc_lookup_quant", "launch_adc_sym_quant",
-           "launch_adc_lookup_quant"]
+           "launch_adc_lookup_quant", "SymGeometry", "sym_geometry",
+           "sym_thread_geometry", "row_pitch", "rows_smem_bytes",
+           "TABLE_TYPES", "ROWS_TA", "ROWS_WARPS", "GROUP_ROWS"]
 
 _MAX_GRID_Y = 65535
 _SMEM_MAX = 227 * 1024
 _LOOKUP_THREADS = 256
-# the kernels' table types (pq_adc.cu: kInt8, kBF16)
+# the kernels' table types (pq_adc.cu: kInt8, kBF16, kF32)
 _QUANT_TYPES = {torch.int8: 0, torch.bfloat16: 1}
+TABLE_TYPES = {**_QUANT_TYPES, torch.float32: 2}
+# the row-staged symmetric form (pq_adc.cu: adc_sym_rows_kernel): queries
+# a tile, largest first; warps a block; codes_b rows a warp takes at once
+ROWS_TA = (32, 16, 8)
+ROWS_WARPS = 32
+GROUP_ROWS = 16
+# the thread form's tile (pq_adc.cu: kTileJ x kTileI outputs a block)
+_TILE_J, _TILE_I = 32, 8
+# the H100's SMs
+_SMS = 132
+# the staged table rows of all chunks stay within this share of the
+# output's bytes (each chunk restages Na * M * K entries from L2)
+_RESTAGE_SHARE = 0.75
+
+
+class SymGeometry(NamedTuple):
+    """A launch of the symmetric scan: ``form`` ``"rows"`` (row-staged) or
+    ``"thread"``; ``ta`` queries a tile and ``pitch`` the staged rows'
+    pitch in 4-byte words (0 for the thread form); ``chunk`` codes_b rows
+    a block (the thread form: its tile's 32); ``smem`` bytes of shared
+    memory a block; ``grid`` ``(x, y)`` blocks."""
+    form: str
+    ta: int
+    pitch: int
+    chunk: int
+    smem: int
+    grid: Tuple[int, int]
+
+
+def row_pitch(K: int, itemsize: int, ta: int) -> int:
+    """The staged rows' pitch in 4-byte words: a row's ``K`` entries
+    rounded up to 32 words, plus ``32 // ta``, so that lane ``(i, s)``
+    reading column word ``c`` of query ``i``'s row hits bank ``(32 // ta)
+    i + c (mod 32)``: the ``ta`` queries of one codes_b row fall in ``ta``
+    different banks (at ``ta = 32``, pitch = 1 (mod 32): a conflict-free
+    warp).
+
+    >>> row_pitch(256, 4, 16), row_pitch(256, 1, 32), row_pitch(256, 2, 32)
+    (258, 65, 129)
+    """
+    words = -(-int(K) * int(itemsize) // 4)
+    return -(-words // 32) * 32 + 32 // int(ta)
+
+
+def rows_smem_bytes(ta: int, M: int, K: int, itemsize: int) -> int:
+    """Shared memory a block of the row-staged form takes: the tile's ``M
+    x ta`` table rows, each warp's code offsets (16 rows x ``M``) and
+    output tile (``ta x (16 + 32 // ta)``), and a quantised table's
+    ``scale``/``zero`` (``pq_adc_sym_rows_smem_bytes`` in the kernel
+    library computes the same).
+
+    >>> rows_smem_bytes(16, 8, 256, 4), rows_smem_bytes(32, 8, 256, 1)
+    (185344, 152640)
+    """
+    warp_words = GROUP_ROWS * M + ta * (GROUP_ROWS + 32 // ta)
+    quant = 2 * M if itemsize != 4 else 0
+    return 4 * (M * ta * row_pitch(K, itemsize, ta)
+                + ROWS_WARPS * warp_words + quant)
+
+
+def sym_thread_geometry(Na: int, Nb: int, M: int, itemsize: int
+                        ) -> SymGeometry:
+    """The thread form: a 32 x 8 block of outputs, the codes of its tile
+    in shared memory at an odd pitch, the grid's y walking ``Na``
+    grid-stride beyond 65535 blocks.
+
+    >>> sym_thread_geometry(768, 6144, 8, 4).grid
+    (192, 96)
+    """
+    pitch = M + 1 if M % 2 == 0 else M
+    smem = (_TILE_I + _TILE_J) * pitch * 4 + (8 * M if itemsize != 4 else 0)
+    return SymGeometry("thread", 0, 0, _TILE_J, smem,
+                       (-(-Nb // _TILE_J),
+                        max(1, min(-(-Na // _TILE_I), _MAX_GRID_Y))))
+
+
+def sym_geometry(Na: int, Nb: int, M: int, K: int, itemsize: int,
+                 ta: Optional[int] = None) -> SymGeometry:
+    """The symmetric scan's form and launch for ``(Na, M) x (Nb, M)``
+    codes over an ``(M, K, K)`` table of ``itemsize``-byte entries, from
+    the shapes alone.
+
+    The row-staged form wherever a tile's rows fit the card's 227 KB a
+    block (a row of ``K`` entries a whole number of 4-byte words): the
+    largest of :data:`ROWS_TA` that fits, or ``ta``.  ``Nb`` is cut into
+    ``n`` chunks, a block a (tile, chunk): the least ``n`` that gives the
+    SM with the most work, ``ceil(tiles n / SMs) / n`` tiles, within 5% of
+    the least such work, with the restaged rows of all chunks within
+    three quarters of the output's bytes; a chunk is a whole number of 16
+    rows.  Else the thread form
+    (:func:`sym_thread_geometry`).  A ``ta`` that does not fit raises.
+
+    >>> sym_geometry(768, 6144, 8, 256, 4)
+    SymGeometry(form='rows', ta=16, pitch=258, chunk=3072, smem=185344, grid=(2, 48))
+    >>> sym_geometry(768, 6144, 8, 256, 1).grid
+    (5, 24)
+    >>> sym_geometry(768, 6144, 8, 1024, 4).form
+    'thread'
+    """
+    sizes = ROWS_TA if ta is None else (int(ta),)
+    fits = [t for t in sizes
+            if (K * itemsize) % 4 == 0
+            and rows_smem_bytes(t, M, K, itemsize) <= _SMEM_MAX]
+    if not fits:
+        if ta is not None:
+            raise ValueError(f"a tile of {ta} queries' ({M}, {K}) table rows "
+                             "does not fit in shared memory")
+        return sym_thread_geometry(Na, Nb, M, itemsize)
+    ta = fits[0]
+    smem = rows_smem_bytes(ta, M, K, itemsize)
+    tiles = -(-Na // ta)
+    cap = int(_RESTAGE_SHARE * Nb * 4) // (M * K * itemsize)
+    work = {n: -(-tiles * n // _SMS) / n
+            for n in range(1, max(1, min(cap, -(-Nb // GROUP_ROWS))) + 1)}
+    least = min(work.values())
+    n = min(n for n, w in work.items() if w <= 1.05 * least)
+    chunk = -(-(-(-Nb // n)) // GROUP_ROWS) * GROUP_ROWS
+    return SymGeometry("rows", ta, row_pitch(K, itemsize, ta), chunk, smem,
+                       (-(-Nb // chunk), min(tiles, _MAX_GRID_Y)))
 # 1/254 as float32: the reference's compiler turns its division by the
 # constant 254.0 into this product
 _INV_254 = torch.tensor(1.0 / 254.0, dtype=torch.float32)
@@ -59,17 +188,37 @@ def _table(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
+def _launch_sym(name: str, ca: torch.Tensor, cb: torch.Tensor,
+                table: torch.Tensor, scale: Optional[torch.Tensor],
+                zero: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """Launch the symmetric scan in the form :func:`sym_geometry` picks."""
+    (Na, M), Nb, K = ca.shape, cb.shape[0], table.shape[1]
+    geo = sym_geometry(Na, Nb, M, K, table.element_size())
+    lib, stream = _build.lib(), _build.stream(out.device)
+    if geo.form == "rows":
+        status = lib.pq_adc_sym_rows(
+            ca.data_ptr(), cb.data_ptr(), table.data_ptr(), _build.ptr(scale),
+            _build.ptr(zero), out.data_ptr(), Na, Nb, M, K,
+            TABLE_TYPES[table.dtype], geo.ta, geo.pitch, geo.chunk,
+            geo.grid[1], stream)
+    elif scale is None:
+        status = lib.pq_adc_sym(
+            ca.data_ptr(), cb.data_ptr(), table.data_ptr(), out.data_ptr(),
+            Na, Nb, M, K, geo.grid[1], stream)
+    else:
+        status = lib.pq_adc_sym_quant(
+            ca.data_ptr(), cb.data_ptr(), table.data_ptr(), scale.data_ptr(),
+            zero.data_ptr(), out.data_ptr(), Na, Nb, M, K,
+            _QUANT_TYPES[table.dtype], geo.grid[1], stream)
+    _build.check(status, name)
+    _build.count_launch(name)
+
+
 def launch_adc_sym(ca: torch.Tensor, cb: torch.Tensor, lut: torch.Tensor,
                    out: torch.Tensor) -> None:
     """Launch the symmetric kernel into ``out (Na, Nb)``: contiguous int32
     codes in range, a contiguous float32 LUT, all on one CUDA device."""
-    (Na, M), Nb, K = ca.shape, cb.shape[0], lut.shape[1]
-    grid_y = min(-(-Na // 8), _MAX_GRID_Y)
-    status = _build.lib().pq_adc_sym(
-        ca.data_ptr(), cb.data_ptr(), lut.data_ptr(), out.data_ptr(),
-        Na, Nb, M, K, grid_y, _build.stream(out.device))
-    _build.check(status, "adc_sym")
-    _build.count_launch("adc_sym")
+    _launch_sym("adc_sym", ca, cb, lut, None, None, out)
 
 
 def launch_adc_lookup(c: torch.Tensor, q: torch.Tensor,
@@ -162,10 +311,13 @@ def quantize_lut(lut: torch.Tensor, dtype: str = "int8"):
 
 
 def _quant_table(q: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 4-byte-aligned address (the row-staged form copies
+    the table in 4-byte words): a view at an odd offset is copied."""
     if q.dtype not in _QUANT_TYPES:
         raise ValueError(f"a quantised table is int8 or bfloat16, got "
                          f"{q.dtype}")
-    return q.contiguous()
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 4 else q
 
 
 def _affine(t: torch.Tensor, name: str, rows: int) -> torch.Tensor:
@@ -180,16 +332,9 @@ def launch_adc_sym_quant(ca: torch.Tensor, cb: torch.Tensor, q: torch.Tensor,
                          scale: torch.Tensor, zero: torch.Tensor,
                          out: torch.Tensor) -> None:
     """Launch the quantised symmetric kernel into ``out (Na, Nb)``:
-    checked codes, an int8/bf16 ``(M, K, K)`` table, ``scale``/``zero
-    (M,)`` float32, all on one CUDA device."""
-    (Na, M), Nb, K = ca.shape, cb.shape[0], q.shape[1]
-    grid_y = min(-(-Na // 8), _MAX_GRID_Y)
-    status = _build.lib().pq_adc_sym_quant(
-        ca.data_ptr(), cb.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        zero.data_ptr(), out.data_ptr(), Na, Nb, M, K,
-        _QUANT_TYPES[q.dtype], grid_y, _build.stream(out.device))
-    _build.check(status, "adc_sym_quant")
-    _build.count_launch("adc_sym_quant")
+    checked codes, an int8/bf16 ``(M, K, K)`` table at a 4-byte-aligned
+    address, ``scale``/``zero (M,)`` float32, all on one CUDA device."""
+    _launch_sym("adc_sym_quant", ca, cb, q, scale, zero, out)
 
 
 def launch_adc_lookup_quant(c: torch.Tensor, q: torch.Tensor,

@@ -13,7 +13,7 @@ the refined flags are identical too.  The adaptive corridor kernels
 (``dtw_band_adaptive`` under every measure, ``lb_refine_adaptive``) are
 bit-identical to their plain versions, and (dtw, wdtw) to ``dtw_band``
 under the static-band corridor; the
-quantised ADC kernels equal theirs (int8 and bfloat16).  The full-width
+ADC kernels equal theirs (float32, int8 and bfloat16).  The full-width
 ``dtw_band(mode="full")`` equals its plain version and ``dtw_band`` bit
 for bit.  ``pq_attn`` is held against its plain version at ``rtol=atol=
 2e-4`` (the reference's tolerance for its kernel; the online softmax
@@ -40,8 +40,10 @@ every bucket's edge and when one grid walks the pairs several times; and
 and the plain version bit for bit under every measure, in built, dilated
 and static corridors and in corridors along the table's edges (cells at
 i = 0 and j = 0 deep into the sweep), and equals its thread form on
-corridors that break the invariants.  The earlier forms are reached
-through ``_build.lib()``.
+corridors that break the invariants; the symmetric ADC scan's
+row-staged form equals its thread form and the plain version bit for bit
+at every tile that fits, for float32, int8 and bfloat16 tables.  The
+earlier forms are reached through ``_build.lib()``.
 """
 
 import pytest
@@ -59,6 +61,7 @@ from repro_torch.kernels.dtw_band.ref import (dtw_band_adaptive_ref,
                                               dtw_band_cdist_ref, dtw_band_ref)
 from repro_torch.kernels.lb_cascade.ops import lb_refine, refine_variant
 from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
+from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.kernels.pq_adc.ops import (adc_lookup, adc_lookup_quant,
                                            adc_sym_cdist,
                                            adc_sym_cdist_quant, quantize_lut)
@@ -120,8 +123,8 @@ def test_adc_matches_plain(gen):
     ca = torch.randint(0, K, (50, M), device="cuda", dtype=torch.int32)
     cb = torch.randint(0, K, (70, M), device="cuda", dtype=torch.int32)
     qlut = _randn(gen, 5, M, K).abs()
-    torch.testing.assert_close(adc_sym_cdist(ca, cb, lut),
-                               adc_sym_cdist_ref(ca, cb, lut), **TOL)
+    assert torch.equal(adc_sym_cdist(ca, cb, lut),
+                       adc_sym_cdist_ref(ca, cb, lut))
     torch.testing.assert_close(adc_lookup(cb, qlut),
                                adc_lookup_ref(cb, qlut), **TOL)
     torch.testing.assert_close(adc_lookup(cb, qlut[0]),
@@ -313,6 +316,86 @@ def test_adc_quant_matches_plain(gen, dtype, M, K, na, nb):
     assert torch.equal(single, got[0])
     for name, n in (("adc_sym_quant", 1), ("adc_lookup_quant", 2)):
         assert _build.LAUNCHES[name] == before[name] + n
+
+
+def _sym_launch(ca, cb, table, scale, zero, out, ta=None):
+    """The symmetric scan through the kernel library: the thread form
+    (``ta=None``) or the row-staged form at ``ta`` queries a tile."""
+    (Na, M), Nb, K = ca.shape, cb.shape[0], table.shape[1]
+    lib, stream = _build.lib(), _build.stream(out.device)
+    code = adc_ops.TABLE_TYPES[table.dtype]
+    ptrs = (ca.data_ptr(), cb.data_ptr(), table.data_ptr())
+    if ta is not None:
+        geo = adc_ops.sym_geometry(Na, Nb, M, K, table.element_size(), ta=ta)
+        status = lib.pq_adc_sym_rows(
+            *ptrs, _build.ptr(scale), _build.ptr(zero), out.data_ptr(), Na,
+            Nb, M, K, code, ta, geo.pitch, geo.chunk, geo.grid[1], stream)
+    else:
+        grid_y = adc_ops.sym_thread_geometry(Na, Nb, M,
+                                             table.element_size()).grid[1]
+        if scale is None:
+            status = lib.pq_adc_sym(*ptrs, out.data_ptr(), Na, Nb, M, K,
+                                    grid_y, stream)
+        else:
+            status = lib.pq_adc_sym_quant(
+                *ptrs, scale.data_ptr(), zero.data_ptr(), out.data_ptr(), Na,
+                Nb, M, K, code, grid_y, stream)
+    _build.check(status, "adc_sym (a form)")
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("M,K,na,nb", [(8, 256, 77, 301), (3, 16, 9, 5),
+                                       (16, 256, 33, 1000), (8, 256, 1, 6144),
+                                       (8, 256, 768, 6144), (8, 0, 5, 70)])
+def test_adc_sym_rows_form(gen, dtype, M, K, na, nb):
+    """The symmetric scan's row-staged form (the wrapper's choice where a
+    tile of rows fits) equals its thread form and the plain version bit
+    for bit, at every tile that fits, for float32, int8 and bfloat16
+    tables; K = 0 stands for rows of 4 KB (1024 f32 entries, 2048 bf16,
+    4096 int8), which no tile holds, where the wrapper takes the thread
+    form.  One launch counted a call."""
+    itemsize = {"float32": 4, "int8": 1, "bfloat16": 2}[dtype]
+    K = K or 4096 // itemsize
+    lut = _randn(gen, M, K, K).abs()
+    ca = torch.randint(0, K, (na, M), device="cuda", dtype=torch.int32)
+    cb = torch.randint(0, K, (nb, M), device="cuda", dtype=torch.int32)
+    name = "adc_sym" if dtype == "float32" else "adc_sym_quant"
+    before = _build.LAUNCHES[name]
+    if dtype == "float32":
+        table, scale, zero = lut, None, None
+        got = adc_sym_cdist(ca, cb, lut)
+        want = adc_sym_cdist_ref(ca, cb, lut)
+    else:
+        table, scale, zero = quantize_lut(lut, dtype)
+        got = adc_sym_cdist_quant(ca, cb, table, scale, zero)
+        want = adc_sym_cdist_quant_ref(ca, cb, table, scale, zero)
+        scale, zero = scale.reshape(M), zero.reshape(M)
+    assert _build.LAUNCHES[name] == before + 1
+    geo = adc_ops.sym_geometry(na, nb, M, K, itemsize)
+    assert geo.form == ("thread" if K * itemsize == 4096 else "rows")
+    assert torch.equal(got, want)
+    out = torch.empty_like(got)
+    assert torch.equal(_sym_launch(ca, cb, table, scale, zero, out), got)
+    for ta in adc_ops.ROWS_TA:
+        if adc_ops.rows_smem_bytes(ta, M, K, itemsize) > 227 * 1024:
+            continue
+        out.zero_()
+        assert torch.equal(_sym_launch(ca, cb, table, scale, zero, out, ta),
+                           got), f"{ta} queries a tile"
+    assert _build.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("M,K", [(8, 256), (3, 16), (16, 256)])
+def test_adc_sym_rows_smem_matches_the_selector(gen, M, K):
+    """The kernel library's shared memory for the row-staged form is the
+    selector's, for every table type and tile."""
+    for dtype, code in adc_ops.TABLE_TYPES.items():
+        size = torch.empty(0, dtype=dtype).element_size()
+        for ta in adc_ops.ROWS_TA:
+            pitch = adc_ops.row_pitch(K, size, ta)
+            assert (_build.lib().pq_adc_sym_rows_smem_bytes(code, ta, M, pitch)
+                    == adc_ops.rows_smem_bytes(ta, M, K, size))
 
 
 @pytest.mark.parametrize("L,window", [(33, 3), (74, 7), (512, 51),

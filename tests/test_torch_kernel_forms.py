@@ -17,6 +17,7 @@ from repro_torch.core import measures
 from repro_torch.kernels import _build
 from repro_torch.kernels.dtw_band import ops as dtw_ops
 from repro_torch.kernels.lb_cascade import ops as lb_ops
+from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.kernels.pq_attn import ops as attn_ops
 from repro_torch.kernels.prealign_encode import ops as pe_ops
 
@@ -476,3 +477,165 @@ def test_erp_warp_form_needs_no_gaps(monkeypatch, width):
         threads, blocks = args[13], args[14]
         assert args[7] is not None
         assert made[-1] == 2 * L * threads * blocks
+
+
+# -- the symmetric ADC scan (rows 3 and 9): row-staged form or thread form --
+
+SMEM_MAX = 227 * 1024
+SIZES = (4, 1, 2)   # float32, int8, bfloat16 entries
+
+
+@pytest.mark.parametrize("itemsize", SIZES)
+@pytest.mark.parametrize("M,K", [(3, 16), (8, 256), (16, 256), (8, 512),
+                                 (8, 1024), (4, 2048), (8, 4096), (8, 6)])
+def test_sym_geometry_fits_shared_memory(itemsize, M, K):
+    """The row-staged form takes the largest tile of ROWS_TA whose rows fit
+    the card's 227 KB a block (rows a whole number of 4-byte words), and
+    its smem is the layout's; where none fits, the thread form."""
+    geo = adc_ops.sym_geometry(768, 6144, M, K, itemsize)
+    fitting = [ta for ta in adc_ops.ROWS_TA
+               if (K * itemsize) % 4 == 0
+               and adc_ops.rows_smem_bytes(ta, M, K, itemsize) <= SMEM_MAX]
+    if not fitting:
+        assert geo.form == "thread" and geo.ta == 0
+        return
+    assert geo.form == "rows" and geo.ta == fitting[0] == max(fitting)
+    assert geo.smem == adc_ops.rows_smem_bytes(geo.ta, M, K, itemsize)
+    assert geo.smem <= SMEM_MAX
+    pitch = adc_ops.row_pitch(K, itemsize, geo.ta)
+    rows, warps = adc_ops.GROUP_ROWS, adc_ops.ROWS_WARPS
+    warp_words = rows * M + geo.ta * (rows + 32 // geo.ta)
+    assert geo.smem == 4 * (M * geo.ta * pitch + warps * warp_words
+                            + (2 * M if itemsize != 4 else 0))
+
+
+@pytest.mark.parametrize("itemsize", SIZES)
+@pytest.mark.parametrize("ta", adc_ops.ROWS_TA)
+@pytest.mark.parametrize("K", [16, 100, 256, 1024])
+def test_row_pitch_spreads_a_rows_lanes_over_banks(itemsize, ta, K):
+    """The staged row pitch holds a row's K entries and is 32/ta (mod 32)
+    words: 1 at a warp of 32 queries, so that the ta lanes reading one
+    codes_b row's column in ta different queries' rows hit ta different
+    banks, whatever the column and the subspace."""
+    pitch = adc_ops.row_pitch(K, itemsize, ta)
+    assert 4 * pitch >= K * itemsize
+    assert pitch % 32 == 32 // ta
+    if ta == 32:
+        assert pitch % 32 == 1
+    for m in (0, 1, 7):
+        for c in (0, 1, 5, 31, K * itemsize // 4 - 1):
+            banks = {((m * ta + i) * pitch + c) % 32 for i in range(ta)}
+            assert len(banks) == ta
+
+
+def _covered_once(n, starts_ends):
+    hits = np.zeros(n, dtype=np.int64)
+    for a, b in starts_ends:
+        hits[a:b] += 1
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("itemsize", SIZES)
+@pytest.mark.parametrize("Na", [1, 5, 768, 6144, 70000])
+@pytest.mark.parametrize("Nb", [1, 5, 768, 6144, 70000])
+def test_sym_grid_covers_every_output_once(itemsize, Na, Nb):
+    """Blocks (chunk, tile) and, in a chunk, each warp's groups of
+    GROUP_ROWS codes_b rows, cover every (i, j) exactly once; the grid's y
+    walks the tiles grid-stride; the chunks restage the rows within three
+    quarters of the output's bytes (or there is one chunk)."""
+    M, K = 8, 256
+    geo = adc_ops.sym_geometry(Na, Nb, M, K, itemsize)
+    assert geo.form == "rows"
+    gx, gy = geo.grid
+    tiles = -(-Na // geo.ta)
+    assert gy == min(tiles, 65535)
+    assert _covered_once(tiles, [(t, t + 1) for by in range(gy)
+                                 for t in range(by, tiles, gy)])
+    chunks = [(bx * geo.chunk, min((bx + 1) * geo.chunk, Nb))
+              for bx in range(gx)]
+    assert all(a < b for a, b in chunks)
+    rows, warps = adc_ops.GROUP_ROWS, adc_ops.ROWS_WARPS
+    assert geo.chunk % rows == 0
+    groups = [(j0, min(j0 + rows, b)) for a, b in chunks
+              for warp in range(warps)
+              for j0 in range(a + rows * warp, b, rows * warps)]
+    assert _covered_once(Nb, groups)
+    assert gx == 1 or gx * Na * M * K * itemsize <= 0.75 * Na * Nb * 4
+
+
+@pytest.mark.parametrize("itemsize,ta", [(4, 16), (1, 32), (2, 32)])
+def test_sym_geometry_main_path(itemsize, ta):
+    """At the main path's 768 x 6144 codes, M = 8, K = 256, every table
+    type takes the row-staged form (f32: 16 queries a tile, int8 and
+    bf16: a warp of 32), the grid within one wave of the 132 SMs."""
+    geo = adc_ops.sym_geometry(768, 6144, 8, 256, itemsize)
+    assert (geo.form, geo.ta) == ("rows", ta)
+    assert geo.grid[0] * geo.grid[1] <= 132
+    assert adc_ops.sym_geometry(768, 6144, 8, 8192 // itemsize,
+                                itemsize).form == "thread"
+
+
+def test_sym_geometry_ta_that_does_not_fit_raises():
+    assert adc_ops.sym_geometry(768, 6144, 8, 256, 4, ta=16).ta == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        adc_ops.sym_geometry(768, 6144, 8, 256, 4, ta=32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("M,K,Na,Nb", [(8, 256, 77, 301), (3, 16, 9, 5),
+                                       (16, 256, 33, 1000), (8, 256, 1, 70),
+                                       (8, 1024, 4, 6), (8, 2048, 4, 6),
+                                       (8, 4096, 4, 6)])
+def test_adc_sym_hands_its_form(monkeypatch, dtype, M, K, Na, Nb):
+    """adc_sym_cdist (float32) and adc_sym_cdist_quant (int8, bfloat16)
+    hand the row-staged entry the table's type code (2, 0, 1) and
+    sym_geometry's tile, pitch, chunk and grid wherever a tile fits, and
+    the thread form's entry (pq_adc_sym / pq_adc_sym_quant with its type
+    code) elsewhere; one launch counted under the row's name."""
+    rng = np.random.default_rng(2)
+    ca = torch.from_numpy(rng.integers(0, K, (Na, M)).astype(np.int32))
+    cb = torch.from_numpy(rng.integers(0, K, (Nb, M)).astype(np.int32))
+    lut = torch.zeros(M, K, K)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, adc_ops)
+    monkeypatch.setattr(adc_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(adc_ops._build, "stream", lambda dev: 0)
+    name = "adc_sym" if dtype == "float32" else "adc_sym_quant"
+    monkeypatch.setitem(_build.LAUNCHES, name, 0)
+    if dtype == "float32":
+        out = adc_ops.adc_sym_cdist(ca, cb, lut)
+        itemsize, code = 4, 2
+    else:
+        q, scale, zero = adc_ops.quantize_lut(lut, dtype)
+        out = adc_ops.adc_sym_cdist_quant(ca, cb, q, scale, zero)
+        itemsize, code = q.element_size(), {"int8": 0, "bfloat16": 1}[dtype]
+    assert out.shape == (Na, Nb)
+    assert _build.LAUNCHES[name] == 1
+    (entry, args), = lib.called
+    geo = adc_ops.sym_geometry(Na, Nb, M, K, itemsize)
+    if geo.form == "rows":
+        assert entry == "pq_adc_sym_rows"
+        assert args[6:15] == (Na, Nb, M, K, code, geo.ta, geo.pitch,
+                              geo.chunk, geo.grid[1])
+        assert (args[3] is None) == (dtype == "float32")  # scale
+        assert args[2] % 4 == 0   # the table, 4-byte aligned
+    elif dtype == "float32":
+        assert entry == "pq_adc_sym"
+        assert args[4:9] == (Na, Nb, M, K, geo.grid[1])
+    else:
+        assert entry == "pq_adc_sym_quant"
+        assert args[6:12] == (Na, Nb, M, K, code, geo.grid[1])
+    # at these M, a tile of 8 queries' rows fits up to 2 KB a row
+    assert (geo.form == "rows") == (K * itemsize <= 2048)
+
+
+def test_quantised_table_view_is_aligned_for_the_rows():
+    """An int8 table viewed at an odd offset is copied to a 4-byte-aligned
+    address (the row-staged form copies rows in 4-byte words)."""
+    base = torch.zeros(4 + 2 * 16 * 16, dtype=torch.int8)
+    view = base[1:1 + 2 * 16 * 16].view(2, 16, 16)
+    assert view.data_ptr() % 4 != 0
+    got = adc_ops._quant_table(view)
+    assert got.data_ptr() % 4 == 0 and torch.equal(got, view)
+    aligned = base[4:4 + 2 * 16 * 16].view(2, 16, 16)
+    assert adc_ops._quant_table(aligned).data_ptr() == aligned.data_ptr()
