@@ -106,7 +106,12 @@ wrapper's choice beyond width 256), for ``adc_sym`` and ``adc_sym_quant``
 the thread-per-output form (the wrapper's choice where a tile of 8
 queries' table rows does not fit in shared memory; ``prev_device_ms``
 beside it, and the row-staged form at the other tiles that fit as
-``other_tiles_device_ms``), each equal to the new form bit for bit;
+``other_tiles_device_ms``), for ``adc_lookup`` and ``adc_lookup_quant``
+the table form (an output a thread, a query's table a block: the
+wrapper's choice where no tile fits or under ``LOOKUP_ROWS_MIN_NQ``
+queries; the same fields, and both forms' device ms on the first ``Nq``
+queries for each of ``LOOKUP_CROSSOVER_NQ`` as
+``crossover_device_ms``), each equal to the new form bit for bit;
 ``lb_refine_adaptive``'s phase line also times its warp form with the
 clamped sweep for every pair (``clamped_warp_form_ms``).  Bounds (``bound_ms``) use the H100 SXM's
 published rates: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the
@@ -139,9 +144,15 @@ QUERIES_PER_CLASS = 256   # CBF series per class in the query set (x3)
 EXACT_QUERIES = 128       # queries for the exact elastic 1-NN
 EXACT_CHECK_QUERIES = 16  # of those, held against the plain version
 REPS = 5                  # timed repetitions per kernel
-# torch.profiler's trace of a short window sometimes holds no kernel record
-# at all (seen on the H100 for the quantised ADC rows); such a window is
-# profiled again, up to this many times, before the kernel count is checked
+# torch.profiler keeps only the device records whose converted timestamps
+# fall inside its window, and on the H100 those timestamps wander from the
+# host's clock by ms (the ``profiler`` phase line's ``launch_to_kernel_ms``
+# has read -15 ms): a window of a few short launches then loses some or all
+# of its kernels.  Each window is padded by this much host time on both
+# sides of what it profiles
+PROFILE_PAD_S = 0.05
+# a window that still holds no kernel record at all is profiled again, up to
+# this many times, before the kernel count is checked
 PROFILE_ATTEMPTS = 3
 PRUNED_QUERIES = 128      # queries for the LB-cascade 1-NN
 SEARCH_WINDOW = 51        # the exact searches' band: round(0.1 * 512)
@@ -208,6 +219,14 @@ DESIGNS = {
                "where 8 queries' rows do not fit)",
 }
 DESIGNS["adc_sym_quant"] = DESIGNS["adc_sym"]
+DESIGNS["adc_lookup"] = (
+    "adc_sym's row-staged body: each query's M table rows staged in shared "
+    "memory, a lane per query, each warp walking groups of 16 code rows (an "
+    "output a thread, a query's table a block, where 8 queries' rows do not "
+    "fit or under LOOKUP_ROWS_MIN_NQ queries)")
+DESIGNS["adc_lookup_quant"] = DESIGNS["adc_lookup"]
+# query counts at which the lookup's two forms are timed (its crossover)
+LOOKUP_CROSSOVER_NQ = (1, 4, 8, 16, 64, 96, 128, 192, 224, 256, 384, 768)
 # the adaptive sweep's other measures on the card (row 7's op[measure])
 ADAPTIVE_MEASURES = {"wdtw": "wdtw:g=0.1", "erp": "erp:g=0.3",
                      "msm": "msm:c=0.5"}
@@ -234,6 +253,22 @@ SOURCES = {
 }
 
 _records = []
+# (kernels recorded, least launch-to-kernel ms) of each _device_ms window
+_windows = []
+
+
+def profiler_phase() -> None:
+    """How the ``_device_ms`` windows fared: kernels lost against ``REPS``
+    a window, and the range of the windows' least offsets of a kernel's
+    start from its launch's (negative: the kernel's converted timestamp
+    lies before its launch, by that much)."""
+    offsets = [o for _, o in _windows if o is not None]
+    emit({"phase": "profiler", "windows": len(_windows),
+          "pad_s": PROFILE_PAD_S, "launches_a_window": REPS,
+          "kernels_lost": sum(REPS - n for n, _ in _windows),
+          "empty_windows": sum(1 for n, _ in _windows if n == 0),
+          "launch_to_kernel_ms": ([min(offsets), max(offsets)]
+                                  if offsets else None)})
 
 
 def emit(record: dict) -> None:
@@ -301,6 +336,7 @@ def main() -> int:
     kernels.append(pq_attn_phase(torch, ctx["lm"]))
     kernels.append(full_kernel_phase(torch, ctx))
     measure_sweep(torch)
+    profiler_phase()
     emit({"kernels": kernels})
 
     out = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -320,7 +356,7 @@ def main() -> int:
 def main_path(torch, _build) -> dict:
     from repro_torch.core import dispatch, knn, metrics, pq
     from repro_torch.data.timeseries import make_dataset
-    from repro_torch.kernels.pq_adc.ops import sym_geometry
+    from repro_torch.kernels.pq_adc.ops import lookup_geometry, sym_geometry
 
     X, y = make_dataset("cbf", TRAIN_PER_CLASS, 512, seed=0)
     Q, yq = make_dataset("cbf", QUERIES_PER_CLASS, 512, seed=100)
@@ -383,6 +419,8 @@ def main_path(torch, _build) -> dict:
           f"every kernel launched on the main path: {launches}")
     check(sym_geometry(Nq, N, M, K, 4).form == "rows",
           "the main path's symmetric scans take the row-staged form")
+    check(lookup_geometry(Nq, N, M, K, 4).form == "rows",
+          "the main path's lookups take the row-staged form")
     acc = {
         "sym": 1.0 - metrics.error_rate(yq, pred_sym),
         "asym": 1.0 - metrics.error_rate(yq, pred_asym),
@@ -831,7 +869,7 @@ def quant_path(torch, _build, ctx) -> dict:
     reference's bound against float32 (max error under 2% of the float32
     maximum), and the 1-NN predictions they give."""
     from repro_torch.core import dispatch, metrics, pq
-    from repro_torch.kernels.pq_adc.ops import sym_geometry
+    from repro_torch.kernels.pq_adc.ops import lookup_geometry, sym_geometry
     cfg, cb, D = ctx["cfg"], ctx["cb"], ctx["D"]
     q_codes, codes, yd, yq = (ctx["q_codes"], ctx["codes"], ctx["yd"],
                               ctx["yq"])
@@ -852,8 +890,9 @@ def quant_path(torch, _build, ctx) -> dict:
           f"quant path launched both quantised kernels: {launches}")
     (Nq, M), N, K = q_codes.shape, codes.shape[0], cb.lut.shape[1]
     check(all(sym_geometry(Nq, N, M, K, size).form == "rows"
+              and lookup_geometry(Nq, N, M, K, size).form == "rows"
               for size in (1, 2)),
-          "the quant path's symmetric scans take the row-staged form")
+          "the quant path's scans take the row-staged form")
     check(routes == ["cuda"], f"quant path routes {routes}")
     full = {"sym": pq.cdist_sym(q_codes, codes, cb.lut),
             "lookup": dispatch.adc_lookup(codes, luts)}
@@ -1193,7 +1232,10 @@ def quant_kernel_phases(torch, ctx) -> list:
             Nq * N * (3 * M + 2),
             launch_fn=lambda: (launch_adc_lookup_quant(
                 codes, qq, qsv, qzv, lookup_out), lookup_out)[1],
-            table=table, exact=True, profiled=True)
+            table=table, exact=True, profiled=True,
+            extra=_lookup_forms(torch, f"adc_lookup_quant {dt}", codes, qq,
+                                qsv, qzv, adc_lookup_quant(codes, qq, qs,
+                                                           qz)))
     return rows
 
 
@@ -1230,16 +1272,19 @@ def full_baseline(torch, _build, ctx) -> dict:
 def _profile(torch, fn) -> dict:
     """One call under ``torch.profiler``: its wall time, the device's busy
     time (kernel durations; one stream, so they do not overlap), the idle
-    share, and the five kernels with the most device time."""
+    share, and the five kernels with the most device time.  The window is
+    padded by ``PROFILE_PAD_S`` on both sides, outside the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+        time.sleep(PROFILE_PAD_S)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1247,7 +1292,15 @@ def _profile(torch, fn) -> dict:
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    kernel_starts = sorted(e.time_range.start for e in prof.events()
+                           if e.device_type == DeviceType.CUDA)
+    launch_starts = sorted(e.time_range.start for e in prof.events()
+                           if e.device_type == DeviceType.CPU
+                           and "LaunchKernel" in e.name)
+    offsets = ([(k - c) / 1e3 for k, c in zip(kernel_starts, launch_starts)]
+               if len(kernel_starts) == len(launch_starts) else [])
     return {"wall_ms": wall_ms,
+            "launch_to_kernel_ms": min(offsets) if offsets else None,
             "device_busy_ms": busy if by_name else None,
             "idle_share": 1.0 - busy / wall_ms if by_name else None,
             "kernels": sum(n for _, n in by_name.values()),
@@ -1728,6 +1781,7 @@ def _device_ms(torch, launch_fn, name):
     times at most), the kernels seen and the profiles taken."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
+        _windows.append((prof["kernels"], prof["launch_to_kernel_ms"]))
         if prof["kernels"]:
             break
     n_seen = prof["kernels"]
@@ -1894,7 +1948,9 @@ def kernel_phases(torch, ctx) -> list:
           extra=_sym_forms(torch, "adc_sym", q_codes, codes, lut, None, None,
                            adc_sym_cdist(q_codes, codes, lut)))
 
-    # 4. asymmetric ADC: every query's (M, K) table x training codes
+    # 4. asymmetric ADC: every query's (M, K) table x training codes, the
+    # row-staged form, with the table form, the other tiles and the
+    # crossover in the query count timed beside it, all equal bit for bit
     luts = pq.query_lut_batch(pq.segment(Qd, cfg), cb, w, False,
                               cfg.measure()).contiguous()
     m_row = torch.arange(M, device=lut.device)[None, :]
@@ -1905,7 +1961,9 @@ def kernel_phases(torch, ctx) -> list:
           lambda: torch.sqrt(luts[:, m_row, codes_l].sum(-1).clamp_min(0.0)),
           (Nq * M * K + N * M + Nq * N) * 4, Nq * N * (M + 2),
           launch_fn=lambda: (launch_adc_lookup(codes, luts, lookup_out),
-                             lookup_out)[1], profiled=True)
+                             lookup_out)[1], profiled=True, exact=True,
+          extra=_lookup_forms(torch, "adc_lookup", codes, luts, None, None,
+                              adc_lookup(codes, luts)))
 
     # 5. fused MODWT prealign + exact 1-NN encode of the training set: the
     # register form (the whole wrapper call, its per-call transpose of the
@@ -2019,6 +2077,94 @@ def _sym_forms(torch, name, ca, cb, table, scale, zero, want) -> dict:
             "prev_ms": prev_ms, "prev_device_ms": prev_device_ms,
             "other_tiles_device_ms": others,
             "pitch_1_mod_32_device_ms": pitch_1}
+
+
+def _lookup_launcher(torch, codes, q, scale, zero, out, ta=None):
+    """The lookup straight through the kernel library into ``out``: its
+    table form (``ta=None``) or its row-staged form at ``ta`` queries a
+    tile.  Not a launch of the path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc.ops import (TABLE_TYPES, lookup_geometry,
+                                               lookup_table_geometry)
+    (Nq, M, K), N = q.shape, codes.shape[0]
+    lib, stream = _build.lib(), _build.stream(out.device)
+    size, code = q.element_size(), TABLE_TYPES[q.dtype]
+    if ta is not None:
+        geo = lookup_geometry(Nq, N, M, K, size, ta=ta)
+        return lambda: _build.check(lib.pq_adc_lookup_rows(
+            q.data_ptr(), _build.ptr(scale), _build.ptr(zero),
+            codes.data_ptr(), out.data_ptr(), Nq, N, M, K, code, ta,
+            geo.pitch, geo.chunk, geo.grid[1], stream),
+            f"adc_lookup (rows form, {ta} queries a tile)")
+    geo = lookup_table_geometry(Nq, N, M, K, size)
+    if scale is None:
+        return lambda: _build.check(lib.pq_adc_lookup(
+            q.data_ptr(), codes.data_ptr(), out.data_ptr(), Nq, N, M, K,
+            geo.chunk, *geo.grid, stream), "adc_lookup (table form)")
+    return lambda: _build.check(lib.pq_adc_lookup_quant(
+        q.data_ptr(), scale.data_ptr(), zero.data_ptr(), codes.data_ptr(),
+        out.data_ptr(), Nq, N, M, K, code, geo.chunk, *geo.grid, stream),
+        "adc_lookup_quant (table form)")
+
+
+def _lookup_forms(torch, name, codes, q, scale, zero, want) -> dict:
+    """Rows 4 and 10's record fields beside the wrapper's form: its
+    geometry (``variant``), the table form's ``prev_ms`` (``REPS``
+    launches by CUDA events) and ``prev_device_ms`` (under the profiler),
+    the row-staged form at every other tile that fits
+    (``other_tiles_device_ms``), and both forms' device ms on the first
+    ``Nq`` queries for each ``Nq`` of ``LOOKUP_CROSSOVER_NQ``
+    (``crossover_device_ms``: ``Nq`` -> ``[table, rows]``, the rows at the
+    wrapper's tile), each output equal to ``want`` (the wrapper's) bit for
+    bit.  Not launches of the path."""
+    from repro_torch.kernels.pq_adc.ops import (LOOKUP_ROWS_MIN_NQ, ROWS_TA,
+                                               lookup_geometry)
+    (Nq, M, K), N = q.shape, codes.shape[0]
+    geo = lookup_geometry(Nq, N, M, K, q.element_size())
+    check(geo.form == "rows", f"{name}: the path's codes take the "
+          "row-staged form")
+    out = torch.empty_like(want)
+    launch = _lookup_launcher(torch, codes, q, scale, zero, out)
+    prev_ms = _mean_ms(torch, launch, REPS)
+    check(torch.equal(out, want), f"{name}: the table form equals the "
+          "row-staged form bit for bit")
+    prev_device_ms, _, _ = _device_ms(torch, launch, f"{name} table form")
+    others = {}
+    for ta in ROWS_TA:
+        if ta == geo.ta:
+            continue
+        try:
+            launch = _lookup_launcher(torch, codes, q, scale, zero, out, ta)
+        except ValueError:  # the tile's rows do not fit
+            continue
+        out.zero_()
+        launch()
+        check(torch.equal(out, want), f"{name}: the row-staged form at {ta} "
+              "queries a tile equals the wrapper's bit for bit")
+        others[str(ta)] = _device_ms(torch, launch, f"{name} ta={ta}")[0]
+    crossover = {}
+    for nq in LOOKUP_CROSSOVER_NQ:
+        qn = q[:nq]
+        sn = None if scale is None else scale[:nq * M]
+        zn = None if zero is None else zero[:nq * M]
+        times = []
+        for ta in (None, geo.ta):
+            part = torch.empty_like(want[:nq])
+            launch = _lookup_launcher(torch, codes, qn, sn, zn, part, ta)
+            launch()
+            check(torch.equal(part, want[:nq]), f"{name}: both forms on "
+                  f"{nq} queries equal the wrapper's rows bit for bit")
+            times.append(_device_ms(torch, launch,
+                                    f"{name} {nq} queries")[0])
+        crossover[str(nq)] = times
+    return {"design": DESIGNS["adc_lookup"],
+            "variant": {"ta": geo.ta, "chunk": geo.chunk,
+                        "smem_bytes": geo.smem, "pitch_words": geo.pitch,
+                        "grid": list(geo.grid)},
+            "prev_ms": prev_ms, "prev_device_ms": prev_device_ms,
+            "other_tiles_device_ms": others,
+            "crossover_device_ms": crossover,
+            "rows_min_nq": LOOKUP_ROWS_MIN_NQ[q.element_size()]}
 
 
 def _pairs_shared_form_ms(torch, A, B, w, want) -> float:
@@ -2243,17 +2389,25 @@ def measure_sweep(torch) -> None:
     the unbanded L=600 case whose band rows live in device scratch,
     ``adc_sym`` on 1024 x 6144 random codes and at edge shapes (float32,
     int8, bfloat16) in its row-staged form, bit for bit against the plain
-    version and the thread form, and the fused encode under every
+    version and the thread form, ``adc_lookup`` / ``adc_lookup_quant``
+    likewise against the plain version and both its forms (one query and
+    a count under ``LOOKUP_ROWS_MIN_NQ`` take the table form), and the
+    fused encode under every
     measure, its register form against the plain version and its
     shared-memory form."""
     from repro_torch.core.modwt import linspace01
     from repro_torch.kernels.dtw_band.ops import dtw_band, dtw_band_cdist
     from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
                                                   dtw_band_ref)
-    from repro_torch.kernels.pq_adc.ops import (adc_sym_cdist,
+    from repro_torch.kernels.pq_adc.ops import (LOOKUP_ROWS_MIN_NQ, ROWS_TA,
+                                               adc_lookup, adc_lookup_quant,
+                                               adc_sym_cdist,
                                                adc_sym_cdist_quant,
-                                               quantize_lut, sym_geometry)
-    from repro_torch.kernels.pq_adc.ref import (adc_sym_cdist_quant_ref,
+                                               lookup_geometry, quantize_lut,
+                                               sym_geometry)
+    from repro_torch.kernels.pq_adc.ref import (adc_lookup_quant_ref,
+                                               adc_lookup_ref,
+                                               adc_sym_cdist_quant_ref,
                                                adc_sym_cdist_ref)
     from repro_torch.kernels.prealign_encode.ops import prealign_encode
     from repro_torch.kernels.prealign_encode.ref import prealign_encode_ref
@@ -2321,6 +2475,59 @@ def measure_sweep(torch) -> None:
             check(geo.form == "rows" and ok and same,
                   f"adc_sym {dt} {Na} x {Nb}, M={M}, K={K}: the row-staged "
                   "form equals the plain version and the thread form")
+    # the lookup: 1024 x 6144 random codes, then edge shapes (one query,
+    # a count under LOOKUP_ROWS_MIN_NQ, tiles and chunks cut short, M = 3
+    # at K = 16, M = 16), through the wrapper, equal to the plain version
+    # and to both forms (the row-staged one at the largest tile that fits)
+    # bit for bit
+    for Nq, N, M, K, dtypes in (
+            (1024, 6144, 8, 256, ("float32",)),
+            (1, 6144, 8, 256, ("float32", "int8", "bfloat16")),
+            (77, 301, 8, 256, ("float32", "int8", "bfloat16")),
+            (301, 77, 8, 256, ("float32", "int8", "bfloat16")),
+            (259, 5, 3, 16, ("float32", "int8", "bfloat16")),
+            (263, 1000, 16, 256, ("float32",))):
+        qlut = randn(Nq, M, K).abs()
+        codes = torch.randint(0, K, (N, M), generator=g, device="cuda",
+                              dtype=torch.int32)
+        for dt in dtypes:
+            if dt == "float32":
+                table, sc, zp = qlut, None, None
+                got = adc_lookup(codes, qlut)
+                want = adc_lookup_ref(codes, qlut)
+            else:
+                table, sc, zp = quantize_lut(qlut.reshape(Nq * M, K), dt)
+                table = table.reshape(Nq, M, K)
+                sc, zp = sc.reshape(Nq, M, 1), zp.reshape(Nq, M, 1)
+                got = adc_lookup_quant(codes, table, sc, zp)
+                want = adc_lookup_quant_ref(codes, table, sc, zp)
+                sc, zp = (t.reshape(-1).contiguous() for t in (sc, zp))
+            geo = lookup_geometry(Nq, N, M, K, table.element_size())
+            forms = {}
+            for ta in (None,) + ROWS_TA:
+                out = torch.empty_like(got)
+                try:
+                    launch = _lookup_launcher(torch, codes, table, sc, zp,
+                                              out, ta)
+                except ValueError:  # the tile's rows do not fit
+                    continue
+                launch()
+                forms["table" if ta is None else "rows"] = bool(
+                    torch.equal(got, out))
+                if ta is not None:
+                    break
+            max_abs, max_rel, _ = _errors(torch, got, want)
+            ok = bool(torch.equal(got, want))
+            cases.append({"form": "adc_lookup", "dtype": dt,
+                          "qlut": [Nq, M, K], "codes": [N, M],
+                          "wrapper_form": geo.form, "ta": geo.ta,
+                          "max_abs_err": max_abs, "max_rel_err": max_rel,
+                          "agrees": ok, "equals_forms": forms})
+            check(geo.form == ("rows" if Nq >= LOOKUP_ROWS_MIN_NQ[
+                table.element_size()] else "table")
+                  and ok and len(forms) == 2 and all(forms.values()),
+                  f"adc_lookup {dt} {Nq} x {N}, M={M}, K={K}: the wrapper "
+                  "equals the plain version and both forms")
     X = torch.cumsum(randn(128, 512), dim=1)
     cents = randn(8, 32, 74)
     lin = linspace01(74, X.device)

@@ -74,6 +74,7 @@ _SIGNATURES = {
     "pq_adc_sym_quant": [_P] * 6 + [_I] * 6 + [_P],
     "pq_adc_sym_rows": [_P] * 6 + [_I] * 9 + [_P],
     "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
+    "pq_adc_lookup_rows": [_P] * 5 + [_I] * 9 + [_P],
     "pq_attn": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 3 + [_P],
     "pq_dtw_band_full": [_P] * 4 + [_I] * 6 + [_P],
 }
@@ -171,8 +172,10 @@ def lib() -> ctypes.CDLL:
         handle.pq_error_string.restype = ctypes.c_char_p
         handle.pq_attn_smem_bytes.argtypes = [ctypes.c_int] * 7
         handle.pq_attn_smem_bytes.restype = ctypes.c_size_t
-        handle.pq_adc_sym_rows_smem_bytes.argtypes = [ctypes.c_int] * 4
-        handle.pq_adc_sym_rows_smem_bytes.restype = ctypes.c_size_t
+        for name in ("pq_adc_sym_rows_smem_bytes",
+                     "pq_adc_lookup_rows_smem_bytes"):
+            getattr(handle, name).argtypes = [ctypes.c_int] * 4
+            getattr(handle, name).restype = ctypes.c_size_t
         _lib = handle
     return _lib
 

@@ -17,15 +17,17 @@
 // output, M fused multiply-adds more when quantised), so the (Na, Nb)
 // output's write, and before it the M gathers an output makes.
 //
-// The symmetric scan has two forms.  The row-staged form
-// (adc_sym_rows_kernel, the wrapper's choice wherever one tile of 8
-// queries' table rows fits in shared memory) stages each query's M table
-// rows LUT[m, a^m, 0:K] once per block and gathers from shared memory, a
-// lane per query (see the note above it).  The thread form
+// Each scan has two forms.  The row-staged form (adc_rows_kernel, one
+// body for both scans, the wrappers' choice wherever one tile of 8
+// queries' table rows fits in shared memory, and for the lookup from
+// enough queries on) stages each query's M table rows (LUT[m, a^m, 0:K],
+// or qlut[i, m, 0:K]) once per block and gathers from shared memory, a
+// lane per query (see the note above it).  The symmetric thread form
 // (adc_sym_kernel, an output a thread, every gather from the LUT in
-// L1/L2: a warp's 32 lanes read one table row at 32 random columns) takes
-// the shapes whose rows do not fit.  Both give the same bits.  adc_lookup
-// stages each query's M x K table once per block in shared memory.
+// L1/L2: a warp's 32 lanes read one table row at 32 random columns) and
+// the lookup's table form (adc_lookup_kernel, an output a thread, one
+// query's M x K table staged per block) take the other shapes.  Both
+// forms of a scan give the same bits.
 //
 // The sum over subspaces runs in the reference's order:
 //   acc = 0; for m: acc += entry(m, ...); out = sqrtf(fmaxf(acc, 0)).
@@ -118,32 +120,38 @@ __global__ void adc_sym_kernel(const int* __restrict__ ca,
   }
 }
 
-// The row-staged symmetric scan.  A block owns a tile of TA queries
-// (codes_a rows) and a chunk of codes_b rows.  It stages the tile's table
-// rows LUT[m, a_i^m, 0:K] in shared memory, laid out [m][i][pitch] (pitch
-// in 4-byte words, = 32/TA (mod 32): 1 at TA = 32), by 4-byte asynchronous
-// copies (the pitch leaves a row 4-byte aligned only), once for the whole
-// chunk.  Lane (i, s) of a warp owns query i of the tile and, in each
-// step, codes_b row s of the step's 32/TA rows: it reads entry c = b^m of
-// row (m, i) at word (m TA + i) pitch + c / (4 / sizeof T), in bank
-// (32/TA) i + c / (4 / sizeof T) (mod 32): the TA lanes of one codes_b row
-// hit TA different banks, and at TA = 32 a warp's gather is conflict-free
-// (at TA = 16 the two rows' lanes fall on the same 16 banks when their
-// columns have the same parity: two wavefronts).  Each warp walks groups
-// of 16 codes_b rows on its own, 32 warps a block: it holds the next
-// group's codes in registers while it works on this one, stages this
-// group's as byte offsets (m TA pitch + b^m) sizeof T into the rows (read
-// by broadcast, so a gather is one add and one load from a 32-bit shared
-// address), takes two rows a lane at a time, writes its TA x 16 outputs
-// to its own tile in shared memory, and stores them a query row at a
-// time, 16 consecutive floats: coalesced along Nb.  No block-wide barrier
-// after the staging.  What bounds it: the instructions a warp step issues
-// (an exact sqrtf a good share of them) and the shared-memory wavefronts
-// of its M gathers, the broadcast offsets and the output tile.  The sum
-// runs as in adc_sym_kernel, so the bits are the same.
+// The row-staged scans, symmetric and asymmetric (one body, kLookup).  A
+// block owns a tile of TA queries and a chunk of code rows (codes_b, or
+// the lookup's codes).  It stages the tile's table rows in shared memory,
+// laid out [m][i][pitch] (pitch in 4-byte words, = 32/TA (mod 32): 1 at
+// TA = 32), by 4-byte asynchronous copies (the pitch leaves a row 4-byte
+// aligned only), once for the whole chunk.  Query i's row for subspace m
+// is LUT[m, a_i^m, 0:K] in the symmetric scan and qlut[i, m, 0:K] in the
+// lookup (a tile's TA x M rows contiguous in the source).  Lane (i, s) of
+// a warp owns query i of the tile and, in each step, code row s of the
+// step's 32/TA rows: it reads entry c = b^m of row (m, i) at word
+// (m TA + i) pitch + c / (4 / sizeof T), in bank (32/TA) i + c / (4 /
+// sizeof T) (mod 32): the TA lanes of one code row hit TA different
+// banks, and at TA = 32 a warp's gather is conflict-free (at TA = 16 the
+// two rows' lanes fall on the same 16 banks when their columns have the
+// same parity: two wavefronts).  Each warp walks groups of 16 code rows on
+// its own, 32 warps a block: it holds the next group's codes in registers
+// while it works on this one, stages this group's as byte offsets (m TA
+// pitch + b^m) sizeof T into the rows (read by broadcast, so a gather is
+// one add and one load from a 32-bit shared address), takes two rows a
+// lane at a time, writes its TA x 16 outputs to its own tile in shared
+// memory, and stores them a query row at a time, 16 consecutive floats:
+// coalesced along the code rows.  No block-wide barrier after the
+// staging.  A quantised table's affine is per subspace in the symmetric
+// scan and per (query, subspace) in the lookup: in registers where M is
+// known (each lane its own query's), else a 1 x M or TA x M block in
+// shared memory.  What bounds it: the instructions a warp step issues (an
+// exact sqrtf a good share of them) and the shared-memory wavefronts of
+// its M gathers, the broadcast offsets and the output tile.  The sum runs
+// as in adc_sym_kernel and adc_lookup_kernel, so the bits are the same.
 constexpr int kRowsWarps = 32;
 constexpr int kRowsThreads = 32 * kRowsWarps;
-constexpr int kGroupRows = 16;  // codes_b rows a warp takes at a time
+constexpr int kGroupRows = 16;  // code rows a warp takes at a time
 
 // Words of shared memory a warp of the row-staged form keeps for itself:
 // its group's code offsets, then its TA x (16 + 32/TA) output tile (the
@@ -152,10 +160,13 @@ __host__ __device__ inline int rows_warp_words(int ta, int M) {
   return kGroupRows * M + ta * (kGroupRows + 32 / ta);
 }
 
+// the staged rows, the warps' words, and a quantised table's scale and
+// zero: M of each, or TA x M of each in the lookup
 __host__ __device__ inline size_t rows_smem_bytes(int ta, int M, int pitch,
-                                                  bool quant) {
+                                                  bool quant, bool lookup) {
   return 4 * ((size_t)M * ta * pitch + (size_t)kRowsWarps *
-              rows_warp_words(ta, M) + (quant ? 2 * (size_t)M : 0));
+              rows_warp_words(ta, M) +
+              (quant ? 2 * (size_t)M * (lookup ? ta : 1) : 0));
 }
 
 // A staged table entry at a 32-bit shared-memory address (on sm_90 the
@@ -182,17 +193,20 @@ __device__ __forceinline__ __nv_bfloat16 lds<__nv_bfloat16>(unsigned addr) {
   return __ushort_as_bfloat16(v);
 }
 
-template <typename T, int TA, int MC>
+// ca: the symmetric scan's codes_a (unread by the lookup); cb: codes_b or
+// the lookup's codes; table: the (M, K, K) LUT or the (Na, M, K) query
+// tables; out (Na, Nb).
+template <typename T, int TA, int MC, bool kLookup>
 __global__ void __launch_bounds__(kRowsThreads, 1)
-    adc_sym_rows_kernel(const int* __restrict__ ca, const int* __restrict__ cb,
-                        const T* __restrict__ lut,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ zero,
-                        float* __restrict__ out, int Na, int Nb, int M_arg,
-                        int K, int pitch, int chunk) {
-  constexpr int R = 32 / TA;            // codes_b rows a warp step
+    adc_rows_kernel(const int* __restrict__ ca, const int* __restrict__ cb,
+                    const T* __restrict__ table,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ zero, float* __restrict__ out,
+                    int Na, int Nb, int M_arg, int K, int pitch, int chunk) {
+  constexpr int R = 32 / TA;            // code rows a warp step
   constexpr int OP = kGroupRows + R;    // output tile pitch
   constexpr bool kQuant = !std::is_same<T, float>::value;
+  constexpr int kAff = kLookup ? TA : 1;  // affine values a subspace
   // codes a lane holds for the next group (M known)
   constexpr int kPer = MC > 0 ? kGroupRows * MC / 32 : 1;
   static_assert(MC == 0 || (kGroupRows * MC) % 32 == 0, "whole lanes");
@@ -204,25 +218,11 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
   float* so = reinterpret_cast<float*>(offs + kGroupRows * M);
   float* s_sc = reinterpret_cast<float*>(smem_w) + (size_t)M * TA * pitch +
                 (size_t)kRowsWarps * rows_warp_words(TA, M);
-  float* s_zp = s_sc + M;
+  float* s_zp = s_sc + M * kAff;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int qi = lane % TA, sub = lane / TA;
-
-  // a quantised table's affine: in registers where M is known, else in
-  // shared memory
+  // a quantised table's affine where M is known (this lane's query's)
   float r_sc[MC > 0 ? MC : 1], r_zp[MC > 0 ? MC : 1];
-  if constexpr (kQuant && MC > 0) {
-#pragma unroll
-    for (int m = 0; m < MC; ++m) {
-      r_sc[m] = __ldg(scale + m);
-      r_zp[m] = __ldg(zero + m);
-    }
-  } else if constexpr (kQuant) {
-    for (int m = threadIdx.x; m < M; m += kRowsThreads) {
-      s_sc[m] = scale[m];
-      s_zp[m] = zero[m];
-    }
-  }
 
   const int j_begin = blockIdx.x * chunk;
   const int j_end = min(j_begin + chunk, Nb);
@@ -245,28 +245,53 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
   for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
     const int i0 = tile * TA;
     const int valid = min(TA, Na - i0);
+    // where subspace m's affine lies for tile query i (lanes past the
+    // tile's last query take its values)
+    auto affine_at = [&](int i, int m) {
+      return kLookup ? (long long)(i0 + min(i, valid - 1)) * M + m
+                     : (long long)m;
+    };
     __syncthreads();  // the previous tile's rows are no longer read
-    // warp w copies rows w, w + 32, ...: lane k reads the code of the
-    // warp's k-th row up front (one round trip, not one a row), 32 rows a
-    // round
+    // warp w copies rows w, w + 32, ...: in the symmetric scan lane k
+    // reads the code of the warp's k-th row up front (one round trip, not
+    // one a row), 32 rows a round
     for (int row0 = warp; row0 < M * TA; row0 += 32 * kRowsWarps) {
-      const int lane_row = row0 + lane * kRowsWarps;
       int a = 0;
-      if (lane_row < M * TA && lane_row % TA < valid)
-        a = __ldg(ca + (long long)(i0 + lane_row % TA) * M + lane_row / TA);
+      if constexpr (!kLookup) {
+        const int lane_row = row0 + lane * kRowsWarps;
+        if (lane_row < M * TA && lane_row % TA < valid)
+          a = __ldg(ca + (long long)(i0 + lane_row % TA) * M + lane_row / TA);
+      }
       for (int k = 0; k < 32; ++k) {
         const int row = row0 + k * kRowsWarps;
         if (row >= M * TA) break;
-        const int ak = __shfl_sync(0xffffffffu, a, k);
-        if (row % TA >= valid) continue;
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            lut + ((long long)(row / TA) * K + ak) * K);
+        const int m = row / TA, i = row % TA;
+        long long src_row;
+        if constexpr (kLookup)
+          src_row = (long long)(i0 + i) * M + m;
+        else
+          src_row = (long long)m * K + __shfl_sync(0xffffffffu, a, k);
+        if (i >= valid) continue;
+        const uint32_t* src =
+            reinterpret_cast<const uint32_t*>(table + src_row * K);
         uint32_t* dst = smem_w + (size_t)row * pitch;
         for (int w = lane; w < words; w += 32)
           __pipeline_memcpy_async(dst + w, src + w, 4);
       }
     }
     __pipeline_commit();
+    if constexpr (kQuant && MC > 0) {
+#pragma unroll
+      for (int m = 0; m < MC; ++m) {
+        r_sc[m] = __ldg(scale + affine_at(qi, m));
+        r_zp[m] = __ldg(zero + affine_at(qi, m));
+      }
+    } else if constexpr (kQuant) {
+      for (int e = threadIdx.x; e < M * kAff; e += kRowsThreads) {
+        s_sc[e] = scale[affine_at(e % kAff, e / kAff)];
+        s_zp[e] = zero[affine_at(e % kAff, e / kAff)];
+      }
+    }
     int next[kPer];
     if (MC > 0 && first < j_end) load_codes(first, next);
     __pipeline_wait_prior(0);
@@ -293,7 +318,7 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
       }
       __syncwarp();
       if constexpr (MC > 0) {
-        // two codes_b rows a lane at a time: r and r + R
+        // two code rows a lane at a time: r and r + R
 #pragma unroll 1
         for (int r = sub; r < kGroupRows; r += 2 * R) {
           int o0[MC], o1[MC];
@@ -323,11 +348,14 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
           so[qi * OP + r + R] = sqrtf(fmaxf(acc1, 0.f));
         }
       } else {
+        // this lane's affine: subspace m's at s_sc[m kAff + (qi or 0)]
+        const int aq = kLookup ? qi : 0;
         for (int r = sub; r < kGroupRows; r += R) {
           const int* o = offs + r * M;
           float acc = 0.f;
           for (int m = 0; m < M; ++m)
-            acc += entry<T>(lds<T>(mine + o[m]), s_sc, s_zp, m);
+            acc += entry<T>(lds<T>(mine + o[m]), s_sc + aq, s_zp + aq,
+                            m * kAff);
           so[qi * OP + r] = sqrtf(fmaxf(acc, 0.f));
         }
       }
@@ -349,6 +377,9 @@ __global__ void __launch_bounds__(kRowsThreads, 1)
   }
 }
 
+// An output a thread, one query's whole (M, K) table staged per block:
+// the lookup's form where a tile of query rows does not fit, or where too
+// few queries would leave most of a tile's lanes idle.
 template <typename T>
 __global__ void adc_lookup_kernel(const T* __restrict__ qlut,
                                   const float* __restrict__ scale,
@@ -406,39 +437,41 @@ int launch_sym(const int* ca, const int* cb, const T* lut, const float* sc,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TA, int MC>
-int launch_sym_rows_t(const int* ca, const int* cb, const T* lut,
-                      const float* sc, const float* zp, float* out, int Na,
-                      int Nb, int M, int K, int pitch, int chunk, int grid_y,
-                      cudaStream_t stream) {
-  const size_t smem =
-      rows_smem_bytes(TA, M, pitch, !std::is_same<T, float>::value);
+template <typename T, int TA, int MC, bool kLookup>
+int launch_rows_t(const int* ca, const int* cb, const T* table,
+                  const float* sc, const float* zp, float* out, int Na,
+                  int Nb, int M, int K, int pitch, int chunk, int grid_y,
+                  cudaStream_t stream) {
+  const size_t smem = rows_smem_bytes(
+      TA, M, pitch, !std::is_same<T, float>::value, kLookup);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        adc_sym_rows_kernel<T, TA, MC>,
+        adc_rows_kernel<T, TA, MC, kLookup>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((Nb + chunk - 1) / chunk, grid_y);
-  adc_sym_rows_kernel<T, TA, MC><<<grid, kRowsThreads, smem, stream>>>(
-      ca, cb, lut, sc, zp, out, Na, Nb, M, K, pitch, chunk);
+  adc_rows_kernel<T, TA, MC, kLookup><<<grid, kRowsThreads, smem, stream>>>(
+      ca, cb, table, sc, zp, out, Na, Nb, M, K, pitch, chunk);
   return (int)cudaGetLastError();
 }
 
 // TA queries a tile (8, 16 or 32), the subspaces' loop unrolled at M = 8
-template <typename T>
-int launch_sym_rows(const int* ca, const int* cb, const T* lut,
-                    const float* sc, const float* zp, float* out, int Na,
-                    int Nb, int M, int K, int ta, int pitch, int chunk,
-                    int grid_y, cudaStream_t stream) {
+template <typename T, bool kLookup>
+int launch_rows(const int* ca, const int* cb, const T* table,
+                const float* sc, const float* zp, float* out, int Na, int Nb,
+                int M, int K, int ta, int pitch, int chunk, int grid_y,
+                cudaStream_t stream) {
   if ((K * (int)sizeof(T)) % 4 != 0 || pitch < K * (int)sizeof(T) / 4 ||
       chunk < 1 || grid_y < 1)
     return (int)cudaErrorInvalidValue;
-#define PQ_ADC_ROWS(TA)                                                     \
-  (M == 8 ? launch_sym_rows_t<T, TA, 8>(ca, cb, lut, sc, zp, out, Na, Nb, M, \
-                                        K, pitch, chunk, grid_y, stream)    \
-          : launch_sym_rows_t<T, TA, 0>(ca, cb, lut, sc, zp, out, Na, Nb, M, \
-                                        K, pitch, chunk, grid_y, stream))
+#define PQ_ADC_ROWS(TA)                                                    \
+  (M == 8 ? launch_rows_t<T, TA, 8, kLookup>(ca, cb, table, sc, zp, out,  \
+                                             Na, Nb, M, K, pitch, chunk,  \
+                                             grid_y, stream)              \
+          : launch_rows_t<T, TA, 0, kLookup>(ca, cb, table, sc, zp, out,  \
+                                             Na, Nb, M, K, pitch, chunk,  \
+                                             grid_y, stream))
   switch (ta) {
     case 8:
       return PQ_ADC_ROWS(8);
@@ -450,6 +483,31 @@ int launch_sym_rows(const int* ca, const int* cb, const T* lut,
       return (int)cudaErrorInvalidValue;
   }
 #undef PQ_ADC_ROWS
+}
+
+// the row-staged form over a float32 (type 2), int8 (0) or bfloat16 (1)
+// table; scale and zero are read for the last two only
+template <bool kLookup>
+int launch_rows_typed(const int* ca, const int* cb, const void* table,
+                      const float* sc, const float* zp, float* out, int Na,
+                      int Nb, int M, int K, int type, int ta, int pitch,
+                      int chunk, int grid_y, cudaStream_t s) {
+  switch (type) {
+    case kF32:
+      return launch_rows<float, kLookup>(
+          ca, cb, static_cast<const float*>(table), nullptr, nullptr, out,
+          Na, Nb, M, K, ta, pitch, chunk, grid_y, s);
+    case kInt8:
+      return launch_rows<int8_t, kLookup>(
+          ca, cb, static_cast<const int8_t*>(table), sc, zp, out, Na, Nb, M,
+          K, ta, pitch, chunk, grid_y, s);
+    case kBF16:
+      return launch_rows<__nv_bfloat16, kLookup>(
+          ca, cb, static_cast<const __nv_bfloat16*>(table), sc, zp, out, Na,
+          Nb, M, K, ta, pitch, chunk, grid_y, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -526,35 +584,35 @@ int pq_adc_lookup_quant(const void* qlut, const float* scale,
   }
 }
 
-// The row-staged symmetric scan over a float32 (type 2), int8 (0) or
-// bfloat16 (1) table; scale and zero are read for the last two only.
+// The row-staged symmetric scan, table type 2 (float32), 0 (int8) or 1
+// (bfloat16).
 int pq_adc_sym_rows(const int* ca, const int* cb, const void* lut,
                     const float* scale, const float* zero, float* out, int Na,
                     int Nb, int M, int K, int type, int ta, int pitch,
                     int chunk, int grid_y, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (type) {
-    case kF32:
-      return launch_sym_rows<float>(ca, cb, static_cast<const float*>(lut),
-                                    nullptr, nullptr, out, Na, Nb, M, K, ta,
-                                    pitch, chunk, grid_y, s);
-    case kInt8:
-      return launch_sym_rows<int8_t>(ca, cb, static_cast<const int8_t*>(lut),
-                                     scale, zero, out, Na, Nb, M, K, ta, pitch,
-                                     chunk, grid_y, s);
-    case kBF16:
-      return launch_sym_rows<__nv_bfloat16>(
-          ca, cb, static_cast<const __nv_bfloat16*>(lut), scale, zero, out,
-          Na, Nb, M, K, ta, pitch, chunk, grid_y, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_rows_typed<false>(ca, cb, lut, scale, zero, out, Na, Nb, M,
+                                  K, type, ta, pitch, chunk, grid_y,
+                                  static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory a block of the row-staged form takes (the selector in
-// pq_adc/ops.py computes the same).
+// The row-staged lookup: codes (N, M) against query tables (Nq, M, K) of
+// type 2, 0 or 1; scale and zero (Nq * M,) for a quantised table.
+int pq_adc_lookup_rows(const void* qlut, const float* scale,
+                       const float* zero, const int* codes, float* out,
+                       int Nq, int N, int M, int K, int type, int ta,
+                       int pitch, int chunk, int grid_y, void* stream) {
+  return launch_rows_typed<true>(nullptr, codes, qlut, scale, zero, out, Nq,
+                                 N, M, K, type, ta, pitch, chunk, grid_y,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory a block of the row-staged form takes (the selectors in
+// pq_adc/ops.py compute the same).
 size_t pq_adc_sym_rows_smem_bytes(int type, int ta, int M, int pitch) {
-  return rows_smem_bytes(ta, M, pitch, type != kF32);
+  return rows_smem_bytes(ta, M, pitch, type != kF32, false);
+}
+size_t pq_adc_lookup_rows_smem_bytes(int type, int ta, int M, int pitch) {
+  return rows_smem_bytes(ta, M, pitch, type != kF32, true);
 }
 
 }  // extern "C"

@@ -12,11 +12,15 @@ affine int8 or plain bfloat16) go through :func:`adc_sym_cdist_quant` and
 :func:`adc_lookup_quant`, the kernels' templated forms over the table's
 type, counted as ``adc_sym_quant`` and ``adc_lookup_quant``.
 
-The symmetric scan has two forms, picked from the shapes alone by
-:func:`sym_geometry`: the row-staged form (each query's table rows in
-shared memory, a lane per query) wherever a tile of 8 queries' rows fits,
-else the thread form (an output a thread, gathering from the LUT in
-L1/L2).  Both give the same bits and count under the same name.
+Each scan has two forms, picked from the shapes alone by
+:func:`sym_geometry` and :func:`lookup_geometry`: the row-staged form (one
+kernel body for both scans: each query's table rows in shared memory, a
+lane per query) wherever a tile of 8 queries' rows fits (and, for the
+lookup, from :data:`LOOKUP_ROWS_MIN_NQ` queries on, 128-224 by the
+table's type), else the symmetric thread form (an output a thread,
+gathering from the LUT in L1/L2) or the lookup's table form (an output a
+thread, one query's whole table staged a block).  Both forms of a scan
+give the same bits and count under the same name.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ from .ref import (adc_lookup_quant_ref, adc_lookup_ref,
 __all__ = ["adc_sym_cdist", "adc_lookup", "launch_adc_sym",
            "launch_adc_lookup", "quantize_lut", "adc_sym_cdist_quant",
            "adc_lookup_quant", "launch_adc_sym_quant",
-           "launch_adc_lookup_quant", "SymGeometry", "sym_geometry",
-           "sym_thread_geometry", "row_pitch", "rows_smem_bytes",
-           "TABLE_TYPES", "ROWS_TA", "ROWS_WARPS", "GROUP_ROWS"]
+           "launch_adc_lookup_quant", "ScanGeometry", "sym_geometry",
+           "sym_thread_geometry", "lookup_geometry", "lookup_table_geometry",
+           "row_pitch", "rows_smem_bytes", "TABLE_TYPES", "ROWS_TA",
+           "ROWS_WARPS", "GROUP_ROWS", "LOOKUP_ROWS_MIN_NQ"]
 
 _MAX_GRID_Y = 65535
 _SMEM_MAX = 227 * 1024
@@ -42,8 +47,8 @@ _LOOKUP_THREADS = 256
 # the kernels' table types (pq_adc.cu: kInt8, kBF16, kF32)
 _QUANT_TYPES = {torch.int8: 0, torch.bfloat16: 1}
 TABLE_TYPES = {**_QUANT_TYPES, torch.float32: 2}
-# the row-staged symmetric form (pq_adc.cu: adc_sym_rows_kernel): queries
-# a tile, largest first; warps a block; codes_b rows a warp takes at once
+# the row-staged form (pq_adc.cu: adc_rows_kernel): queries a tile,
+# largest first; warps a block; code rows a warp takes at once
 ROWS_TA = (32, 16, 8)
 ROWS_WARPS = 32
 GROUP_ROWS = 16
@@ -54,14 +59,20 @@ _SMS = 132
 # the staged table rows of all chunks stay within this share of the
 # output's bytes (each chunk restages Na * M * K entries from L2)
 _RESTAGE_SHARE = 0.75
+# the lookup takes the row-staged form from this many queries on, by the
+# table's item size (fewer leave most of a tile's lanes idle; the
+# crossover on the H100, see lookup_geometry)
+LOOKUP_ROWS_MIN_NQ = {4: 224, 2: 192, 1: 128}
 
 
-class SymGeometry(NamedTuple):
-    """A launch of the symmetric scan: ``form`` ``"rows"`` (row-staged) or
-    ``"thread"``; ``ta`` queries a tile and ``pitch`` the staged rows'
-    pitch in 4-byte words (0 for the thread form); ``chunk`` codes_b rows
-    a block (the thread form: its tile's 32); ``smem`` bytes of shared
-    memory a block; ``grid`` ``(x, y)`` blocks."""
+class ScanGeometry(NamedTuple):
+    """A launch of an ADC scan: ``form`` ``"rows"`` (row-staged),
+    ``"thread"`` (the symmetric scan's output a thread) or ``"table"``
+    (the lookup's output a thread, a query's table a block); ``ta``
+    queries a tile and ``pitch`` the staged rows' pitch in 4-byte words (0
+    for the other forms); ``chunk`` code rows a block (the thread form:
+    its tile's 32; the table form: its block's 256 threads); ``smem`` bytes
+    of shared memory a block; ``grid`` ``(x, y)`` blocks."""
     form: str
     ta: int
     pitch: int
@@ -85,24 +96,29 @@ def row_pitch(K: int, itemsize: int, ta: int) -> int:
     return -(-words // 32) * 32 + 32 // int(ta)
 
 
-def rows_smem_bytes(ta: int, M: int, K: int, itemsize: int) -> int:
+def rows_smem_bytes(ta: int, M: int, K: int, itemsize: int,
+                    lookup: bool = False) -> int:
     """Shared memory a block of the row-staged form takes: the tile's ``M
     x ta`` table rows, each warp's code offsets (16 rows x ``M``) and
     output tile (``ta x (16 + 32 // ta)``), and a quantised table's
-    ``scale``/``zero`` (``pq_adc_sym_rows_smem_bytes`` in the kernel
-    library computes the same).
+    ``scale``/``zero``: ``M`` of each, or in the lookup ``ta x M`` (one a
+    query and subspace).  ``pq_adc_sym_rows_smem_bytes`` and
+    ``pq_adc_lookup_rows_smem_bytes`` in the kernel library compute the
+    same.
 
     >>> rows_smem_bytes(16, 8, 256, 4), rows_smem_bytes(32, 8, 256, 1)
     (185344, 152640)
+    >>> rows_smem_bytes(32, 8, 256, 1, lookup=True)
+    154624
     """
     warp_words = GROUP_ROWS * M + ta * (GROUP_ROWS + 32 // ta)
-    quant = 2 * M if itemsize != 4 else 0
+    quant = 2 * M * (ta if lookup else 1) if itemsize != 4 else 0
     return 4 * (M * ta * row_pitch(K, itemsize, ta)
                 + ROWS_WARPS * warp_words + quant)
 
 
 def sym_thread_geometry(Na: int, Nb: int, M: int, itemsize: int
-                        ) -> SymGeometry:
+                        ) -> ScanGeometry:
     """The thread form: a 32 x 8 block of outputs, the codes of its tile
     in shared memory at an odd pitch, the grid's y walking ``Na``
     grid-stride beyond 65535 blocks.
@@ -112,45 +128,34 @@ def sym_thread_geometry(Na: int, Nb: int, M: int, itemsize: int
     """
     pitch = M + 1 if M % 2 == 0 else M
     smem = (_TILE_I + _TILE_J) * pitch * 4 + (8 * M if itemsize != 4 else 0)
-    return SymGeometry("thread", 0, 0, _TILE_J, smem,
-                       (-(-Nb // _TILE_J),
-                        max(1, min(-(-Na // _TILE_I), _MAX_GRID_Y))))
+    return ScanGeometry("thread", 0, 0, _TILE_J, smem,
+                        (-(-Nb // _TILE_J),
+                         max(1, min(-(-Na // _TILE_I), _MAX_GRID_Y))))
 
 
-def sym_geometry(Na: int, Nb: int, M: int, K: int, itemsize: int,
-                 ta: Optional[int] = None) -> SymGeometry:
-    """The symmetric scan's form and launch for ``(Na, M) x (Nb, M)``
-    codes over an ``(M, K, K)`` table of ``itemsize``-byte entries, from
-    the shapes alone.
-
-    The row-staged form wherever a tile's rows fit the card's 227 KB a
-    block (a row of ``K`` entries a whole number of 4-byte words): the
-    largest of :data:`ROWS_TA` that fits, or ``ta``.  ``Nb`` is cut into
-    ``n`` chunks, a block a (tile, chunk): the least ``n`` that gives the
-    SM with the most work, ``ceil(tiles n / SMs) / n`` tiles, within 5% of
-    the least such work, with the restaged rows of all chunks within
-    three quarters of the output's bytes; a chunk is a whole number of 16
-    rows.  Else the thread form
-    (:func:`sym_thread_geometry`).  A ``ta`` that does not fit raises.
-
-    >>> sym_geometry(768, 6144, 8, 256, 4)
-    SymGeometry(form='rows', ta=16, pitch=258, chunk=3072, smem=185344, grid=(2, 48))
-    >>> sym_geometry(768, 6144, 8, 256, 1).grid
-    (5, 24)
-    >>> sym_geometry(768, 6144, 8, 1024, 4).form
-    'thread'
-    """
+def _rows_geometry(Na: int, Nb: int, M: int, K: int, itemsize: int,
+                   ta: Optional[int], lookup: bool
+                   ) -> Optional[ScanGeometry]:
+    """The row-staged form's launch for ``Na`` queries against ``Nb`` code
+    rows, or ``None`` where no tile's rows fit the card's 227 KB a block
+    (a row of ``K`` entries a whole number of 4-byte words): the largest
+    of :data:`ROWS_TA` that fits, or ``ta`` (raises if it does not fit).
+    ``Nb`` is cut into ``n`` chunks, a block a (tile, chunk): the least
+    ``n`` that gives the SM with the most work, ``ceil(tiles n / SMs) /
+    n`` tiles, within 5% of the least such work, with the restaged rows of
+    all chunks within three quarters of the output's bytes; a chunk is a
+    whole number of 16 rows."""
     sizes = ROWS_TA if ta is None else (int(ta),)
     fits = [t for t in sizes
             if (K * itemsize) % 4 == 0
-            and rows_smem_bytes(t, M, K, itemsize) <= _SMEM_MAX]
+            and rows_smem_bytes(t, M, K, itemsize, lookup) <= _SMEM_MAX]
     if not fits:
         if ta is not None:
             raise ValueError(f"a tile of {ta} queries' ({M}, {K}) table rows "
                              "does not fit in shared memory")
-        return sym_thread_geometry(Na, Nb, M, itemsize)
+        return None
     ta = fits[0]
-    smem = rows_smem_bytes(ta, M, K, itemsize)
+    smem = rows_smem_bytes(ta, M, K, itemsize, lookup)
     tiles = -(-Na // ta)
     cap = int(_RESTAGE_SHARE * Nb * 4) // (M * K * itemsize)
     work = {n: -(-tiles * n // _SMS) / n
@@ -158,8 +163,80 @@ def sym_geometry(Na: int, Nb: int, M: int, K: int, itemsize: int,
     least = min(work.values())
     n = min(n for n, w in work.items() if w <= 1.05 * least)
     chunk = -(-(-(-Nb // n)) // GROUP_ROWS) * GROUP_ROWS
-    return SymGeometry("rows", ta, row_pitch(K, itemsize, ta), chunk, smem,
-                       (-(-Nb // chunk), min(tiles, _MAX_GRID_Y)))
+    return ScanGeometry("rows", ta, row_pitch(K, itemsize, ta), chunk, smem,
+                        (-(-Nb // chunk), min(tiles, _MAX_GRID_Y)))
+
+
+def sym_geometry(Na: int, Nb: int, M: int, K: int, itemsize: int,
+                 ta: Optional[int] = None) -> ScanGeometry:
+    """The symmetric scan's form and launch for ``(Na, M) x (Nb, M)``
+    codes over an ``(M, K, K)`` table of ``itemsize``-byte entries, from
+    the shapes alone: the row-staged form wherever a tile's rows fit (the
+    tile and chunks as :func:`_rows_geometry` picks them), else the thread
+    form (:func:`sym_thread_geometry`).  A ``ta`` that does not fit
+    raises.
+
+    >>> sym_geometry(768, 6144, 8, 256, 4)
+    ScanGeometry(form='rows', ta=16, pitch=258, chunk=3072, smem=185344, grid=(2, 48))
+    >>> sym_geometry(768, 6144, 8, 256, 1).grid
+    (5, 24)
+    >>> sym_geometry(768, 6144, 8, 1024, 4).form
+    'thread'
+    """
+    return (_rows_geometry(Na, Nb, M, K, itemsize, ta, lookup=False)
+            or sym_thread_geometry(Na, Nb, M, itemsize))
+
+
+def lookup_table_geometry(Nq: int, N: int, M: int, K: int, itemsize: int
+                          ) -> ScanGeometry:
+    """The lookup's table form: 256 threads a block, an output a thread,
+    the block's query's whole ``(M, K)`` table (and a quantised table's
+    ``scale``/``zero``) in shared memory; ``grid`` ``(x, y)`` with ``y``
+    walking the queries grid-stride beyond 65535 and ``x`` cut so that
+    the grid holds about 4096 blocks.
+
+    >>> lookup_table_geometry(768, 6144, 8, 256, 4).grid
+    (5, 768)
+    """
+    smem = -(-M * K * itemsize // 4) * 4 + (8 * M if itemsize != 4 else 0)
+    return ScanGeometry("table", 0, 0, _LOOKUP_THREADS, smem,
+                        (min(-(-N // _LOOKUP_THREADS), max(1, 4096 // Nq)),
+                         min(Nq, _MAX_GRID_Y)))
+
+
+def lookup_geometry(Nq: int, N: int, M: int, K: int, itemsize: int,
+                    ta: Optional[int] = None) -> ScanGeometry:
+    """The lookup's form and launch for ``(N, M)`` codes against ``(Nq, M,
+    K)`` query tables of ``itemsize``-byte entries, from the shapes alone:
+    the row-staged form (the tile and chunks as :func:`_rows_geometry`
+    picks them for the symmetric scan; a quantised table's affine is ``ta
+    x M`` floats more) from ``LOOKUP_ROWS_MIN_NQ[itemsize]`` queries on
+    wherever a tile's rows fit, else the table form
+    (:func:`lookup_table_geometry`).  A ``ta`` forces the row-staged form
+    (raises if it does not fit).
+
+    The threshold is the crossover measured on an NVIDIA H100 80GB HBM3
+    at 700 W (``chip_smoke.py``'s ``crossover_device_ms``, 6144 codes, M
+    = 8, K = 256, device ms, table form / row-staged form): a row-staged
+    block's work does not shrink with ``Nq``, so its time stays near
+    0.015-0.023 ms while the table form's grows with ``Nq``.  f32: 128
+    queries 0.0154 / 0.0219, 256 0.0251 / 0.0219; int8: 64 0.0098 /
+    0.0150, 128 0.0163 / 0.0151; bf16: 128 0.0172 / 0.0233, 256 0.0290 /
+    0.0234 (PERF.md §6).
+
+    >>> lookup_geometry(768, 6144, 8, 256, 4)
+    ScanGeometry(form='rows', ta=16, pitch=258, chunk=3072, smem=185344, grid=(2, 48))
+    >>> lookup_geometry(768, 6144, 8, 256, 1).grid
+    (5, 24)
+    >>> lookup_geometry(1, 6144, 8, 256, 4).form
+    'table'
+    """
+    geo = None
+    if ta is not None or Nq >= LOOKUP_ROWS_MIN_NQ[itemsize]:
+        geo = _rows_geometry(Nq, N, M, K, itemsize, ta, lookup=True)
+    return geo or lookup_table_geometry(Nq, N, M, K, itemsize)
+
+
 # 1/254 as float32: the reference's compiler turns its division by the
 # constant 254.0 into this product
 _INV_254 = torch.tensor(1.0 / 254.0, dtype=torch.float32)
@@ -221,19 +298,36 @@ def launch_adc_sym(ca: torch.Tensor, cb: torch.Tensor, lut: torch.Tensor,
     _launch_sym("adc_sym", ca, cb, lut, None, None, out)
 
 
+def _launch_lookup(name: str, c: torch.Tensor, q: torch.Tensor,
+                   scale: Optional[torch.Tensor],
+                   zero: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """Launch the lookup in the form :func:`lookup_geometry` picks."""
+    (Nq, M, K), N = q.shape, c.shape[0]
+    geo = lookup_geometry(Nq, N, M, K, q.element_size())
+    lib, stream = _build.lib(), _build.stream(out.device)
+    if geo.form == "rows":
+        status = lib.pq_adc_lookup_rows(
+            q.data_ptr(), _build.ptr(scale), _build.ptr(zero), c.data_ptr(),
+            out.data_ptr(), Nq, N, M, K, TABLE_TYPES[q.dtype], geo.ta,
+            geo.pitch, geo.chunk, geo.grid[1], stream)
+    elif scale is None:
+        status = lib.pq_adc_lookup(
+            q.data_ptr(), c.data_ptr(), out.data_ptr(), Nq, N, M, K,
+            geo.chunk, *geo.grid, stream)
+    else:
+        status = lib.pq_adc_lookup_quant(
+            q.data_ptr(), scale.data_ptr(), zero.data_ptr(), c.data_ptr(),
+            out.data_ptr(), Nq, N, M, K, _QUANT_TYPES[q.dtype], geo.chunk,
+            *geo.grid, stream)
+    _build.check(status, name)
+    _build.count_launch(name)
+
+
 def launch_adc_lookup(c: torch.Tensor, q: torch.Tensor,
                       out: torch.Tensor) -> None:
     """Launch the lookup kernel into ``out (Nq, N)``: contiguous int32 codes
     in range, contiguous float32 tables ``(Nq, M, K)``, one CUDA device."""
-    (Nq, M, K), N = q.shape, c.shape[0]
-    blocks_n = -(-N // _LOOKUP_THREADS)
-    grid_x = min(blocks_n, max(1, 4096 // Nq))
-    grid_y = min(Nq, _MAX_GRID_Y)
-    status = _build.lib().pq_adc_lookup(
-        q.data_ptr(), c.data_ptr(), out.data_ptr(), Nq, N, M, K,
-        _LOOKUP_THREADS, grid_x, grid_y, _build.stream(out.device))
-    _build.check(status, "adc_lookup")
-    _build.count_launch("adc_lookup")
+    _launch_lookup("adc_lookup", c, q, None, None, out)
 
 
 def adc_sym_cdist(codes_a: torch.Tensor, codes_b: torch.Tensor,
@@ -341,18 +435,9 @@ def launch_adc_lookup_quant(c: torch.Tensor, q: torch.Tensor,
                             scale: torch.Tensor, zero: torch.Tensor,
                             out: torch.Tensor) -> None:
     """Launch the quantised lookup kernel into ``out (Nq, N)``: checked
-    codes, int8/bf16 tables ``(Nq, M, K)``, ``scale``/``zero (Nq * M,)``
-    float32, all on one CUDA device."""
-    (Nq, M, K), N = q.shape, c.shape[0]
-    blocks_n = -(-N // _LOOKUP_THREADS)
-    grid_x = min(blocks_n, max(1, 4096 // Nq))
-    grid_y = min(Nq, _MAX_GRID_Y)
-    status = _build.lib().pq_adc_lookup_quant(
-        q.data_ptr(), scale.data_ptr(), zero.data_ptr(), c.data_ptr(),
-        out.data_ptr(), Nq, N, M, K, _QUANT_TYPES[q.dtype],
-        _LOOKUP_THREADS, grid_x, grid_y, _build.stream(out.device))
-    _build.check(status, "adc_lookup_quant")
-    _build.count_launch("adc_lookup_quant")
+    codes, int8/bf16 tables ``(Nq, M, K)`` at a 4-byte-aligned address,
+    ``scale``/``zero (Nq * M,)`` float32, all on one CUDA device."""
+    _launch_lookup("adc_lookup_quant", c, q, scale, zero, out)
 
 
 def adc_sym_cdist_quant(codes_a: torch.Tensor, codes_b: torch.Tensor,

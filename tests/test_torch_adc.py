@@ -46,6 +46,21 @@ def test_adc_lookup_matches_jax(seed):
     np.testing.assert_allclose(batch.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("M,K,Nb,Nq", [(4, 16, 37, 19), (3, 16, 21, 5),
+                                       (16, 32, 17, 33), (8, 256, 45, 7)])
+def test_adc_lookup_shapes_match_jax(M, K, Nb, Nq):
+    """Batched lookups at shapes the kernel's tiles cut short (query and
+    code counts not a multiple of 16, M = 3 at K = 16, M = 16) equal the
+    reference's single-query lookups."""
+    _, _, cb, qlut = _codes_and_tables(11 + M, M=M, K=K, Nb=Nb, Nq=Nq)
+    with jdispatch.use_backend("jax"):
+        want = np.stack([np.asarray(jdispatch.adc_lookup(cb, q))
+                         for q in qlut])
+    got = tdispatch.adc_lookup(torch.from_numpy(cb), torch.from_numpy(qlut))
+    assert got.shape == (Nq, Nb)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_adc_matches_pallas_interpret():
     lut, ca, cb, qlut = _codes_and_tables(7, M=2, K=8, Na=4, Nb=5)
     with jdispatch.use_backend("pallas_interpret"):

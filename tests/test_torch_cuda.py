@@ -42,8 +42,9 @@ and static corridors and in corridors along the table's edges (cells at
 i = 0 and j = 0 deep into the sweep), and equals its thread form on
 corridors that break the invariants; the symmetric ADC scan's
 row-staged form equals its thread form and the plain version bit for bit
-at every tile that fits, for float32, int8 and bfloat16 tables.  The
-earlier forms are reached through ``_build.lib()``.
+at every tile that fits, for float32, int8 and bfloat16 tables, and the
+lookup's row-staged form its table form and the plain version likewise.
+The earlier forms are reached through ``_build.lib()``.
 """
 
 import pytest
@@ -1146,3 +1147,92 @@ def test_dtw_band_register_form_grid_stride(gen, measure):
             n, L, w, kid, float(tmeas.kernel_param(spec)), bucket,
             32 * warps, grid, _build.stream(A.device)), "dtw_band")
         assert torch.equal(out, old), grid
+
+
+def _lookup_launch(codes, table, scale, zero, out, ta=None):
+    """The lookup through the kernel library: the table form (``ta=None``)
+    or the row-staged form at ``ta`` queries a tile."""
+    (Nq, M, K), N = table.shape, codes.shape[0]
+    lib, stream = _build.lib(), _build.stream(out.device)
+    size, code = table.element_size(), adc_ops.TABLE_TYPES[table.dtype]
+    if ta is not None:
+        geo = adc_ops.lookup_geometry(Nq, N, M, K, size, ta=ta)
+        status = lib.pq_adc_lookup_rows(
+            table.data_ptr(), _build.ptr(scale), _build.ptr(zero),
+            codes.data_ptr(), out.data_ptr(), Nq, N, M, K, code, ta,
+            geo.pitch, geo.chunk, geo.grid[1], stream)
+    else:
+        geo = adc_ops.lookup_table_geometry(Nq, N, M, K, size)
+        if scale is None:
+            status = lib.pq_adc_lookup(table.data_ptr(), codes.data_ptr(),
+                                       out.data_ptr(), Nq, N, M, K,
+                                       geo.chunk, *geo.grid, stream)
+        else:
+            status = lib.pq_adc_lookup_quant(
+                table.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+                codes.data_ptr(), out.data_ptr(), Nq, N, M, K, code,
+                geo.chunk, *geo.grid, stream)
+    _build.check(status, "adc_lookup (a form)")
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("M,K,nq,n", [(8, 256, 77, 301), (8, 256, 301, 77),
+                                      (3, 16, 259, 5), (16, 256, 263, 1000),
+                                      (8, 256, 1, 6144), (8, 256, 768, 6144),
+                                      (8, 6, 300, 70), (8, 0, 260, 70)])
+def test_adc_lookup_rows_form(gen, dtype, M, K, nq, n):
+    """The lookup's row-staged form (the wrapper's choice from
+    LOOKUP_ROWS_MIN_NQ queries on where a tile of rows fits) equals its
+    table form and the plain version bit for bit, at every tile that fits,
+    for float32, int8 and bfloat16 tables; K = 6 gives int8 rows that are
+    not whole 4-byte words and K = 0 stands for rows of 4 KB, which no
+    tile holds: the table form.  One launch counted a call."""
+    itemsize = {"float32": 4, "int8": 1, "bfloat16": 2}[dtype]
+    K = K or 4096 // itemsize
+    qlut = _randn(gen, nq, M, K).abs()
+    codes = torch.randint(0, K, (n, M), device="cuda", dtype=torch.int32)
+    name = "adc_lookup" if dtype == "float32" else "adc_lookup_quant"
+    before = _build.LAUNCHES[name]
+    if dtype == "float32":
+        table, scale, zero = qlut, None, None
+        got = adc_lookup(codes, qlut)
+        want = adc_lookup_ref(codes, qlut)
+    else:
+        table, scale, zero = quantize_lut(qlut.reshape(nq * M, K), dtype)
+        table = table.reshape(nq, M, K)
+        scale, zero = scale.reshape(nq, M, 1), zero.reshape(nq, M, 1)
+        got = adc_lookup_quant(codes, table, scale, zero)
+        want = adc_lookup_quant_ref(codes, table, scale, zero)
+        scale, zero = scale.reshape(-1), zero.reshape(-1)
+    assert _build.LAUNCHES[name] == before + 1
+    fits = [ta for ta in adc_ops.ROWS_TA
+            if (K * itemsize) % 4 == 0
+            and adc_ops.rows_smem_bytes(ta, M, K, itemsize, True)
+            <= 227 * 1024]
+    geo = adc_ops.lookup_geometry(nq, n, M, K, itemsize)
+    assert geo.form == ("rows" if fits
+                        and nq >= adc_ops.LOOKUP_ROWS_MIN_NQ[itemsize]
+                        else "table")
+    assert torch.equal(got, want)
+    out = torch.empty_like(got)
+    assert torch.equal(_lookup_launch(codes, table, scale, zero, out), got)
+    for ta in fits:
+        out.zero_()
+        assert torch.equal(_lookup_launch(codes, table, scale, zero, out, ta),
+                           got), f"{ta} queries a tile"
+    assert _build.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("M,K", [(8, 256), (3, 16), (16, 256)])
+def test_adc_lookup_rows_smem_matches_the_selector(gen, M, K):
+    """The kernel library's shared memory for the row-staged lookup is the
+    selector's, for every table type and tile (a quantised table's affine
+    a query and subspace)."""
+    for dtype, code in adc_ops.TABLE_TYPES.items():
+        size = torch.empty(0, dtype=dtype).element_size()
+        for ta in adc_ops.ROWS_TA:
+            pitch = adc_ops.row_pitch(K, size, ta)
+            assert (_build.lib().pq_adc_lookup_rows_smem_bytes(
+                code, ta, M, pitch)
+                == adc_ops.rows_smem_bytes(ta, M, K, size, lookup=True))

@@ -639,3 +639,194 @@ def test_quantised_table_view_is_aligned_for_the_rows():
     assert got.data_ptr() % 4 == 0 and torch.equal(got, view)
     aligned = base[4:4 + 2 * 16 * 16].view(2, 16, 16)
     assert adc_ops._quant_table(aligned).data_ptr() == aligned.data_ptr()
+
+
+# -- the ADC lookup (rows 4 and 10): row-staged form or table form --
+
+def _lookup_fits(M, K, itemsize):
+    return [ta for ta in adc_ops.ROWS_TA
+            if (K * itemsize) % 4 == 0
+            and adc_ops.rows_smem_bytes(ta, M, K, itemsize, lookup=True)
+            <= SMEM_MAX]
+
+
+@pytest.mark.parametrize("itemsize", SIZES)
+@pytest.mark.parametrize("M,K", [(3, 16), (8, 256), (16, 256), (8, 512),
+                                 (8, 1024), (4, 2048), (8, 4096), (8, 6)])
+def test_lookup_geometry_fits_shared_memory(itemsize, M, K):
+    """From LOOKUP_ROWS_MIN_NQ queries on, the lookup takes the largest
+    tile of ROWS_TA whose rows, warps' words and (quantised) per-query
+    affine fit the card's 227 KB a block; where none fits, the table
+    form, whose smem is one query's table (and its scale and zero)."""
+    Nq = 768
+    geo = adc_ops.lookup_geometry(Nq, 6144, M, K, itemsize)
+    fitting = _lookup_fits(M, K, itemsize)
+    if not fitting:
+        assert geo.form == "table" and geo.ta == 0
+        assert geo.smem == -(-M * K * itemsize // 4) * 4 + (
+            8 * M if itemsize != 4 else 0)
+        return
+    assert geo.form == "rows" and geo.ta == fitting[0] == max(fitting)
+    assert geo.smem <= SMEM_MAX
+    pitch = adc_ops.row_pitch(K, itemsize, geo.ta)
+    assert geo.pitch == pitch
+    rows, warps = adc_ops.GROUP_ROWS, adc_ops.ROWS_WARPS
+    warp_words = rows * M + geo.ta * (rows + 32 // geo.ta)
+    affine = 2 * M * geo.ta if itemsize != 4 else 0
+    assert geo.smem == 4 * (M * geo.ta * pitch + warps * warp_words + affine)
+    # the symmetric scan's affine is per subspace: 2 M (ta - 1) words less
+    assert geo.smem - adc_ops.rows_smem_bytes(geo.ta, M, K, itemsize) == (
+        4 * 2 * M * (geo.ta - 1) if itemsize != 4 else 0)
+
+
+@pytest.mark.parametrize("itemsize", SIZES)
+@pytest.mark.parametrize("Nq", [1, 5, 768, 6144, 70000])
+@pytest.mark.parametrize("N", [1, 5, 768, 6144, 70000])
+def test_lookup_grid_covers_every_output_once(itemsize, Nq, N):
+    """Either form covers every (query, code row) exactly once: the
+    row-staged form by (chunk, tile) blocks and each warp's groups of
+    GROUP_ROWS code rows, the grid's y walking the tiles grid-stride, the
+    chunks restaging the tables within three quarters of the output's
+    bytes; the table form by its x blocks of 256 threads walking the code
+    rows grid-stride and its y walking the queries grid-stride."""
+    M, K = 8, 256
+    geo = adc_ops.lookup_geometry(Nq, N, M, K, itemsize)
+    gx, gy = geo.grid
+    assert geo.form == ("rows" if Nq >= adc_ops.LOOKUP_ROWS_MIN_NQ[itemsize]
+                        else "table")
+    if geo.form == "table":
+        assert gy == min(Nq, 65535) and geo.chunk == 256
+        assert _covered_once(Nq, [(q, q + 1) for by in range(gy)
+                                  for q in range(by, Nq, gy)])
+        stride = gx * geo.chunk
+        assert _covered_once(N, [(n, n + 1) for t in range(stride)
+                                 for n in range(t, N, stride)])
+        assert gx * gy <= max(4096, gy)
+        return
+    tiles = -(-Nq // geo.ta)
+    assert gy == min(tiles, 65535)
+    assert _covered_once(tiles, [(t, t + 1) for by in range(gy)
+                                 for t in range(by, tiles, gy)])
+    chunks = [(bx * geo.chunk, min((bx + 1) * geo.chunk, N))
+              for bx in range(gx)]
+    assert all(a < b for a, b in chunks)
+    rows, warps = adc_ops.GROUP_ROWS, adc_ops.ROWS_WARPS
+    assert geo.chunk % rows == 0
+    groups = [(j0, min(j0 + rows, b)) for a, b in chunks
+              for warp in range(warps)
+              for j0 in range(a + rows * warp, b, rows * warps)]
+    assert _covered_once(N, groups)
+    assert gx == 1 or gx * Nq * M * K * itemsize <= 0.75 * Nq * N * 4
+
+
+@pytest.mark.parametrize("itemsize,ta,grid", [(4, 16, (2, 48)),
+                                              (1, 32, (5, 24)),
+                                              (2, 32, None)])
+def test_lookup_geometry_main_path(itemsize, ta, grid):
+    """At the main path's 768 query tables x 6144 codes, M = 8, K = 256,
+    every table type takes the row-staged form (f32: 16 queries a tile,
+    2 chunks; int8 and bf16: a warp of 32), the grid within one wave of
+    the 132 SMs; one query's table takes the table form."""
+    geo = adc_ops.lookup_geometry(768, 6144, 8, 256, itemsize)
+    assert (geo.form, geo.ta) == ("rows", ta)
+    assert grid is None or geo.grid == grid
+    assert geo.grid[0] * geo.grid[1] <= 132
+    assert adc_ops.lookup_geometry(1, 6144, 8, 256, itemsize).form == "table"
+
+
+@pytest.mark.parametrize("itemsize", SIZES)
+def test_lookup_geometry_crossover_in_the_query_count(itemsize):
+    """The table form up to LOOKUP_ROWS_MIN_NQ[itemsize] - 1 queries, the
+    row-staged form from there on (the crossover measured on the card)."""
+    least = adc_ops.LOOKUP_ROWS_MIN_NQ[itemsize]
+    assert 1 < least <= 768
+    for Nq, form in ((1, "table"), (least - 1, "table"), (least, "rows"),
+                     (768, "rows")):
+        assert adc_ops.lookup_geometry(Nq, 6144, 8, 256,
+                                       itemsize).form == form
+
+
+def test_lookup_geometry_ta_that_does_not_fit_raises():
+    assert adc_ops.lookup_geometry(768, 6144, 8, 256, 4, ta=16).ta == 16
+    # a tile forces the row-staged form, whatever the query count
+    assert adc_ops.lookup_geometry(1, 6144, 8, 256, 1, ta=8).form == "rows"
+    with pytest.raises(ValueError, match="shared memory"):
+        adc_ops.lookup_geometry(768, 6144, 8, 256, 4, ta=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        adc_ops.lookup_geometry(768, 6144, 8, 6, 1, ta=32)  # 6-byte rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("M,K,Nq,N", [(8, 256, 77, 301), (8, 256, 301, 77),
+                                      (3, 16, 259, 5), (16, 256, 263, 1000),
+                                      (8, 256, 1, 70), (8, 6, 300, 70),
+                                      (8, 1024, 260, 6), (8, 4096, 260, 6),
+                                      (8, 256, 0, 70)])
+def test_adc_lookup_hands_its_form(monkeypatch, dtype, M, K, Nq, N):
+    """adc_lookup (float32) and adc_lookup_quant (int8, bfloat16) hand the
+    row-staged entry the table's type code (2, 0, 1) and lookup_geometry's
+    tile, pitch, chunk and grid where it picks that form, and the table
+    form's entry (pq_adc_lookup / pq_adc_lookup_quant) its 256 threads and
+    grid elsewhere: under LOOKUP_ROWS_MIN_NQ queries, for rows that are
+    not whole 4-byte words (int8 at K = 6) and rows no tile holds.  Nq = 0
+    stands for one (M, K) table (the 2-D call).  One launch counted."""
+    single = Nq == 0
+    Nq = Nq or 1
+    rng = np.random.default_rng(3)
+    codes = torch.from_numpy(rng.integers(0, K, (N, M)).astype(np.int32))
+    qlut = torch.zeros(Nq, M, K)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, adc_ops)
+    monkeypatch.setattr(adc_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(adc_ops._build, "stream", lambda dev: 0)
+    name = "adc_lookup" if dtype == "float32" else "adc_lookup_quant"
+    monkeypatch.setitem(_build.LAUNCHES, name, 0)
+    if dtype == "float32":
+        out = adc_ops.adc_lookup(codes, qlut[0] if single else qlut)
+        itemsize, code = 4, 2
+    else:
+        q, scale, zero = adc_ops.quantize_lut(qlut.reshape(Nq * M, K), dtype)
+        q, scale, zero = (t.reshape(Nq, M, -1) for t in (q, scale, zero))
+        if single:
+            q, scale, zero = q[0], scale[0], zero[0]
+        out = adc_ops.adc_lookup_quant(codes, q, scale, zero)
+        itemsize, code = q.element_size(), {"int8": 0, "bfloat16": 1}[dtype]
+    assert out.shape == ((N,) if single else (Nq, N))
+    assert _build.LAUNCHES[name] == 1
+    (entry, args), = lib.called
+    geo = adc_ops.lookup_geometry(Nq, N, M, K, itemsize)
+    fits = _lookup_fits(M, K, itemsize)
+    assert geo.form == ("rows" if fits
+                        and Nq >= adc_ops.LOOKUP_ROWS_MIN_NQ[itemsize]
+                        else "table")
+    if geo.form == "rows":
+        assert entry == "pq_adc_lookup_rows"
+        assert args[5:14] == (Nq, N, M, K, code, geo.ta, geo.pitch,
+                              geo.chunk, geo.grid[1])
+        assert (args[1] is None) == (dtype == "float32")  # scale
+        assert args[0] % 4 == 0   # the tables, 4-byte aligned
+    elif dtype == "float32":
+        assert entry == "pq_adc_lookup"
+        assert args[3:10] == (Nq, N, M, K, 256, *geo.grid)
+    else:
+        assert entry == "pq_adc_lookup_quant"
+        assert args[5:13] == (Nq, N, M, K, code, 256, *geo.grid)
+
+
+def test_adc_lookup_quant_hands_an_aligned_table(monkeypatch):
+    """Query tables viewed at an odd offset reach the row-staged entry
+    copied to a 4-byte-aligned address (it copies rows in 4-byte words)."""
+    Nq, M, K = 300, 8, 16
+    base = torch.zeros(4 + Nq * M * K, dtype=torch.int8)
+    view = base[1:1 + Nq * M * K].view(Nq, M, K)
+    assert view.data_ptr() % 4 != 0
+    scale = torch.ones(Nq, M, 1)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, adc_ops)
+    monkeypatch.setattr(adc_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(adc_ops._build, "stream", lambda dev: 0)
+    adc_ops.adc_lookup_quant(torch.zeros(5, M, dtype=torch.int32), view,
+                             scale, 0 * scale)
+    (entry, args), = lib.called
+    assert entry == "pq_adc_lookup_rows"
+    assert args[0] % 4 == 0 and args[0] != view.data_ptr()

@@ -141,6 +141,24 @@ def test_adc_lookup_quant_batched_per_query(dtype):
             np.testing.assert_array_equal(got[i].numpy(), single.numpy())
 
 
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("M,K,n,Nq", [(4, 16, 37, 19), (3, 16, 21, 5),
+                                      (16, 32, 17, 33)])
+def test_adc_lookup_quant_shapes_match_jax(dtype, M, K, n, Nq):
+    """Batched quantised lookups at shapes the kernel's tiles cut short
+    (query and code counts not a multiple of 16, M = 3 at K = 16, M = 16)
+    equal the reference's single-query quantised lookups."""
+    qluts = _lut(M + Nq, (Nq, M, K), 3.0)
+    codes = _codes(M + n, n, M, K)
+    got = tdispatch.adc_lookup(_t(codes), _t(qluts), lut_dtype=dtype)
+    assert got.shape == (Nq, n)
+    with jdispatch.use_backend("jax"):
+        want = np.stack([np.asarray(jdispatch.adc_lookup(codes, q,
+                                                         lut_dtype=dtype))
+                         for q in qluts])
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 def test_pq_cdist_sym_lut_dtype_matches_jax(dtype):
     M, K = 4, 16
