@@ -33,6 +33,24 @@ window 7), then the search paths beyond 1-NN on the same data:
   the reference's benchmark baseline, one warp a pair up to L = 1024) on
   the adaptive path's 7680 pairs, equal to the band-compressed sweep bit
   for bit;
+- ``table1_path``: the paper's Table 1 through its torch leg
+  (``repro_torch.bench.table1_accuracy``) at the reference benchmark's
+  full grid (CBF, Trace and GunPoint surrogates, 40 series a class, L =
+  192, seeds 0-4: PQDTW, PQ_ED, ED, full DTW, cDTW5/10, SBD, SAX); its
+  rows, seconds and launches printed; for CBF seed 0 the card's LUTs and
+  envelopes equal their rebuild on the CPU from the card's centroids, the
+  CPU route on the card's codebooks gives the same codes, row 2's
+  matrices (full DTW at w = 191, the band row in shared memory) and
+  symmetric PQ matrices bit for bit, ED, SBD and the refined clustering
+  distance within tolerance, and the same errors and Rand indices, and
+  the CPU route's own fit from the same initial centroids gives centroids
+  within tolerance and the same codes, errors and Rand indices; the
+  card's float32 ``sqrt`` is correctly rounded; PQDTW's 1-NN error on CBF
+  below 0.5;
+- ``fig5_path``: the Fig. 5a / 5b / 5c legs at the reference's quick
+  sizes (5a's DTW matrices on row 2, the PQ matrices on row 3, 5c's fused
+  encode on row 5), rows and launches printed; every row's codes, DTW and
+  PQ matrices equal the plain route's on the same inputs bit for bit;
 - ``lm_path``: PQ-KV decode serving of internlm2-1.8b at full width (24
   layers, d_model 2048, vocab 92544) from seeded random weights: batched
   prefill of 8 prompts of 2048 random tokens, 31 exact greedy decode
@@ -326,6 +344,8 @@ def main() -> int:
     ctx["adaptive_launches"] = adaptive_path(torch, _build, ctx, waves)
     ctx["quant_launches"] = quant_path(torch, _build, ctx)
     ctx["full_launches"] = full_baseline(torch, _build, ctx)
+    ctx["eval_launches"] = {"table1_path": table1_path(torch, _build),
+                            "fig5_path": fig5_path(torch, _build)}
     ctx["lm"] = lm_path(torch, _build)
     small_reference(torch)
     small_lm_reference(torch)
@@ -1269,6 +1289,254 @@ def full_baseline(torch, _build, ctx) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The paper's evaluation: Table 1 and Fig. 5 through their torch legs
+# ---------------------------------------------------------------------------
+
+def table1_path(torch, _build) -> dict:
+    """The Table 1 leg's full grid (cbf / trace / gunpoint, 40 series a
+    class, L = 192, seeds 0-4) on the card, through its entry point; then
+    one (dataset, seed) against the CPU route.  (1) The card's codebooks:
+    their LUTs (row 2 at the subspace window for PQDTW) and envelopes
+    rebuilt on the CPU from the card's centroids, bit for bit (PQ_ED's
+    product within ``RTOL`` of the norms).  (2) The CPU route on the card's
+    codebooks: codes, row 2's matrices (cDTW5, cDTW10, full DTW at w = 191;
+    row 2 itself against its plain version) and the symmetric PQ matrices
+    bit for bit, ED (``ed_close``), SBD and the refined clustering
+    distance within ``RTOL``/``ATOL``, equal errors and Rand indices.
+    (3) The CPU route's own fit from the same initial centroids:
+    centroids within ``ATOL`` (DBA's sums part by ulps), equal codes,
+    errors and Rand indices.  Decisions between candidates within
+    ``TIE_REL`` are counted, not failed."""
+    import numpy as np
+    from repro_torch.bench import table1_accuracy as leg
+    from repro_torch.core import dispatch, pq
+    from repro_torch.data.timeseries import make_dataset
+    from repro_torch.kernels.dtw_band.ops import cdist_form
+    from repro_torch.kernels.dtw_band.ref import dtw_band_cdist_ref
+
+    g = leg.grid(False)
+    out_dir = str(ROOT / "chiprun_out" / "bench")
+    _build.reset_launches()
+    dispatch.reset_stats()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    bench, runs, leg_s = leg.run(quick=False, out_dir=out_dir)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(_build.LAUNCHES)
+    routes = sorted({route for _, route in dispatch.stats})
+    check(routes == ["cuda"], f"table1 routes {routes}")
+    for k in ("dtw_band_cdist", "adc_sym", "dtw_band"):
+        check(launches[k] > 0, f"table1_path launched {k}: {launches}")
+    check(len(runs) == len(leg.DATASETS) * len(g["seeds"]),
+          "the full grid ran")
+    cbf_err = [r["err"]["PQDTW"] for r in runs if r["dataset"] == "cbf"]
+    check(max(cbf_err) < 0.5, f"PQDTW 1-NN error on cbf {cbf_err}")
+    for r in runs:
+        for m in leg.MEASURES:
+            check(np.isfinite(r["d"][m]).all() and np.isfinite(
+                r["dtt"][m]).all(), f"{r['dataset']}/{r['seed']} {m} finite")
+
+    # full DTW at L = 192 is row 2 at w = 191, whose 2w+2 floats a thread
+    # fill a 32-thread block's 48 KB exactly: the band row in shared
+    # memory (the scratch form starts at w = 192); held against the plain
+    # version bit for bit on CBF seed 0's test x train series
+    L, n_te = g["length"], 3 * g["n_per_class"]
+    w_full = L - 1
+    form = cdist_form(w_full, 0, L)
+    ds, seed = "cbf", 0
+    Xtr, _ = make_dataset(ds, g["n_per_class"], L, seed=seed)
+    Xte, _ = make_dataset(ds, g["n_per_class"], L, seed=seed + 100)
+    te, tr = torch.from_numpy(Xte), torch.from_numpy(Xtr)
+    row2 = dispatch.elastic_cdist(te.cuda(), tr.cuda(), None)
+    row2_cpu = dtw_band_cdist_ref(te, tr, w_full)
+    row2_equal = bool(torch.equal(row2.cpu(), row2_cpu))
+    check(row2_equal, f"row 2 at w = {w_full} ({form} form) equals its "
+          "plain version bit for bit")
+    # float32 torch.sqrt against the once-rounded root on each device:
+    # measures.sqrt_rn takes the card's as it is, so it must be IEEE's
+    def root64(x):
+        return torch.sqrt(x.double()).float()
+    sqrt_off = {"cuda": int((torch.sqrt(row2) != root64(row2)).sum()),
+                "cpu": int((torch.sqrt(row2_cpu) != root64(row2_cpu)).sum()),
+                "of": row2.numel()}
+    check(sqrt_off["cuda"] == 0, f"the card's float32 sqrt is correctly "
+          f"rounded: {sqrt_off}")
+    card = next(r for r in runs if (r["dataset"], r["seed"]) == (ds, seed))
+    tables = _fit_tables(torch, card, L)
+    for name, t in tables.items():
+        check(t["lut"] and t["envelopes"], f"table1 {ds}/{seed}: {name}'s "
+              f"LUT and envelopes rebuilt on the CPU from the card's "
+              f"centroids: {t}")
+
+    books = tuple(pq.codebook_to_numpy(b) for b in card["books"])
+    t0 = time.perf_counter()
+    cpu = leg.one_run(ds, seed, g["n_per_class"], L, "cpu", books=books)
+    cpu_s = time.perf_counter() - t0
+    same = {}
+    for name in ("PQDTW", "PQ_ED"):
+        same[f"codes_{name}"] = all(
+            torch.equal(a.cpu(), b)
+            for a, b in zip(card["codes"][name], cpu["codes"][name]))
+    for name in ("DTW", "cDTW5", "cDTW10", "PQ_ED", "SAX"):
+        same[name] = bool(np.array_equal(card["d"][name], cpu["d"][name])
+                          and np.array_equal(card["dtt"][name],
+                                             cpu["dtt"][name]))
+    same["PQDTW"] = bool(np.array_equal(card["d"]["PQDTW"],
+                                        cpu["d"]["PQDTW"]))
+    close = {
+        "ED": (leg.ed_close(card["d"]["ED"], cpu["d"]["ED"], Xte, Xtr)
+               and leg.ed_close(card["dtt"]["ED"], cpu["dtt"]["ED"], Xte,
+                                Xte)),
+        "SBD": bool(np.allclose(card["d"]["SBD"], cpu["d"]["SBD"],
+                                rtol=RTOL, atol=ATOL)
+                    and np.allclose(card["dtt"]["SBD"], cpu["dtt"]["SBD"],
+                                    rtol=RTOL, atol=ATOL)),
+        "PQDTW_refined": bool(np.allclose(card["dtt"]["PQDTW"],
+                                          cpu["dtt"]["PQDTW"], rtol=RTOL,
+                                          atol=ATOL)),
+    }
+    cmp = leg.compare_runs(card, cpu)
+    for k, v in {**same, **close}.items():
+        check(v, f"table1 {ds}/{seed}: {k}, card against the CPU route")
+    check(cmp["faults"] == [], f"table1 {ds}/{seed}: errors and Rand "
+          f"indices, card against the CPU route: {cmp}")
+
+    # the CPU route's own fit from the same initial centroids
+    t0 = time.perf_counter()
+    cpu_fit = leg.one_run(ds, seed, g["n_per_class"], L, "cpu")
+    cpu_fit_s = time.perf_counter() - t0
+    fit_cmp = leg.compare_runs(card, cpu_fit)
+    fit = {"ties": fit_cmp["ties"], "cpu_fit_s": cpu_fit_s}
+    for i, name in enumerate(("PQDTW", "PQ_ED")):
+        a, b = card["books"][i], cpu_fit["books"][i]
+        codes_a = torch.cat([c.cpu().flatten() for c in card["codes"][name]])
+        codes_b = torch.cat([c.flatten() for c in cpu_fit["codes"][name]])
+        fit[name] = {
+            "centroids_max_abs": float((a.centroids.cpu()
+                                        - b.centroids).abs().max()),
+            "codes_differ": int((codes_a != codes_b).sum()),
+            "codes": codes_a.numel()}
+    for name in ("PQDTW", "PQ_ED"):
+        check(fit[name]["centroids_max_abs"] <= ATOL
+              and fit[name]["codes_differ"] == 0,
+              f"table1 {ds}/{seed}: {name}, the card's fit against the CPU "
+              f"route's: centroids within {ATOL}, equal codes: {fit[name]}")
+    check(fit_cmp["faults"] == [], f"table1 {ds}/{seed}: errors and Rand "
+          f"indices, the card's fit against the CPU route's: {fit_cmp}")
+    emit({"phase": "table1_path", "grid": {
+              "datasets": list(leg.DATASETS), "seeds": list(g["seeds"]),
+              "n_per_class": g["n_per_class"], "length": L},
+          "rows": bench.rows, "seconds": seconds, "leg_s": leg_s,
+          "pq_train_s": [r["pq_train_s"] for r in runs],
+          "per_run": [{"dataset": r["dataset"], "seed": r["seed"],
+                       "err": r["err"], "ri": r["ri"],
+                       "seconds": r["seconds"]} for r in runs],
+          "launches": launches, "routes": routes,
+          "check": {"dataset": ds, "seed": seed, "tables": tables,
+                    "identical": same, "close": close, "ties": cmp["ties"],
+                    "cpu_route_s": cpu_s, "fit": fit},
+          "row2_full": {"window": w_full, "form": form,
+                        "equals_plain": row2_equal,
+                        "torch_sqrt_differs": sqrt_off},
+          "phase_s": time.perf_counter() - start})
+    return launches
+
+
+def _fit_tables(torch, run: dict, D: int) -> dict:
+    """Each of a Table 1 run's codebooks against its LUT and envelopes
+    rebuilt on the CPU route from its own centroids: the elastic LUT and
+    the envelopes bit for bit, the squared-ED LUT within ``RTOL`` of the
+    norms plus ``ATOL`` (``sq_close``; a product in another order)."""
+    from repro_torch.bench import table1_accuracy as leg
+    from repro_torch.core import pq
+    out = {}
+    cfgs = leg.pq_configs(len(run["ytr"]))
+    for name, cfg, cb in zip(("PQDTW", "PQ_ED"), cfgs, run["books"]):
+        cpu = pq.codebook_from_centroids(cb.centroids.cpu(), cfg, D)
+        env = all(torch.equal(a.cpu(), b) for a, b in zip(cb[2:], cpu[2:]))
+        if cfg.is_elastic:
+            lut = bool(torch.equal(cb.lut.cpu(), cpu.lut))
+        else:
+            c = cpu.centroids.numpy()
+            lut = all(leg.sq_close(cb.lut[m].cpu().numpy(),
+                                   cpu.lut[m].numpy(), c[m], c[m],
+                                   RTOL, ATOL) for m in range(len(c)))
+        out[name] = {"lut": lut, "envelopes": env}
+    return out
+
+
+def fig5_path(torch, _build) -> dict:
+    """The Fig. 5a / 5b / 5c legs at the reference's quick sizes on the
+    card, their rows printed; 5a's DTW matrices run row 2, every PQ
+    distance row 3, the encodes row 1, and 5c's fused encode row 5.  Every
+    row's card outputs are then held against the plain route on the same
+    inputs, bit for bit (``_fig5_check``)."""
+    from repro_torch.bench import fig5a_scaling, fig5b_params, fig5c_prealign
+    out_dir = str(ROOT / "chiprun_out" / "bench")
+    suites, total = {}, {}
+    phase_start = time.perf_counter()
+    for mod in (fig5a_scaling, fig5b_params, fig5c_prealign):
+        _build.reset_launches()
+        kept = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        b = mod.run(quick=True, out_dir=out_dir, keep=kept)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        suites[b.name] = {"rows": b.rows, "seconds": seconds,
+                          "launches": launches,
+                          "check": _fig5_check(torch, b.name, kept)}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    check(suites["fig5a_scaling"]["launches"].get("dtw_band_cdist", 0) > 0
+          and suites["fig5a_scaling"]["launches"].get("adc_sym", 0) > 0,
+          "fig5a ran rows 2 and 3")
+    check(suites["fig5c_prealign"]["launches"].get("prealign_encode", 0) > 0,
+          "fig5c's fused encode ran row 5")
+    emit({"phase": "fig5_path", "quick": True, "suites": suites,
+          "launches": total, "phase_s": time.perf_counter() - phase_start})
+    return total
+
+
+def _fig5_check(torch, suite: str, kept: list) -> dict:
+    """A Fig. 5 leg's rows (``keep``) against the plain route on the same
+    inputs, bit for bit: the codes against ``encode`` on the CPU with the
+    card's codebook (5c's fused rows: the plain ``prealign_encode``), 5a's
+    DTW matrix against ``dtw_band_cdist_ref`` (row 2), and the symmetric
+    PQ matrix against ``adc_sym_cdist_ref`` on the card's codes and LUT
+    (row 3)."""
+    from repro_torch.core import pq
+    from repro_torch.kernels.dtw_band.ref import dtw_band_cdist_ref
+    from repro_torch.kernels.pq_adc.ref import adc_sym_cdist_ref
+    t0 = time.perf_counter()
+    held = {"codes": 0, "dtw": 0, "sym": 0}
+    for row in kept:
+        what = {k: v for k, v in row.items()
+                if isinstance(v, (int, str))}
+        X = row["X"].cpu()
+        cb = pq.PQCodebook(*(t.cpu() for t in row["cb"]))
+        codes = row["codes"].cpu()
+        want = pq.encode(X, cb, row["cfg"], device="cpu")
+        check(torch.equal(codes, want),
+              f"{suite} {what}: the card's codes equal the plain route's")
+        held["codes"] += 1
+        if "dtw" in row:
+            check(torch.equal(row["dtw"].cpu(),
+                              dtw_band_cdist_ref(X, X, row["window"])),
+                  f"{suite} {what}: row 2 equals its plain version")
+            held["dtw"] += 1
+        if "sym" in row:
+            check(torch.equal(row["sym"].cpu(),
+                              adc_sym_cdist_ref(codes, codes, cb.lut)),
+                  f"{suite} {what}: row 3 equals its plain version")
+            held["sym"] += 1
+    return {"rows": len(kept), "held": held,
+            "seconds": time.perf_counter() - t0}
+
+
 def _profile(torch, fn) -> dict:
     """One call under ``torch.profiler``: its wall time, the device's busy
     time (kernel durations; one stream, so they do not overlap), the idle
@@ -1868,8 +2136,17 @@ def kernel_phases(torch, ctx) -> list:
     N, Nq = Xd.shape[0], Qd.shape[0]
     rows = []
 
-    def phase(*args, **kw):
-        return kernel_row(torch, ctx["launches"], rows, *args, **kw)
+    # the main-path rows also run on the evaluation paths: a record's
+    # launches are the sum, by path in ``launches_by_path``
+    paths = {"main_path": ctx["launches"], **ctx["eval_launches"]}
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in ctx["launches"]}
+
+    def phase(name, *args, extra=None, **kw):
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
+        return kernel_row(torch, launches, rows, name, *args,
+                          extra={**(extra or {}),
+                                 "launches_by_path": by_path}, **kw)
 
     # 1. zipped pairs: the LB-filtered encode's refine batch, the register
     # form, with the shared-memory form timed beside it

@@ -11,7 +11,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["DeviceArg", "resolve_device", "to_tensor"]
+__all__ = ["DeviceArg", "resolve_device", "to_tensor", "to_host"]
 
 DeviceArg = Union[None, str, torch.device]
 
@@ -34,3 +34,10 @@ def to_tensor(x, device: torch.device,
         a = np.ascontiguousarray(np.asarray(x))
         x = torch.from_numpy(a if a.flags.writeable else a.copy())
     return x.to(device=device, dtype=dtype).contiguous()
+
+
+def to_host(x) -> np.ndarray:
+    """tensor (on any device) / array / sequence -> numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -17,7 +17,7 @@ import torch
 
 from .dtw import dtw_full_table
 
-__all__ = ["alignment_path", "dba_update"]
+__all__ = ["alignment_path", "dba_update", "dba"]
 
 _INF = float("inf")
 
@@ -80,3 +80,17 @@ def dba_update(c: torch.Tensor, X: torch.Tensor,
     assoc.index_add_(0, i_cells.reshape(-1), vals.reshape(-1))
     count.index_add_(0, i_cells.reshape(-1), w.reshape(-1))
     return torch.where(count > 0, assoc / torch.clamp(count, min=1e-9), c)
+
+
+def dba(c0: torch.Tensor, X: torch.Tensor, iters: int = 5,
+        window: Optional[int] = None) -> torch.Tensor:
+    """Run ``iters`` DBA iterations starting from ``c0 (L,)``.
+
+    >>> X = torch.tensor([[0., 1., 2., 1.], [0., 2., 2., 0.]])
+    >>> dba(X[0], X, iters=2).tolist()
+    [0.0, 1.5, 2.0, 0.5]
+    """
+    c = torch.as_tensor(c0, dtype=torch.float32, device=X.device)
+    for _ in range(iters):
+        c = dba_update(c, X, None, window)
+    return c

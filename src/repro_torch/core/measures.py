@@ -28,9 +28,9 @@ import torch
 
 __all__ = [
     "MeasureSpec", "MeasureArg", "register_measure", "get_measure",
-    "resolve", "available", "move_costs", "cost_factors", "gap_costs",
-    "fma", "wdtw_weights", "kernel_measure_id", "kernel_param", "DTW",
-    "DTW_KERNEL_ID",
+    "resolve", "available", "registry_rows", "move_costs", "cost_factors",
+    "gap_costs", "fma", "sqrt_rn", "wdtw_weights", "kernel_measure_id",
+    "kernel_param", "DTW", "DTW_KERNEL_ID",
 ]
 
 MeasureArg = Union[None, str, "MeasureSpec"]
@@ -57,6 +57,14 @@ class MeasureSpec:
 
     def param(self, key: str) -> float:
         return dict(self.params)[key]
+
+    @property
+    def label(self) -> str:
+        """Human/bench label: ``dtw``, ``erp(g=1)``, ..."""
+        if not self.params:
+            return self.name
+        inner = ",".join(f"{k}={v:g}" for k, v in self.params)
+        return f"{self.name}({inner})"
 
     def to_manifest(self) -> dict:
         """JSON-safe record for snapshot manifests (the reference's form)."""
@@ -153,6 +161,26 @@ def resolve(measure: MeasureArg) -> MeasureSpec:
     return get_measure(name.strip(), **params)
 
 
+def registry_rows() -> Tuple[dict, ...]:
+    """One summary row per registered measure (docs / benchmarks), the
+    reference's fields.
+
+    >>> [r["name"] for r in registry_rows()]
+    ['dtw', 'erp', 'msm', 'wdtw']
+    """
+    rows = []
+    for name in available():
+        spec = get_measure(name)
+        rows.append(dict(
+            name=name, params=dict(spec.params),
+            has_keogh_lb=spec.has_keogh_lb,
+            euclid_is_upper_bound=spec.euclid_is_upper_bound,
+            prune_path=("LB cascade" if spec.can_prune
+                        else "exact dense fallback"),
+            doc=_REGISTRY[name]["doc"]))
+    return tuple(rows)
+
+
 def move_costs(spec: MeasureSpec, x, y, xp, yp, dd, length: int):
     """Per-cell costs of the three DP moves -> ``(diag, vert, horiz)``."""
     return _REGISTRY[spec.name]["step"](dict(spec.params), x, y, xp, yp,
@@ -180,6 +208,25 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """
     return (a.to(torch.float64) * b.to(torch.float64)
             + c.to(torch.float64)).to(torch.float32)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Square root of a float32 tensor rounded once to nearest, as IEEE
+    ``sqrtf``, XLA's ``jnp.sqrt`` and the kernels' ``sqrtf`` round it, on
+    either device.  PyTorch's float32 ``sqrt`` on the CPU is not correctly
+    rounded (one ulp off on a small share of values), so the card and the
+    CPU route would part there; on the CPU the float64 root of a float32
+    value is taken, which rounds to the correctly rounded float32 root
+    (53 >= 2 * 24 + 2 bits).  On the card PyTorch's float32 ``sqrt`` is
+    IEEE's (``chip_smoke.py``'s ``torch_sqrt_differs`` counts the roots
+    where it is not), so it is used as it is.
+
+    >>> sqrt_rn(torch.tensor([4.0, 2.25, 0.0])).tolist()
+    [2.0, 1.5, 0.0]
+    """
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def gap_costs(spec: MeasureSpec, values: torch.Tensor) -> torch.Tensor:
@@ -276,7 +323,8 @@ register_measure(
 register_measure(
     "wdtw", step=_wdtw_step, factors=_wdtw_factors, defaults=(("g", 0.05),),
     uses_position=True, euclid_is_upper_bound=True, kernel_id=1,
-    doc="logistic phase-weighted DTW (g=0 recovers dtw exactly)")
+    doc="logistic phase-weighted DTW (g=0 recovers dtw exactly; "
+        "Euclidean upper bound assumes g >= 0)")
 register_measure(
     "erp", step=_erp_step, gap=_erp_gap, defaults=(("g", 0.0),),
     kernel_id=2,

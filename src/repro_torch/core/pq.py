@@ -31,15 +31,16 @@ from .dispatch import (adc_cdist, adc_lookup, elastic_cdist,
                        elastic_pairwise, prealign_encode)
 from .dtw import euclidean_sq
 from .kmeans import dba_kmeans, euclidean_kmeans
-from .lb import cascade_bound, keogh_envelope
-from .measures import MeasureSpec
+from .lb import cascade_bound, keogh_envelope, lb_keogh
+from .lb_search import BOUND_CHUNK_BYTES
+from .measures import MeasureSpec, sqrt_rn
 from .modwt import fixed_segments, prealign
 
 __all__ = ["PQConfig", "PQCodebook", "segment", "fit", "encode",
-           "encode_with_stats", "lb_filter_pairs", "query_lut",
-           "query_lut_batch", "adc_gather",
-           "cdist_sym", "cdist_asym", "memory_cost", "uses_fused_prealign",
-           "codebook_from_numpy", "codebook_to_numpy"]
+           "codebook_from_centroids", "encode_with_stats",
+           "lb_filter_pairs", "query_lut", "query_lut_batch", "adc_gather",
+           "cdist_sym", "cdist_asym", "cdist_sym_refined", "memory_cost",
+           "uses_fused_prealign", "codebook_from_numpy", "codebook_to_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +187,7 @@ def fit(X, cfg: PQConfig, generator: Optional[torch.Generator] = None, *,
         init_centroids = _device.to_tensor(init_centroids, dev,
                                            torch.float32)
     spec = cfg.measure()
-    cents, luts, uppers, lowers = [], [], [], []
+    cents = []
     for m in range(cfg.n_sub):
         sub = segs[:, m, :].contiguous()
         init = None if init_centroids is None else init_centroids[m]
@@ -194,20 +195,39 @@ def fit(X, cfg: PQConfig, generator: Optional[torch.Generator] = None, *,
             res = dba_kmeans(sub, cfg.codebook_size, iters=cfg.kmeans_iters,
                              dba_iters=cfg.dba_iters, window=window,
                              measure=spec, init=init, generator=generator)
-            lut = elastic_cdist(res.centroids, res.centroids, window,
-                                measure=spec)
         else:
             res = euclidean_kmeans(sub, cfg.codebook_size,
                                    iters=cfg.kmeans_iters, init=init,
                                    generator=generator)
-            lut = euclidean_sq(res.centroids, res.centroids)
-        up, lo = keogh_envelope(res.centroids, window or 1)
         cents.append(res.centroids)
-        luts.append(lut)
+    return codebook_from_centroids(torch.stack(cents), cfg, D)
+
+
+def codebook_from_centroids(centroids: torch.Tensor, cfg: PQConfig,
+                            D: int) -> PQCodebook:
+    """The codebook of trained ``centroids (M, K, S)`` for series of
+    length ``D``: each subspace's symmetric LUT (the elastic cost at
+    ``cfg.window(D)``, or the squared Euclidean distance) and the Keogh
+    envelopes, on the centroids' device.
+
+    >>> cfg = PQConfig(n_sub=1, codebook_size=2, use_prealign=False)
+    >>> cb = codebook_from_centroids(torch.tensor([[[0.0, 1.0],
+    ...                                             [1.0, 1.0]]]), cfg, 2)
+    >>> cb.lut[0].tolist()
+    [[0.0, 1.0], [1.0, 0.0]]
+    """
+    window, spec = cfg.window(D), cfg.measure()
+    luts, uppers, lowers = [], [], []
+    for c in centroids:
+        if cfg.is_elastic:
+            luts.append(elastic_cdist(c, c, window, measure=spec))
+        else:
+            luts.append(euclidean_sq(c, c))
+        up, lo = keogh_envelope(c, window or 1)
         uppers.append(up)
         lowers.append(lo)
-    return PQCodebook(torch.stack(cents), torch.stack(luts),
-                      torch.stack(uppers), torch.stack(lowers))
+    return PQCodebook(centroids, torch.stack(luts), torch.stack(uppers),
+                      torch.stack(lowers))
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +382,7 @@ def adc_gather(qlut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                       device=qlut.device)
     for m in range(qlut.shape[1]):
         acc = acc + torch.gather(qlut[:, m, :], 1, codes[..., m])
-    out = torch.sqrt(torch.clamp(acc, min=0.0))
+    out = sqrt_rn(torch.clamp(acc, min=0.0))
     return out[0] if single else out
 
 
@@ -393,6 +413,56 @@ def cdist_asym(Q, codes, cb: PQCodebook, cfg: PQConfig, *,
     luts = query_lut_batch(segment(Q, cfg), cb, cfg.window(D),
                            not cfg.is_elastic, cfg.measure())
     return adc_lookup(_device.to_tensor(codes, dev, torch.int32), luts)
+
+
+def cdist_sym_refined(codes_a, segs_a, codes_b, segs_b, cb: PQCodebook, *,
+                      device: _device.DeviceArg = None) -> torch.Tensor:
+    """§4.2 clustering distance: symmetric PQ, but where two series share a
+    code in subspace m (the LUT says 0), the Keogh lower bound
+    ``max(lb(a^m, env(code)), lb(b^m, env(code)))`` takes its place, which
+    lies between 0 and the true subspace cost.  ``codes (N, M)`` with
+    their segments ``(N, M, S)`` (:func:`segment`) -> ``(Na, Nb)``.
+
+    Plain PyTorch on either device (the reference computes it in jnp),
+    built in blocks of rows of ``a`` so that no ``(Na, Nb, S)`` tensor
+    beyond ``lb_search.BOUND_CHUNK_BYTES`` is formed; the subspaces are
+    summed in order.
+
+    >>> cfg = PQConfig(n_sub=2, codebook_size=2, use_prealign=False,
+    ...                kmeans_iters=1, dba_iters=1)
+    >>> X = torch.arange(32, dtype=torch.float32).reshape(4, 8) / 10.0
+    >>> cb = fit(X, cfg, torch.Generator().manual_seed(0), device="cpu")
+    >>> codes, segs = encode(X, cb, cfg, device="cpu"), segment(X, cfg)
+    >>> tuple(cdist_sym_refined(codes, segs, codes, segs, cb,
+    ...                         device="cpu").shape)
+    (4, 4)
+    """
+    dev = _device.resolve_device(device)
+    ca = _device.to_tensor(codes_a, dev, torch.int64)
+    cb_codes = _device.to_tensor(codes_b, dev, torch.int64)
+    sa = _device.to_tensor(segs_a, dev, torch.float32)
+    sb = _device.to_tensor(segs_b, dev, torch.float32)
+    cb = _codebook_on(cb, dev)
+    Na, M = ca.shape
+    Nb = cb_codes.shape[0]
+    S = sa.shape[-1]
+    # about four (rows, Nb, S) float32 temporaries live at once
+    rows = max(1, BOUND_CHUNK_BYTES // max(1, 16 * Nb * S))
+    out = torch.empty((Na, Nb), dtype=torch.float32, device=dev)
+    for r0 in range(0, Na, rows):
+        r1 = min(Na, r0 + rows)
+        d2 = torch.zeros((r1 - r0, Nb), dtype=torch.float32, device=dev)
+        for m in range(M):
+            am, bm = ca[r0:r1, m], cb_codes[:, m]
+            up, lo = cb.env_upper[m], cb.env_lower[m]
+            base = cb.lut[m][am[:, None], bm[None, :]]
+            lb_a = lb_keogh(sa[r0:r1, m, None, :], up[bm][None], lo[bm][None])
+            lb_b = lb_keogh(sb[None, :, m, :], up[am][:, None],
+                            lo[am][:, None])
+            same = am[:, None] == bm[None, :]
+            d2 = d2 + torch.where(same, torch.maximum(lb_a, lb_b), base)
+        out[r0:r1] = sqrt_rn(torch.clamp(d2, min=0.0))
+    return out
 
 
 # ---------------------------------------------------------------------------

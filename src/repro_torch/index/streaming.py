@@ -34,6 +34,7 @@ from ..core.ivf import (TwoLevelCoarse, build_two_level, coarse_assign,
                         validate_codebook, validate_n_probe)
 from ..core.kmeans import dba_kmeans
 from ..core.lb_search import filtered_topk
+from ..core.measures import sqrt_rn
 from ..core.pq import (PQCodebook, PQConfig, codebook_from_numpy, encode,
                        fit, memory_cost, query_lut_batch, segment)
 from ..core.topk import smallest_k
@@ -120,7 +121,7 @@ def _scan_hot(data, ids, live, Q, *, window: int, k: int,
     is order-compatible.  ``with_stats`` adds the cascade's telemetry.
     """
     if euclidean:
-        dh = torch.sqrt(torch.clamp(euclidean_sq(Q, data), min=0.0))
+        dh = sqrt_rn(torch.clamp(euclidean_sq(Q, data), min=0.0))
         dh = torch.where(live[None, :], dh, _INF)
         dk, idx = smallest_k(dh, k)
         out_ids = torch.where(torch.isfinite(dk), ids[idx],
@@ -136,7 +137,7 @@ def _scan_hot(data, ids, live, Q, *, window: int, k: int,
     d2, idx, st = filtered_topk(Q, data, window, k, valid=live,
                                 measure=measure, with_stats=with_stats,
                                 band=band)
-    dh = torch.sqrt(torch.clamp(d2, min=0.0))
+    dh = sqrt_rn(torch.clamp(d2, min=0.0))
     idx = idx.long()
     out_ids = torch.where(idx >= 0, ids[idx.clamp(min=0)],
                           torch.full_like(idx, -1, dtype=ids.dtype))

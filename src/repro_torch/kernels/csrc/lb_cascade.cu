@@ -39,7 +39,7 @@
 // Bands wider than w = 255 (C would exceed 8 registers a lane) take
 // lb_refine_kernel, one thread per pair: it sums the bound in one
 // sequential pass, then a survivor sweeps the band with pqdtw::band_cost
-// (the band row in shared memory up to w = 190, in a wrapper-allocated
+// (the band row in shared memory up to w = 191, in a wrapper-allocated
 // scratch buffer beyond, as in dtw_band.cu); a warp whose 32 pairs are all
 // pruned never enters the DP.  The wrapper picks the form from w alone
 // (kernels/lb_cascade/ops.py::refine_variant); both count as lb_refine.

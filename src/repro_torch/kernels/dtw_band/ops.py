@@ -11,7 +11,7 @@ each pair with one warp up to width 256 (:func:`adaptive_warp_geometry`).
 Elsewhere one thread sweeps a pair, its band row (``2w+2`` floats; the
 adaptive sweep's three diagonals, ``3 * width``) in shared memory when a
 block of at least 32 threads fits in the default 48 KB, i.e. up to
-``w = 190``, beyond that in a device scratch buffer allocated here and
+``w = 191``, beyond that in a device scratch buffer allocated here and
 capped at 1 GiB, with the grid cut to match (the kernels walk their pairs
 grid-stride).  So every ``(L, window)`` the reference takes is taken, and
 each form gives the same bits.
@@ -33,12 +33,13 @@ from .ref import (dtw_band_adaptive_ref, dtw_band_cdist_ref,
 __all__ = ["dtw_band", "dtw_band_cdist", "dtw_band_adaptive",
            "launch_dtw_band_adaptive",
            "launch_dtw_band_full", "band_geometry", "band_width",
-           "cdist_bucket", "reg_grid", "pairs_reg_geometry",
+           "cdist_bucket", "cdist_form", "reg_grid", "pairs_reg_geometry",
            "full_warp_geometry", "warp_cells", "adaptive_variant",
            "adaptive_warp_geometry", "adaptive_launch_name",
            "check_corridor"]
 
 _THREADS = 128
+_MIN_THREADS = 32  # the least block of the shared-memory forms
 _SMEM_LIMIT = 48 * 1024
 _SCRATCH_LIMIT = 1 << 30
 _INT_MAX = 2 ** 31 - 1
@@ -81,6 +82,21 @@ def cdist_bucket(w: int, kid: int, length: int) -> Optional[int]:
             return (bucket if (staged + 2 * bucket) * 4 <= _SMEM_LIMIT
                     else None)
     return None
+
+
+def cdist_form(w: int, kid: int, length: int) -> str:
+    """The form :func:`dtw_band_cdist` takes for an effective band ``w``,
+    kernel measure id ``kid`` and series length: ``"registers"`` where
+    :func:`cdist_bucket` gives a bucket, else ``"shared"`` where a block of
+    32 threads' band rows (``2w + 2`` floats each) fits in 48 KB, else
+    ``"scratch"`` (:func:`band_geometry`).
+
+    >>> [cdist_form(w, 0, 192) for w in (19, 95, 191, 192)]
+    ['registers', 'shared', 'shared', 'scratch']
+    """
+    if cdist_bucket(w, kid, length) is not None:
+        return "registers"
+    return "shared" if _row_in_shared(2 * int(w) + 2) else "scratch"
 
 
 def reg_grid(N: int, M: int) -> Tuple[bool, int, int]:
@@ -235,10 +251,10 @@ def row_geometry(n_items: int, floats: int, device: torch.device
     """``(threads, blocks, scratch)`` for ``n_items`` pairs that each keep
     ``floats`` floats of DP state, in shared memory or in scratch."""
     row_bytes = floats * 4
-    threads = _THREADS
-    while threads > 32 and threads * row_bytes > _SMEM_LIMIT:
-        threads //= 2
-    if threads * row_bytes <= _SMEM_LIMIT:
+    if _row_in_shared(floats):
+        threads = _THREADS
+        while threads * row_bytes > _SMEM_LIMIT:
+            threads //= 2
         return threads, max(1, -(-n_items // threads)), None
     threads = _THREADS
     max_blocks = max(1, _SCRATCH_LIMIT // (row_bytes * threads))
@@ -246,6 +262,12 @@ def row_geometry(n_items: int, floats: int, device: torch.device
     scratch = torch.empty(blocks * threads * floats,
                           dtype=torch.float32, device=device)
     return threads, blocks, scratch
+
+
+def _row_in_shared(floats: int) -> bool:
+    """A block of at least 32 threads keeps ``floats`` floats a thread in
+    the default 48 KB of shared memory."""
+    return _MIN_THREADS * floats * 4 <= _SMEM_LIMIT
 
 
 def _series(x: torch.Tensor, name: str) -> torch.Tensor:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.measures import fma
+from ...core.measures import fma, sqrt_rn
 
 __all__ = ["adc_sym_cdist_ref", "adc_lookup_ref", "dequantize",
            "adc_sym_cdist_quant_ref", "adc_lookup_quant_ref"]
@@ -23,7 +23,7 @@ def adc_sym_cdist_ref(codes_a: torch.Tensor, codes_b: torch.Tensor,
                       device=lut.device)
     for m in range(lut.shape[0]):
         acc = acc + lut[m][ca[:, m, None], cb[None, :, m]]
-    return torch.sqrt(torch.clamp(acc, min=0.0))
+    return sqrt_rn(torch.clamp(acc, min=0.0))
 
 
 def adc_lookup_ref(codes: torch.Tensor, qlut: torch.Tensor) -> torch.Tensor:
@@ -38,7 +38,7 @@ def adc_lookup_ref(codes: torch.Tensor, qlut: torch.Tensor) -> torch.Tensor:
                       device=q.device)
     for m in range(q.shape[1]):
         acc = acc + q[:, m, :][:, c[:, m]]
-    out = torch.sqrt(torch.clamp(acc, min=0.0))
+    out = sqrt_rn(torch.clamp(acc, min=0.0))
     return out[0] if single else out
 
 

@@ -1236,3 +1236,66 @@ def test_adc_lookup_rows_smem_matches_the_selector(gen, M, K):
             assert (_build.lib().pq_adc_lookup_rows_smem_bytes(
                 code, ta, M, pitch)
                 == adc_ops.rows_smem_bytes(ta, M, K, size, lookup=True))
+
+
+# ---------------------------------------------------------------------------
+# The Table 1 leg's paths on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L,w,form", [(192, 191, "shared"),
+                                      (193, 192, "scratch"),
+                                      (96, 95, "shared"),
+                                      (192, 19, "registers")])
+def test_cdtw_cdist_forms_bit_equal_plain(gen, L, w, form):
+    """``baselines.cdtw_cdist`` at Table 1's shapes in each of row 2's
+    three forms equals the CPU route bit for bit, and row 2 its plain
+    version: full DTW at L = 192 (w = 191: 2w+2 floats a thread fill a
+    32-thread block's 48 KB exactly, so the band row stays in shared
+    memory), one past it (the scratch form), L = 96 and cDTW10 at L = 192
+    (registers)."""
+    from repro_torch.core.baselines import cdtw_cdist
+    from repro_torch.kernels.dtw_band.ops import cdist_form
+    assert cdist_form(w, 0, L) == form
+    A, B = _randn(gen, 120, L), _randn(gen, 80, L)
+    before = _build.LAUNCHES["dtw_band_cdist"]
+    got = cdtw_cdist(A, B, None if w == L - 1 else w)
+    assert _build.LAUNCHES["dtw_band_cdist"] == before + 1
+    want = cdtw_cdist(A.cpu(), B.cpu(), w, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(dtw_band_cdist(A, B, w).cpu(),
+                       dtw_band_cdist_ref(A.cpu(), B.cpu(), w))
+
+
+def test_sbd_and_cdist_sym_refined_card_equals_cpu(gen):
+    from repro_torch.core import pq
+    from repro_torch.core.baselines import sbd_cdist
+    from repro_torch.data.timeseries import make_dataset
+    A, B = _randn(gen, 70, 192), _randn(gen, 130, 192)
+    torch.testing.assert_close(sbd_cdist(A, B).cpu(),
+                               sbd_cdist(A.cpu(), B.cpu(), device="cpu"),
+                               **TOL)
+    X, _ = make_dataset("cbf", 10, 96, seed=2)
+    cfg = pq.PQConfig(n_sub=5, codebook_size=12, kmeans_iters=2,
+                      dba_iters=1)
+    cb = pq.fit(X, cfg, torch.Generator().manual_seed(0), device="cpu")
+    codes = pq.encode(X, cb, cfg, device="cpu")
+    segs = pq.segment(torch.from_numpy(X), cfg)
+    want = pq.cdist_sym_refined(codes, segs, codes, segs, cb, device="cpu")
+    got = pq.cdist_sym_refined(codes, segs, codes, segs, cb)
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_table1_leg_runs_the_kernels(gen):
+    """One quick (dataset, seed) of the Table 1 leg on the card: its
+    elastic matrices and symmetric scans take the kernel route."""
+    from repro_torch.bench import table1_accuracy as leg
+    from repro_torch.core import dispatch
+    dispatch.reset_stats()
+    g = leg.grid(True)
+    r = leg.one_run("gunpoint", 1, g["n_per_class"], g["length"])
+    routes = {route for _, route in dispatch.stats}
+    assert routes == {"cuda"}, dispatch.stats
+    assert dispatch.stats[("elastic_cdist", "cuda")] > 0
+    assert dispatch.stats[("adc_cdist", "cuda")] > 0
+    assert all(0.0 <= r["err"][m] <= 1.0 for m in leg.MEASURES)

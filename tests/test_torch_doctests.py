@@ -7,7 +7,10 @@ import importlib
 import pytest
 
 MODULES = (
+    "repro_torch.core.baselines",
+    "repro_torch.core.cluster",
     "repro_torch.core.corridor",
+    "repro_torch.core.dba",
     "repro_torch.core.dispatch",
     "repro_torch.core.measures",
     "repro_torch.core.pq",

@@ -196,6 +196,26 @@ def test_dtw_band_cdist_picks_the_register_form(monkeypatch, measure, L,
         assert args[8] == kid and args[10] == bucket
 
 
+@pytest.mark.parametrize("L,window,form", [
+    (192, 19, "registers"), (96, 95, "shared"), (192, 191, "shared"),
+    (193, 192, "scratch"), (74, 64, "shared")])
+def test_cdist_form_is_the_form_the_wrapper_takes(monkeypatch, L, window,
+                                                  form):
+    """``cdist_form`` names the form ``dtw_band_cdist`` launches: the
+    register entry, or the shared-memory one with or without scratch."""
+    A, B = torch.zeros(5, L), torch.zeros(3, L)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, dtw_ops)
+    monkeypatch.setattr(dtw_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(dtw_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "dtw_band_cdist", 0)
+    dtw_ops.dtw_band_cdist(A, B, window)
+    (name, args), = lib.called
+    launched = ("registers" if name == "pq_dtw_band_cdist_reg"
+                else "shared" if args[4] is None else "scratch")
+    assert dtw_ops.cdist_form(window, 0, L) == form == launched
+
+
 class _Lib:
     """Stands in for the kernel library: records which entry ran."""
 

@@ -59,6 +59,19 @@ def test_fit_from_reference_init_matches(data, ref_fit):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("metric", ["dtw", "euclidean"])
+def test_codebook_from_centroids_rebuilds_fit_tables(data, metric):
+    """``fit``'s LUT and envelopes are ``codebook_from_centroids`` of its
+    centroids, bit for bit."""
+    X = data[0]
+    _, tcfg = _cfg_pair(n_sub=4, codebook_size=6, kmeans_iters=2,
+                        dba_iters=1, metric=metric)
+    cb = tpq.fit(X, tcfg, torch.Generator().manual_seed(0), device=CPU)
+    again = tpq.codebook_from_centroids(cb.centroids, tcfg, X.shape[1])
+    for got, want in zip(again, cb):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("kw", [
     dict(n_sub=4, codebook_size=6),                        # LB filter
     dict(n_sub=4, codebook_size=6, refine_frac=0.5),       # LB filter, T=3
