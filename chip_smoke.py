@@ -15,6 +15,20 @@ window 7), then the search paths beyond 1-NN on the same data:
   queries searched (``n_probe=8, topk=10``); the hot part must equal a
   dense scan, the compacted index ``ivf.search_batch`` over the live rows,
   and a snapshot must restore bit for bit;
+- ``serving_path``: the serving core (``IndexServer``,
+  ``ServeConfig(n_probe=8, topk=10)``, buckets 1-64) over a new index on
+  the index path's quantizers holding the 6144 series: the warm-replay
+  gate (``bench/warm_replay.py``: no build, the same launches per request
+  size, no allocator growth), then 4 client threads sending 1-64 of the
+  768 queries while a producer inserts 1536 more CBF series (one seal),
+  deletes 5% of the ids, flushes and compacts through the server; every
+  batch searched again on the view it reports equals its result bit for
+  bit, each request's rows alone give the same ids and distances within
+  1e-6, no deleted id comes back once its delete resolved, an insert is
+  visible once it resolves; QPS, p50/p99 latency, the batches per bucket
+  and the snapshot swaps printed; then ``search_sharded``'s ``"queries"``
+  and ``"lists"`` plans for 1 and 4 devices against
+  ``StreamingIndex.search`` (ids equal up to the order of exact ties);
 - ``adaptive_path``: the same index state with ``band="adaptive"`` (the
   index path's quantizers, inserts and deletes), the 768 queries searched
   through ``StreamingIndex.search`` so that the hot scan refines inside
@@ -66,10 +80,12 @@ window 7), then the search paths beyond 1-NN on the same data:
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
-wave of both searches (a second, untimed run of each) its flags and
-unrefined outputs are held against the plain bound, and on the first wave
-and the first mixed wave (refined and pruned pairs) of each search its
-whole output is held against the plain version, its refined distances
+wave of three searches (``pruned_nn``, the index's hot scan and a padded
+serving batch; a second, untimed run of each) its flags and unrefined
+outputs are held against the plain bound, and on the first wave and the
+first mixed wave (refined and pruned pairs; the serving batch's first
+wave with filler) of each search its whole output is held against the
+plain version, its refined distances
 against ``dtw_band``'s bit for bit, and the thread-per-pair form (the
 wrapper's choice beyond ``w = 255``) is timed beside the warp form on the
 same wave.  ``lb_refine_adaptive``
@@ -177,6 +193,11 @@ SEARCH_WINDOW = 51        # the exact searches' band: round(0.1 * 512)
 INDEX_LISTS = 64
 HOT_CAPACITY = 2560
 N_PROBE, TOPK = 8, 10
+SERVING_CLIENTS = 4       # client threads of the serving path
+SERVING_EXTRA_PER_CLASS = 512   # CBF series a class the producer inserts (x3)
+SERVING_REQUESTS = 64    # requests a client sends at least
+SERVING_AFTER = 4         # requests a client sends after the producer ends
+SHARDED_QUERIES = 256     # queries of the planner checks
 DELETE_FRAC = 0.05
 ADAPTIVE_WIDTH = 32       # tune.adaptive_width(512, 51) at lane 8
 WARPED_PAIRS = 512        # time-warped pairs for the certificate's check
@@ -341,6 +362,7 @@ def main() -> int:
     waves = {}
     ctx["pruned_launches"] = pruned_nn(torch, _build, ctx, waves)
     ctx["index_launches"] = index_path(torch, _build, ctx, waves)
+    ctx["serving_launches"] = serving_path(torch, _build, ctx, waves)
     ctx["adaptive_launches"] = adaptive_path(torch, _build, ctx, waves)
     ctx["quant_launches"] = quant_path(torch, _build, ctx)
     ctx["full_launches"] = full_baseline(torch, _build, ctx)
@@ -478,7 +500,8 @@ def checked_waves(torch, lb_search, log: dict, extra=None):
     bound within ``rtol, atol``.  ``log`` gathers the counts over all waves
     and keeps the arguments of the first wave and of the first mixed wave
     (pairs refined and pairs pruned at their threshold; one that also
-    carries filler where a wave does).  ``extra(args, d, f, kw)`` runs
+    carries filler where a wave does), and of the first wave with filler.
+    ``extra(args, d, f, kw)`` runs
     more checks on each wave."""
     from repro_torch.core.lb import cascade_bound
     original = lb_search.lb_refine
@@ -509,6 +532,8 @@ def checked_waves(torch, lb_search, log: dict, extra=None):
         if extra is not None:
             extra(args, d, f, kw)
         log.setdefault("first", args)
+        if n_filler > 0:
+            log.setdefault("filler", args)
         if n_ref > 0 and n_pruned > 0:
             log.setdefault("mixed", args)
             if n_filler > 0:
@@ -695,6 +720,479 @@ def index_path(torch, _build, ctx, waves) -> dict:
           "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     return launches
+
+
+def serving_path(torch, _build, ctx, waves) -> dict:
+    """The serving core (``IndexServer``) at the index path's size: the
+    index path's quantizers, the 6144 series inserted (2 sealed + 1024
+    hot), ``ServeConfig(n_probe=8, topk=10)`` with the buckets 1-64.  The
+    warm-replay gate first; then ``SERVING_CLIENTS`` client threads send
+    ``SERVING_REQUESTS`` requests or more of 1-64 of the 768 queries
+    while a producer inserts 1536 more CBF series (one seal), deletes 5%
+    of the ids, flushes and compacts, all through the server.  A search
+    launches rows 2 (coarse stage, query tables) and 6 (hot scan); row 1
+    runs in the seal's encode.  Every batch searched again on the
+    view it reports, in its bucket, equals its result bit for bit; every
+    request's rows searched alone on that view give the same ids and
+    distances within 1e-6; no deleted id comes back after its delete
+    resolves; an insert is visible once it resolves.  A padded batch
+    from before the seal and one from after it are held against the
+    plain route on the card, and rows 1, 2 and 6 against their plain
+    versions at this path's shapes (:func:`_serving_plain`).  Then
+    ``search_sharded``'s plans on the quiesced state, against
+    ``StreamingIndex.search``, for 1 and 4 devices."""
+    import threading
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.bench.warm_replay import warm_replay
+    from repro_torch.core import dispatch
+    from repro_torch.data.timeseries import make_dataset
+    from repro_torch.index import StreamingIndex, search_sharded
+    from repro_torch.serve_index import IndexServer, ServeConfig
+
+    t_phase = time.perf_counter()
+    st = ctx["index_state"]
+    X, D = ctx["X"], ctx["D"]
+    Q = ctx["Qd"].cpu().numpy()
+    N, Nq = X.shape[0], Q.shape[0]
+    X2, _ = make_dataset("cbf", SERVING_EXTRA_PER_CLASS, D, seed=200)
+    n_extra = X2.shape[0]
+    cfg = st["cfg"]
+    seconds = {}
+
+    def fresh(icfg):
+        return StreamingIndex.from_parts(icfg, st["coarse"], st["cb"], D,
+                                         two_level=st["two_level"])
+
+    idx = fresh(cfg)
+    _, seconds["insert"] = _timed(torch, lambda: idx.insert(X))
+    check(idx.n_segments == 2 and idx.hot.count == N - 2 * HOT_CAPACITY,
+          f"serving index: {idx.stats()}")
+    check(idx.hot.count + n_extra == HOT_CAPACITY,
+          "the producer's inserts fill the hot buffer: one seal")
+    scfg = ServeConfig(n_probe=N_PROBE, topk=TOPK)
+    views, batches, requests, errors, writes = {}, [], [], [], []
+    lock = threading.Lock()
+    srv = IndexServer(idx, scfg, on_publish=lambda v:
+                      views.setdefault(v.version, v))
+    views[0] = srv.view
+    run_batch = srv._coalescer._run_batch
+
+    def recording(Qp, q_valid, n_real):
+        r = run_batch(Qp, q_valid, n_real)
+        with lock:
+            batches.append((Qp, q_valid, n_real, r))
+        return r
+
+    srv._coalescer._run_batch = recording
+    srv.start()
+    try:
+        t0 = time.perf_counter()
+        replay = warm_replay(srv, Q, sizes=range(1, scfg.max_batch + 1))
+        seconds["warm_replay"] = time.perf_counter() - t0
+        check(replay["ok"], f"warm replay: {replay['failures']}")
+        batches.clear()
+
+        rng = np.random.default_rng(3)
+        dead = np.sort(rng.choice(N + n_extra, int(DELETE_FRAC *
+                                                   (N + n_extra)),
+                                  replace=False)).astype(np.int32)
+        done = threading.Event()
+        marks = {}
+
+        def client(seed):
+            crng = np.random.default_rng(seed)
+            n, n_after = 0, 0
+            while n < SERVING_REQUESTS or n_after < SERVING_AFTER:
+                after = done.is_set()
+                rows = crng.integers(0, Nq, size=int(crng.integers(1, 65)))
+                t_sub = time.monotonic()
+                r = srv.submit_search(Q[rows]).result(timeout=300)
+                lat = time.monotonic() - t_sub
+                with lock:
+                    requests.append((rows, r, t_sub, lat))
+                n += 1
+                n_after += after
+
+        def producer():
+            half = n_extra // 3
+
+            def write(op, submit):
+                # the write's window on the host clock: submit to resolve
+                t_w = time.monotonic()
+                out = submit().result(timeout=300)
+                writes.append((op, t_w, time.monotonic()))
+                return out
+
+            ids_a = write("insert", lambda: srv.insert(X2[:half]))
+            probe = min(8, half)
+            marks["visible"] = (ids_a[:probe],
+                                srv.search(X2[:probe], timeout=300))
+            marks["ids_b"] = write("insert_seal",
+                                   lambda: srv.insert(X2[half:]))
+            marks["sealed_version"] = srv.quiesce(timeout=300)
+            check(write("delete", lambda: srv.delete(dead)) == len(dead),
+                  "every deleted id hit")
+            marks["deleted_at"] = time.monotonic()
+            write("flush", srv.flush)
+            write("compact", srv.compact)
+
+        def guarded(fn, *args):
+            try:
+                fn(*args)
+            except BaseException as e:                # noqa: BLE001
+                errors.append(e)
+            finally:
+                if fn is producer:
+                    done.set()
+
+        _build.reset_launches()
+        dispatch.reset_stats()
+        swaps0 = len(obs.histogram("serving_snapshot_swap_seconds",
+                                   persistent=True).samples)
+        stages0 = _stage_seconds(obs)
+        with obs.override(True):
+            threads = [threading.Thread(target=guarded, args=(client, s))
+                       for s in range(SERVING_CLIENTS)]
+            threads.append(threading.Thread(target=guarded,
+                                            args=(producer,)))
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            version = srv.quiesce(timeout=300)
+            torch.cuda.synchronize()
+            seconds["traffic"] = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        routes = sorted({r for _, r in dispatch.stats})
+        stages = {k: v - stages0.get(k, 0.0)
+                  for k, v in sorted(_stage_seconds(obs).items())
+                  if v > stages0.get(k, 0.0)}
+        swap_s = obs.histogram("serving_snapshot_swap_seconds",
+                               persistent=True).samples[swaps0:]
+        for e in errors:
+            raise e
+    finally:
+        srv.stop()
+
+    for k in ("lb_refine", "dtw_band", "dtw_band_cdist"):
+        check(launches[k] > 0, f"serving path launched {k}: {launches}")
+    check(routes == ["cuda"], f"serving path routes {routes}")
+    check(version >= 5 and idx.n_segments == 1 and idx.hot.count == 0,
+          f"the writes were applied: version {version}, {idx.stats()}")
+
+    # an insert is visible once it resolves: the rows themselves are their
+    # own nearest neighbours in the exact hot scan
+    ids_a, (vd, vi) = marks["visible"]
+    check(torch.equal(vi[:, 0].cpu(), torch.from_numpy(ids_a)) and
+          bool((vd[:, 0] == 0).all()),
+          "a search after insert(...).result() sees the inserted rows")
+    check(views[marks["sealed_version"]].n_live() == N + n_extra
+          and len(views[marks["sealed_version"]].segments) == 3,
+          "the second insert sealed the hot buffer")
+
+    # every batch again on its view, in its bucket: the same bits; every
+    # request's rows alone: the same ids, distances within 1e-6
+    t0 = time.perf_counter()
+    buckets = {}
+    for Qp, q_valid, n_real, r in batches:
+        buckets[Qp.shape[0]] = buckets.get(Qp.shape[0], 0) + 1
+        d, i = views[r.version].search(Qp, n_probe=N_PROBE, topk=TOPK,
+                                       q_valid=q_valid)
+        check(torch.equal(d, r.dist) and torch.equal(i, r.ids),
+              f"batch of {n_real} in bucket {Qp.shape[0]} (version "
+              f"{r.version}) equals its re-run bit for bit")
+        check(bool(torch.isinf(r.dist[n_real:]).all())
+              and bool((r.ids[n_real:] == -1).all()),
+              "padded rows are inf / -1")
+    dead_t = torch.from_numpy(dead).cuda()
+    unpadded_bits, after_delete = 0, 0
+    for rows, r, t_sub, _ in requests:
+        d, i = views[r.version].search(Q[rows], n_probe=N_PROBE, topk=TOPK)
+        check(torch.equal(i, r.ids) and torch.allclose(
+            d, r.dist, rtol=1e-6, atol=1e-6),
+            f"request of {len(rows)} equals its rows' search on version "
+            f"{r.version}")
+        unpadded_bits += bool(torch.equal(d, r.dist))
+        if t_sub > marks["deleted_at"]:
+            after_delete += 1
+            check(not bool(torch.isin(r.ids, dead_t).any()),
+                  "no deleted id after its delete resolved")
+    check(after_delete > 0, "requests were made after the delete")
+    seconds["rerun_checks"] = time.perf_counter() - t0
+
+    # the kernel route against the plain route at this path's shapes
+    t0 = time.perf_counter()
+    plain = _serving_plain(torch, views, batches, marks["sealed_version"],
+                           np.concatenate([X, X2]), cfg, Q,
+                           waves.setdefault("serving", {}))
+    seconds["plain_checks"] = time.perf_counter() - t0
+
+    # the planner on the quiesced state: one device (the served index) and
+    # four (the same rows sealed for n_shards=4)
+    t0 = time.perf_counter()
+    Qs = Q[:SHARDED_QUERIES]
+    idx4 = fresh(dataclasses.replace(cfg, n_shards=4))
+    idx4.insert(X)
+    idx4.delete(dead[dead < N])
+    planner = {}
+    for name, index, n_dev in (("1", idx, 1), ("4", idx4, 4)):
+        want = index.search(Qs, n_probe=N_PROBE, topk=TOPK)
+        for part in ("queries", "lists"):
+            got = search_sharded(index, Qs, n_probe=N_PROBE, topk=TOPK,
+                                 partition=part, n_devices=n_dev)
+            planner[f"{part}/{name}"] = _same_up_to_ties(
+                torch, got, want, f"search_sharded {part} on {name}")
+    seconds["planner"] = time.perf_counter() - t0
+
+    lat = [l for _, _, _, l in requests]
+    n_queries = sum(len(rows) for rows, _, _, _ in requests)
+    slow = _slow_requests(np, requests, writes)
+    real = [n for _, _, n, _ in batches]
+    launch_counts = {k: v for k, v in launches.items() if v}
+    emit({"phase": "serving_path", "nvidia_smi": nvidia_smi_line(),
+          "train": list(X.shape), "extra": list(X2.shape),
+          "queries": list(Q.shape), "n_lists": INDEX_LISTS,
+          "hot_capacity": HOT_CAPACITY, "n_probe": N_PROBE, "topk": TOPK,
+          "q_buckets": list(scfg.q_buckets), "clients": SERVING_CLIENTS,
+          "obs": True, "requests": len(requests), "queries_served": n_queries,
+          "qps": n_queries / seconds["traffic"],
+          "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+          "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+          "slow_requests": slow, "batches": len(batches), "mean_batch": float(np.mean(real)),
+          "batches_per_bucket": dict(sorted(buckets.items())),
+          "view_swaps": len(swap_s), "final_version": version,
+          "snapshot_swap_p50_ms": 1e3 * float(np.median(swap_s)),
+          "deleted": len(dead), "requests_after_delete": after_delete,
+          "unpadded_bit_identical": unpadded_bits,
+          "warm_replay": {k: replay[k] for k in ("lib_loaded",
+                                                 "reserved_bytes")},
+          "warm_replay_launches_64": replay["launches"][scfg.max_batch],
+          "planner_tie_reorders": planner, "plain": plain,
+          "seconds": seconds,
+          "stage_seconds_obs_on": stages,
+          "wall_s": time.perf_counter() - t_phase,
+          "launches": launch_counts})
+    return launches
+
+
+def _slow_requests(np, requests, writes) -> dict:
+    """Which writes the slowest 1% of requests overlapped, on the host
+    clock: a request's window is submit to answer, a write's is submit to
+    resolve (``writes``: ``(op, start, end)``).  ``clear_*`` are the
+    latencies of the requests that overlapped no write."""
+    lat = np.array([l for _, _, _, l in requests])
+    cut = float(np.percentile(lat, 99))
+    over = {op: 0 for op, _, _ in writes}
+    n_slow, clear = 0, []
+    for _, _, t_sub, l in requests:
+        hit = [op for op, a, b in writes if t_sub < b and a < t_sub + l]
+        if l >= cut:
+            n_slow += 1
+            for op in hit:
+                over[op] += 1
+        if not hit:
+            clear.append(l)
+    return {"p99_cut_ms": 1e3 * cut, "slow": n_slow,
+            "slow_overlapping": over,
+            "writes_ms": {op: 1e3 * (b - a) for op, a, b in writes},
+            "clear": len(clear),
+            "clear_p50_ms": 1e3 * float(np.percentile(clear, 50))
+            if clear else None,
+            "clear_p99_ms": 1e3 * float(np.percentile(clear, 99))
+            if clear else None}
+
+
+@contextlib.contextmanager
+def _recording(module, name: str, calls: list):
+    """Record the arguments of every call of ``module.name`` while the
+    block runs; the call itself still goes through."""
+    original = getattr(module, name)
+
+    def hook(*args, **kw):
+        calls.append((args, kw))
+        return original(*args, **kw)
+
+    setattr(module, name, hook)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Rows 1, 2 and 6 (``dtw_band``, ``dtw_band_cdist``, ``lb_refine``)
+    replaced by their plain PyTorch versions while the block runs: the
+    dispatch layer then computes on the card's tensors without a kernel
+    (the plain route on the card)."""
+    from repro_torch.kernels.dtw_band import ops as band_ops
+    from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
+                                                  dtw_band_ref)
+    from repro_torch.kernels.lb_cascade import ops as lb_ops
+    from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
+    swaps = ((band_ops, "dtw_band", dtw_band_ref),
+             (band_ops, "dtw_band_cdist", dtw_band_cdist_ref),
+             (lb_ops, "lb_refine", lb_refine_ref))
+    originals = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, ref in swaps:
+        setattr(m, n, ref)
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(swaps, originals):
+            setattr(m, n, fn)
+
+
+def _serving_plain(torch, views, batches, sealed_version, X_all, cfg, Q,
+                   log) -> dict:
+    """The serving path's kernels against their plain versions on the same
+    inputs.  Two padded bucket batches are searched again on the views
+    they report: the last recorded one from before the seal (hot rows:
+    every ``lb_refine`` wave checked and logged in ``log`` for
+    :func:`lb_refine_phases`) and the last from after it (three sealed
+    segments, one encoded by the seal); a batch of 37 queries in bucket 64
+    stands in on the first or the last view where no recorded batch
+    exists.  Each re-run equals the recorded result bit for bit, and the
+    same search with rows 1, 2 and 6 in their plain versions
+    (:func:`_plain_kernels`) gives the same distances bit for bit and the
+    same ids up to the order of exact ties.  Every ``dtw_band_cdist``
+    call of the re-runs (the coarse stage, 64 x 64 centroids at L=512,
+    and the per-subspace query tables) equals ``dtw_band_cdist_ref`` on
+    its inputs, bit for bit.  The seal's segment: its rows encoded
+    and lists equal its codes and list ids, the plain route's encode and
+    assignment equal them, and each ``dtw_band`` call of that encode (row
+    1 at the seal's shape) and ``dtw_band_cdist`` call of the assignment
+    (row 2, 2560 x 64 at L=512) equals its plain version, bit for bit."""
+    from repro_torch.core import lb_search, pq
+    from repro_torch.core.ivf import coarse_assign
+    from repro_torch.kernels.dtw_band import ops as band_ops
+    from repro_torch.kernels.dtw_band.ref import (dtw_band_cdist_ref,
+                                                  dtw_band_ref)
+    padded = [b for b in batches if b[2] < b[0].shape[0]]
+    chosen = []
+    for before, fallback in ((True, 0), (False, max(views))):
+        mine = [b for b in padded if (b[3].version < sealed_version)
+                == before]
+        if mine:
+            Qp, q_valid, n_real, r = mine[-1]
+            chosen.append((Qp, q_valid, n_real, r.version, r.dist, r.ids,
+                           True))
+            continue
+        n_real, bucket = 37, 64
+        Qp = torch.zeros((bucket, Q.shape[1]), device="cuda")
+        Qp[:n_real] = torch.from_numpy(Q[:n_real]).cuda()
+        q_valid = torch.arange(bucket, device="cuda") < n_real
+        d, i = views[fallback].search(Qp, n_probe=N_PROBE, topk=TOPK,
+                                      q_valid=q_valid)
+        chosen.append((Qp, q_valid, n_real, fallback, d, i, False))
+    out = {"batches": [], "row2_calls": 0, "row2_shapes": []}
+    secs = out["seconds"] = {}
+    t0 = time.perf_counter()
+    cdist_calls = []
+    for Qp, q_valid, n_real, version, rd, ri, recorded in chosen:
+        view = views[version]
+        what = (f"batch of {n_real} in bucket {Qp.shape[0]} on version "
+                f"{version}")
+        with _recording(band_ops, "dtw_band_cdist", cdist_calls), \
+                checked_waves(torch, lb_search, log):
+            d, i = view.search(Qp, n_probe=N_PROBE, topk=TOPK,
+                               q_valid=q_valid)
+        check(torch.equal(d, rd) and torch.equal(i, ri),
+              f"{what}: the re-run equals the recorded result")
+        with _plain_kernels():
+            want = view.search(Qp, n_probe=N_PROBE, topk=TOPK,
+                               q_valid=q_valid)
+        reorders = _same_up_to_ties(torch, (d, i), want,
+                                    f"{what} against the plain route")
+        out["batches"].append({
+            "version": version, "bucket": Qp.shape[0], "real": n_real,
+            "recorded": recorded, "before_seal": version < sealed_version,
+            "hot_rows": 0 if view.hot is None else int(view.hot[2].sum()),
+            "segments": len(view.segments), "tie_reorders": reorders})
+    check(any(b["hot_rows"] for b in out["batches"]),
+          "a held batch scanned hot rows")
+    secs["batches"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shapes = set()
+    for args, kw in cdist_calls:
+        A, B = args[0], args[1]
+        check(torch.equal(band_ops.dtw_band_cdist(*args, **kw),
+                          dtw_band_cdist_ref(*args, **kw)),
+              f"dtw_band_cdist at {tuple(A.shape)} x {tuple(B.shape)}: "
+              "equals its plain version bit for bit")
+        shapes.add((tuple(A.shape), tuple(B.shape), args[2]))
+    out["row2_calls"] = len(cdist_calls)
+    out["row2_shapes"] = sorted(shapes)
+    secs["row2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the seal: its segment's rows encoded again, on both routes
+    sealed = views[sealed_version]
+    seg = sealed.segments[-1]
+    keep = seg.ids >= 0
+    rows = torch.from_numpy(X_all).cuda()[seg.ids[keep].long()]
+    pair_calls, assign_calls = [], []
+    with _recording(band_ops, "dtw_band", pair_calls):
+        codes = pq.encode(rows, sealed.cb, cfg.pq)
+    w = cfg.coarse_window(X_all.shape[1])
+    with _recording(band_ops, "dtw_band_cdist", assign_calls):
+        assign = coarse_assign(rows, sealed.coarse, w, cfg.pq.measure())
+    check(torch.equal(codes, seg.codes[keep]) and
+          torch.equal(assign.to(seg.assign.dtype), seg.assign[keep]),
+          "the seal's codes and lists equal its rows encoded again")
+    with _plain_kernels():
+        plain_codes = pq.encode(rows, sealed.cb, cfg.pq)
+        plain_assign = coarse_assign(rows, sealed.coarse, w,
+                                     cfg.pq.measure())
+    check(torch.equal(plain_codes, codes) and
+          torch.equal(plain_assign, assign),
+          "the seal's encode and list assignment equal the plain route's")
+    for args, kw in assign_calls:
+        check(torch.equal(band_ops.dtw_band_cdist(*args, **kw),
+                          dtw_band_cdist_ref(*args, **kw)),
+              f"dtw_band_cdist at the seal's {tuple(args[0].shape)} x "
+              f"{tuple(args[1].shape)}: equals its plain version bit for "
+              "bit")
+    check(len(pair_calls) > 0, "the seal's encode ran row 1")
+    row1 = []
+    for args, kw in pair_calls:
+        check(torch.equal(band_ops.dtw_band(*args, **kw),
+                          dtw_band_ref(*args, **kw)),
+              f"dtw_band at {tuple(args[0].shape)}: equals its plain "
+              "version bit for bit")
+        row1.append([list(args[0].shape), args[2]])
+    secs["seal"] = time.perf_counter() - t0
+    out["seal"] = {"rows": int(keep.sum()), "row1_calls": row1,
+                   "row2_calls": [[list(a[0].shape), list(a[1].shape),
+                                   a[2]] for a, _ in assign_calls]}
+    return out
+
+
+def _stage_seconds(obs) -> dict:
+    """Seconds recorded so far by every obs stage span.  Under concurrent
+    traffic a span's fence waits for the whole card, so a stage's seconds
+    also hold the other threads' work in flight."""
+    return {h["labels"]["stage"]: h["sum"]
+            for h in obs.snapshot()["histograms"]
+            if h["name"] == "stage_seconds"}
+
+
+def _same_up_to_ties(torch, got, want, what) -> int:
+    """Equal distances bit for bit and equal ids, apart from ids reordered
+    inside a run of equal distances (the merge order of exact ties);
+    returns how many positions differ so."""
+    (gd, gi), (wd, wi) = got, want
+    check(torch.equal(gd, wd), f"{what}: distances equal bit for bit")
+    diff = gi != wi
+    if not bool(diff.any()):
+        return 0
+    tie = torch.zeros_like(diff)
+    tie[:, 1:] |= wd[:, 1:] == wd[:, :-1]
+    tie[:, :-1] |= wd[:, :-1] == wd[:, 1:]
+    check(bool(tie[diff].all()), f"{what}: ids differ only inside ties")
+    return int(diff.sum())
 
 
 def _stage_sum(obs, stage: str) -> float:
@@ -2138,7 +2636,8 @@ def kernel_phases(torch, ctx) -> list:
 
     # the main-path rows also run on the evaluation paths: a record's
     # launches are the sum, by path in ``launches_by_path``
-    paths = {"main_path": ctx["launches"], **ctx["eval_launches"]}
+    paths = {"main_path": ctx["launches"], **ctx["eval_launches"],
+             "serving_path": ctx["serving_launches"]}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ctx["launches"]}
 
@@ -2528,11 +3027,14 @@ def _cdist_forms_ms(torch, A, B, w, bucket) -> dict:
 
 
 def lb_refine_phases(torch, ctx, waves) -> dict:
-    """``lb_refine`` against its plain version on real waves of both
+    """``lb_refine`` against its plain version on real waves of the three
     searches: the first wave of each (the hot scan's is the table's
-    record) and the first mixed wave of each, where some pairs refine and
-    others are pruned at their threshold (one with filler pairs at
-    ``thresh = -inf`` where a wave had them).
+    record) and, for the index's hot scan and ``pruned_nn``, the first
+    mixed wave, where some pairs refine and others are pruned at their
+    threshold (one with filler pairs at ``thresh = -inf`` where a wave had
+    them); for the serving path's padded batch, whose waves need not
+    prune, the first wave with filler, where the padding rows' pairs sit
+    at ``thresh = -inf``.
 
     The kernel's warp form (the path's, at ``w <= 255``) sums LB_Keogh in
     lane-strided partial sums and a shuffle tree, its thread form left to
@@ -2548,19 +3050,27 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
                                                     lb_refine,
                                                     refine_variant)
     from repro_torch.kernels.lb_cascade.ref import lb_refine_ref
-    launches = (ctx["pruned_launches"]["lb_refine"]
-                + ctx["index_launches"]["lb_refine"])
+    by_path = {"pruned_nn": ctx["pruned_launches"]["lb_refine"],
+               "index_path": ctx["index_launches"]["lb_refine"],
+               "serving_path": ctx["serving_launches"]["lb_refine"]}
+    launches = sum(by_path.values())
     record = None
-    for name in ("hot_scan", "pruned_nn"):
+    for name in ("hot_scan", "pruned_nn", "serving"):
         log = waves[name]
         totals = log["totals"]
-        check(totals["pruned"] > 0,
-              f"{name}: some wave pruned pairs at their threshold")
         emit({"phase": "lb_refine_waves", "search": name, **totals,
               "unrefined_max_abs_err": log["unrefined_max_abs_err"][0]})
-        mixed = log.get("mixed_filler", log.get("mixed"))
-        check(mixed is not None, f"{name}: a wave both refined and pruned")
-        for which, args in (("first", log["first"]), ("mixed", mixed)):
+        if name == "serving":
+            second = ("filler", log.get("mixed_filler", log.get("filler")))
+            check(second[1] is not None,
+                  f"{name}: a wave carried filler pairs")
+        else:
+            check(totals["pruned"] > 0,
+                  f"{name}: some wave pruned pairs at their threshold")
+            second = ("mixed", log.get("mixed_filler", log.get("mixed")))
+            check(second[1] is not None,
+                  f"{name}: a wave both refined and pruned")
+        for which, args in (("first", log["first"]), second):
             table = name == "hot_scan" and which == "first"
             A, B, up, lo, th, w = args
             n, L = A.shape
@@ -2584,6 +3094,10 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
             if which == "mixed":
                 check(0 < n_refined < n and n_pruned > 0,
                       f"lb_refine {name}: the mixed wave refines and prunes")
+            if which == "filler":
+                check(n_refined > 0 and n_filler > 0,
+                      f"lb_refine {name}: the filler wave refines and "
+                      "carries filler")
             # row 1 on the refined pairs: the same DP, bit for bit
             check(torch.equal(d[f], dtw_band(A[f], B[f], w)),
                   f"lb_refine {name} {which}: refined distances equal "
@@ -2608,7 +3122,8 @@ def lb_refine_phases(torch, ctx, waves) -> dict:
                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None, "design": DESIGNS["lb_refine"],
-                   "variant": variant, "prev_ms": thread_ms}
+                   "variant": variant, "prev_ms": thread_ms,
+                   "launches_by_path": by_path}
             emit({"phase": "kernel", **row, "wave": f"{name} {which}",
                   "shapes": {"pairs": [n, L], "window": w},
                   "n_refined": n_refined, "n_pruned": n_pruned,

@@ -41,6 +41,7 @@ Window contract: ``window=None`` means unbanded, i.e. a band of ``L - 1``;
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -58,6 +59,7 @@ __all__ = [
 
 stats: Dict[Tuple[str, str], int] = {}
 totals: Dict[Tuple[str, str], int] = {}
+_count_lock = threading.Lock()
 
 
 def effective_window(length: int, window: Optional[int]) -> int:
@@ -72,7 +74,8 @@ def effective_window(length: int, window: Optional[int]) -> int:
 
 def reset_stats() -> None:
     """Clear the per-run :data:`stats` ledger (:data:`totals` stays)."""
-    stats.clear()
+    with _count_lock:
+        stats.clear()
 
 
 def _route(t: torch.Tensor) -> str:
@@ -84,14 +87,18 @@ def _count(op: str, route: str,
     keys = [(op, route)]
     if measure is not None:
         keys.append((f"{op}[{measure.name}]", route))
-    for key in keys:
-        stats[key] = stats.get(key, 0) + 1
-        totals[key] = totals.get(key, 0) + 1
     labels = {"op": op, "backend": route, "kind": "call"}
     if measure is not None:
         labels["measure"] = measure.name
-    _obs_registry.REGISTRY.counter("dispatch_total", persistent=True,
-                                   **labels).inc()
+    counter = _obs_registry.REGISTRY.counter("dispatch_total",
+                                             persistent=True, **labels)
+    # a server's threads dispatch concurrently: the read-modify-writes of
+    # the ledgers and the counter must not interleave
+    with _count_lock:
+        for key in keys:
+            stats[key] = stats.get(key, 0) + 1
+            totals[key] = totals.get(key, 0) + 1
+        counter.inc()
 
 
 def _bad_band(band: str):

@@ -13,11 +13,14 @@ of :mod:`repro.index`).
                 format 3; restores formats 1-3, written by either package
 
 Search fans a query batch out over the hot segment and every sealed
-segment and merges the per-shard top-k.  The multi-device planner
-(``repro.index.planner.search_sharded``) is not ported yet.
+segment and merges the per-shard top-k.  :func:`search_sharded`
+(``planner.py``) runs the reference's partition plans (``"queries"``,
+``"lists"``, ``"auto"``) on one card, its mesh a count of devices whose
+work runs in turn.
 """
 
 from .placement import placement_loads, plan_placement
+from .planner import search_sharded
 from .segments import HotBuffer, SealedSegment
 from .streaming import IndexConfig, StreamingIndex
 from .snapshot import latest_snapshot, restore_snapshot, save_snapshot
@@ -27,4 +30,5 @@ __all__ = [
     "IndexConfig", "StreamingIndex",
     "plan_placement", "placement_loads",
     "save_snapshot", "restore_snapshot", "latest_snapshot",
+    "search_sharded",
 ]

@@ -65,6 +65,26 @@ class SealedSegment:
         dead = torch.from_numpy(np.asarray(dead, bool)).to(self.live.device)
         return dataclasses.replace(self, live=self.live & ~dead)
 
+    def shard_views(self) -> Tuple[torch.Tensor, ...]:
+        """Per-shard blocks for the list-sharded planner.
+
+        Returns ``(codes (n_shards, shard_cap, M), ids, live (n_shards,
+        shard_cap), loc_start, loc_len (n_shards, n_lists))``, where the
+        local list tables address rows *within* a shard block (lists placed
+        elsewhere have length 0): block ``s`` holds exactly the lists placed
+        on shard ``s``.
+        """
+        n, cap = self.n_shards, self.shard_cap
+        M = self.codes.shape[1]
+        sh = torch.arange(n, dtype=torch.int32,
+                          device=self.codes.device)[:, None]
+        own = self.placement[None, :] == sh
+        loc_start = torch.where(own, self.list_start[None, :] - sh * cap,
+                                0).to(torch.int32)
+        loc_len = torch.where(own, self.list_len[None, :], 0).to(torch.int32)
+        return (self.codes.reshape(n, cap, M), self.ids.reshape(n, cap),
+                self.live.reshape(n, cap), loc_start, loc_len)
+
 
 def seal(codes: np.ndarray, ids: np.ndarray, assign: np.ndarray,
          n_lists: int, rows: int, max_list: Optional[int] = None, *,

@@ -50,10 +50,12 @@ class IndexConfig:
     """Lifecycle hyper-parameters around a :class:`PQConfig` (the
     reference's fields, so a snapshot's config restores in either package).
 
-    ``n_shards`` is the data-partition count of the sealed layout (the
-    list-sharded planner is not ported; ``n_shards == 1`` is the plain
-    layout).  ``n_top_lists > 0`` enables the hierarchical (two-level)
-    coarse quantizer with an ``n_probe_top`` fan-out.
+    ``n_shards`` is the data-partition count of the sealed layout
+    (:func:`repro_torch.index.planner.search_sharded` with
+    ``partition="lists"`` walks one shard block at a time; ``n_shards ==
+    1`` is the plain layout).  ``n_top_lists > 0`` enables the
+    hierarchical (two-level) coarse quantizer with an ``n_probe_top``
+    fan-out.
 
     ``band="adaptive"`` switches the hot-buffer elastic scan to per-pair
     alignment corridors (:mod:`repro_torch.core.corridor`): narrower
@@ -109,7 +111,7 @@ class IndexConfig:
 # Search math
 # ---------------------------------------------------------------------------
 
-def _scan_hot(data, ids, live, Q, *, window: int, k: int,
+def _scan_hot(data, ids, live, Q, q_valid=None, *, window: int, k: int,
               euclidean: bool, measure=None, with_stats: bool = False,
               band: str = "static"):
     """Exact scan of the hot buffer -> ``(Nq, k)`` distances, ids.
@@ -118,11 +120,16 @@ def _scan_hot(data, ids, live, Q, *, window: int, k: int,
     filter-and-refine top-k, whose dense fallback covers measures without
     pruning capability), or Euclidean under the PQ_ED baseline — the
     metric the sealed segments' LUTs encode, in sqrt space, so the merge
-    is order-compatible.  ``with_stats`` adds the cascade's telemetry.
+    is order-compatible.  ``q_valid (Nq,)`` masks padding queries (a
+    coalesced or sharded batch): their rows come back ``inf`` / ``-1``
+    and claim no refine work.  ``with_stats`` adds the cascade's
+    telemetry.
     """
     if euclidean:
         dh = sqrt_rn(torch.clamp(euclidean_sq(Q, data), min=0.0))
         dh = torch.where(live[None, :], dh, _INF)
+        if q_valid is not None:
+            dh = torch.where(q_valid[:, None], dh, _INF)
         dk, idx = smallest_k(dh, k)
         out_ids = torch.where(torch.isfinite(dk), ids[idx],
                               torch.full_like(idx, -1, dtype=ids.dtype))
@@ -135,8 +142,8 @@ def _scan_hot(data, ids, live, Q, *, window: int, k: int,
                                  "refined_per_wave": zero[None]}
         return dk, out_ids
     d2, idx, st = filtered_topk(Q, data, window, k, valid=live,
-                                measure=measure, with_stats=with_stats,
-                                band=band)
+                                measure=measure, q_valid=q_valid,
+                                with_stats=with_stats, band=band)
     dh = sqrt_rn(torch.clamp(d2, min=0.0))
     idx = idx.long()
     out_ids = torch.where(idx >= 0, ids[idx.clamp(min=0)],
@@ -158,6 +165,67 @@ def _merge_topk(parts_d, parts_i, *, topk: int):
     return dk, torch.gather(all_i, 1, best)
 
 
+def _probe_tables(Q: torch.Tensor, coarse: torch.Tensor, cb: PQCodebook,
+                  icfg: IndexConfig, dim: int,
+                  two_level: Optional[TwoLevelCoarse] = None, *,
+                  span: str = "index.search"):
+    """The stages every sealed block of a search shares: coarse distances
+    ``(Nq, n_lists)`` and per-query PQ tables ``(Nq, M, K)``, each in its
+    ``{span}.coarse`` / ``{span}.lut`` span."""
+    spec = icfg.pq.measure()
+    with obs.span(f"{span}.coarse") as sp:
+        dc = sp.fence(coarse_dists(
+            Q, coarse, icfg.coarse_window(dim), measure=spec,
+            two_level=two_level,
+            n_probe_top=icfg.n_probe_top if two_level is not None
+            else None))
+    with obs.span(f"{span}.lut") as sp:
+        qluts = sp.fence(query_lut_batch(
+            segment(Q, icfg.pq), cb, icfg.pq.window(dim),
+            not icfg.pq.is_elastic, spec))
+    return dc, qluts
+
+
+def _rank_blocks(blocks, dc: torch.Tensor, qluts: torch.Tensor, *,
+                 n_probe: int, topk: int):
+    """Fine-rank each sealed block ``(codes, ids, live, list_start,
+    list_len, max_list)`` -> the lists of per-block ``(Nq, k)`` distances
+    and ids."""
+    parts_d, parts_i = [], []
+    for codes, ids, live, start, length, max_list in blocks:
+        k = min(topk, n_probe * max_list)
+        if k < 1:
+            continue
+        d, i = fine_rank_batch(codes, ids, start, length, max_list, dc,
+                               qluts, n_probe, k, live=live)
+        parts_d.append(d)
+        parts_i.append(i)
+    return parts_d, parts_i
+
+
+def _segment_blocks(segs: Tuple[SealedSegment, ...]):
+    return ((sg.codes, sg.ids, sg.live, sg.list_start, sg.list_len,
+             sg.max_list) for sg in segs)
+
+
+def _hot_topk(hot, Q: torch.Tensor, q_valid, *, icfg: IndexConfig,
+              dim: int, topk: int, with_stats: bool = False):
+    """:func:`_scan_hot` over ``hot = (data, ids, live)`` under the
+    index's configuration (the coarse window, its measure and band)."""
+    data, ids, live = hot
+    return _scan_hot(data, ids, live, Q, q_valid,
+                     window=icfg.coarse_window(dim),
+                     k=min(topk, data.shape[0]),
+                     euclidean=not icfg.pq.is_elastic,
+                     measure=icfg.pq.measure(), with_stats=with_stats,
+                     band=icfg.band)
+
+
+def _empty_topk(Nq: int, topk: int, device):
+    return (torch.full((Nq, topk), _INF, device=device),
+            torch.full((Nq, topk), -1, dtype=torch.int32, device=device))
+
+
 def search_impl(coarse: torch.Tensor, cb: PQCodebook,
                 segs: Tuple[SealedSegment, ...],
                 hot: Optional[Tuple[torch.Tensor, torch.Tensor,
@@ -165,6 +233,7 @@ def search_impl(coarse: torch.Tensor, cb: PQCodebook,
                 Q: torch.Tensor, *, icfg: IndexConfig, n_probe: int,
                 topk: int, dim: int,
                 two_level: Optional[TwoLevelCoarse] = None,
+                q_valid: Optional[torch.Tensor] = None,
                 with_stats: bool = False):
     """Fan ``Q (Nq, D)`` out over every segment and merge top-k.
 
@@ -173,9 +242,12 @@ def search_impl(coarse: torch.Tensor, cb: PQCodebook,
     empty.  Returns ``(distances, ids)`` of shape ``(Nq, topk)``, ``inf``
     / ``-1`` where fewer than ``topk`` live rows exist.  Sealed rows are
     ranked by asymmetric PQDTW, hot rows by exact banded DTW (at the
-    coarse window), both in sqrt space.  ``with_stats=True`` returns a
-    third item, the hot scan's cascade telemetry (``None`` without a hot
-    buffer).
+    coarse window), both in sqrt space.  ``q_valid (Nq,)`` marks padding
+    rows of a coalesced or sharded batch: they come back ``inf`` / ``-1``
+    (the reference leaves them arbitrary; callers slice them off), claim
+    no refine work in the hot scan and add nothing to its statistics.
+    ``with_stats=True`` returns a third item, the hot scan's cascade
+    telemetry (``None`` without a hot buffer).
 
     The stages run inside :func:`repro_torch.obs.span` blocks (coarse,
     lut, fine, hot, merge), fenced with a device sync only while obs is
@@ -185,39 +257,18 @@ def search_impl(coarse: torch.Tensor, cb: PQCodebook,
     parts_d, parts_i = [], []
     hot_stats = None
 
-    spec = icfg.pq.measure()
     if segs:
-        w = icfg.coarse_window(dim)
-        with obs.span("index.search.coarse") as sp:
-            dc = sp.fence(coarse_dists(
-                Q, coarse, w, measure=spec, two_level=two_level,
-                n_probe_top=icfg.n_probe_top if two_level is not None
-                else None))                                  # (Nq, n_lists)
-        with obs.span("index.search.lut") as sp:
-            qluts = sp.fence(query_lut_batch(
-                segment(Q, icfg.pq), cb, icfg.pq.window(dim),
-                not icfg.pq.is_elastic, spec))                # (Nq, M, K)
+        dc, qluts = _probe_tables(Q, coarse, cb, icfg, dim, two_level)
         with obs.span("index.search.fine") as sp:
-            for sg in segs:
-                k = min(topk, n_probe * sg.max_list)
-                if k < 1:
-                    continue
-                d, i = fine_rank_batch(sg.codes, sg.ids, sg.list_start,
-                                       sg.list_len, sg.max_list, dc, qluts,
-                                       n_probe, k, live=sg.live)
-                parts_d.append(d)
-                parts_i.append(i)
+            parts_d, parts_i = _rank_blocks(_segment_blocks(segs), dc,
+                                            qluts, n_probe=n_probe,
+                                            topk=topk)
             sp.fence(parts_d)
 
     if hot is not None:
-        data, ids, live = hot
         with obs.span("index.search.hot") as sp:
-            out = _scan_hot(data, ids, live, Q,
-                            window=icfg.coarse_window(dim),
-                            k=min(topk, data.shape[0]),
-                            euclidean=not icfg.pq.is_elastic,
-                            measure=spec, with_stats=with_stats,
-                            band=icfg.band)
+            out = _hot_topk(hot, Q, q_valid, icfg=icfg, dim=dim, topk=topk,
+                            with_stats=with_stats)
             if with_stats:
                 d, i, hot_stats = out
             else:
@@ -227,14 +278,15 @@ def search_impl(coarse: torch.Tensor, cb: PQCodebook,
         parts_i.append(i)
 
     if not parts_d:
-        Nq = Q.shape[0]
-        empty = (torch.full((Nq, topk), _INF, device=Q.device),
-                 torch.full((Nq, topk), -1, dtype=torch.int32,
-                            device=Q.device))
+        empty = _empty_topk(Q.shape[0], topk, Q.device)
         return empty + (None,) if with_stats else empty
 
     with obs.span("index.search.merge") as sp:
-        d, i = sp.fence(_merge_topk(parts_d, parts_i, topk=topk))
+        d, i = _merge_topk(parts_d, parts_i, topk=topk)
+        if q_valid is not None:
+            d = torch.where(q_valid[:, None], d, _INF)
+            i = torch.where(q_valid[:, None], i, torch.full_like(i, -1))
+        sp.fence((d, i))
     if with_stats:
         return d, i, hot_stats
     return d, i

@@ -16,7 +16,9 @@ machine without ``nvcc`` never builds.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.  :data:`LAUNCHES` counts each
 kernel's launches (one per successful wrapper call on a CUDA tensor), so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels.  Counting and the
+first load take a thread lock, since a server's threads launch kernels
+concurrently.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -55,6 +58,8 @@ KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
+_launch_lock = threading.Lock()
+_lib_lock = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -81,12 +86,14 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -160,9 +167,14 @@ def _compile_and_link(lib_path: Path) -> None:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use; one thread loads it
+    while the others wait)."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
         handle = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)

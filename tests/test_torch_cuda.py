@@ -45,6 +45,13 @@ row-staged form equals its thread form and the plain version bit for bit
 at every tile that fits, for float32, int8 and bfloat16 tables, and the
 lookup's row-staged form its table form and the plain version likewise.
 The earlier forms are reached through ``_build.lib()``.
+
+The serving core on the card: under a concurrent write storm every
+coalesced batch searched again on its view gives the same bits, and
+every request's rows alone the same ids and bits; the warm-replay gate
+(library loaded, nothing compiled, the same launches per request size,
+no growth of the allocator's reserve); a padded bucket's real rows equal
+the unpadded search.
 """
 
 import pytest
@@ -1299,3 +1306,127 @@ def test_table1_leg_runs_the_kernels(gen):
     assert dispatch.stats[("elastic_cdist", "cuda")] > 0
     assert dispatch.stats[("adc_cdist", "cuda")] > 0
     assert all(0.0 <= r["err"][m] <= 1.0 for m in leg.MEASURES)
+
+
+# ---------------------------------------------------------------------------
+# the serving core on the card
+# ---------------------------------------------------------------------------
+
+def _serving_index(n_per_class=40, length=128):
+    """A small streaming index on the card: quantizers bootstrapped from a
+    seed, 2 sealed segments and a partly filled hot buffer."""
+    import numpy as np
+    from repro_torch.core.pq import PQConfig
+    from repro_torch.data.timeseries import cbf
+    from repro_torch.index import IndexConfig, StreamingIndex
+    X, _ = cbf(n_per_class, length, seed=0)
+    Q, _ = cbf(8, length, seed=7)
+    cfg = IndexConfig(PQConfig(n_sub=4, codebook_size=16, kmeans_iters=2,
+                               dba_iters=1),
+                      n_lists=8, hot_capacity=48, coarse_iters=3)
+    idx = StreamingIndex.bootstrap(torch.Generator().manual_seed(0), X, cfg)
+    idx.insert(X[:100])
+    return idx, X.astype(np.float32), Q.astype(np.float32)
+
+
+def test_serving_storm_bit_identical_on_card(gen):
+    """Client threads search while the writer inserts, seals, deletes and
+    compacts: every batch searched again on its view in its bucket gives
+    the same bits, and every request's rows alone the same ids and bits."""
+    import threading
+    import numpy as np
+    from repro_torch.serve_index import IndexServer, ServeConfig
+    idx, X, Q = _serving_index()
+    views, batches, results = {}, [], []
+    lock = threading.Lock()
+    srv = IndexServer(idx, ServeConfig(n_probe=4, topk=5,
+                                       coalesce_window_s=0.001,
+                                       q_buckets=(1, 2, 4, 8, 16)),
+                      on_publish=lambda v: views.setdefault(v.version, v))
+    views[0] = srv.view
+    run = srv._coalescer._run_batch
+
+    def recording(Qp, q_valid, n_real):
+        r = run(Qp, q_valid, n_real)
+        with lock:
+            batches.append((Qp, q_valid, r))
+        return r
+
+    srv._coalescer._run_batch = recording
+
+    def searcher(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(8):
+            rows = rng.integers(0, len(Q), size=int(rng.integers(1, 12)))
+            r = srv.submit_search(Q[rows]).result(timeout=120)
+            with lock:
+                results.append((rows, r))
+
+    with srv:
+        threads = [threading.Thread(target=searcher, args=(s,))
+                   for s in range(3)]
+        for t in threads:
+            t.start()
+        for f in [srv.insert(X[100:]), srv.delete([1, 5, 17, 101]),
+                  srv.flush(), srv.compact(), srv.delete([2])]:
+            f.result(timeout=120)
+        for t in threads:
+            t.join()
+        srv.quiesce(timeout=120)
+    assert len(results) == 24 and len(views) >= 2
+    for Qp, q_valid, r in batches:
+        d, i = views[r.version].search(Qp, n_probe=4, topk=5,
+                                       q_valid=q_valid)
+        assert torch.equal(d, r.dist) and torch.equal(i, r.ids)
+        assert d.is_cuda
+    for rows, r in results:
+        d, i = views[r.version].search(Q[rows], n_probe=4, topk=5)
+        assert torch.equal(i, r.ids) and torch.equal(d, r.dist)
+
+
+def test_serving_warm_replay_gate_on_card(gen):
+    """A warmed server replays serial traffic with the library loaded
+    before the replays, the same launches per request size and no growth
+    of the allocator's reserve."""
+    from repro_torch.bench.warm_replay import warm_replay
+    from repro_torch.serve_index import IndexServer, ServeConfig
+    idx, _, Q = _serving_index()
+    with IndexServer(idx, ServeConfig(n_probe=4, topk=5,
+                                      q_buckets=(1, 2, 4, 8, 16))) as srv:
+        report = warm_replay(srv, Q)
+    assert report["ok"], report["failures"]
+    assert report["lib_loaded"] and report["sizes"] == list(range(1, 17))
+    for n in report["sizes"]:
+        launched = report["launches"][n]
+        # the coarse stage and the query tables are row 2, the hot scan
+        # row 6 (row 1 runs only in an insert's encode)
+        assert {"lb_refine", "dtw_band_cdist"} <= set(launched)
+        assert all(k.endswith("'cuda')") for k in report["dispatch"][n])
+
+
+@pytest.mark.parametrize("n_real,bucket", [(1, 2), (3, 4), (5, 8), (9, 16)])
+def test_padded_bucket_equals_unpadded_on_card(gen, n_real, bucket):
+    """A padded bucket's real rows give the unpadded search's ids and
+    distances (within 1e-6); its padded rows are inf / -1; the hot scan
+    refines no pair of a padded row."""
+    import numpy as np
+    from repro_torch.index.streaming import search_impl
+    from repro_torch.serve_index import IndexView
+    idx, _, Q = _serving_index()
+    view = IndexView.capture(idx)
+    Qp = np.zeros((bucket, Q.shape[1]), np.float32)
+    Qp[:n_real] = Q[:n_real]
+    q_valid = torch.arange(bucket, device="cuda") < n_real
+    d, i = view.search(Qp, n_probe=4, topk=5, q_valid=q_valid)
+    d0, i0 = view.search(Q[:n_real], n_probe=4, topk=5)
+    assert torch.equal(i[:n_real], i0)
+    torch.testing.assert_close(d[:n_real], d0, rtol=1e-6, atol=1e-6)
+    assert bool(torch.isinf(d[n_real:]).all())
+    assert bool((i[n_real:] == -1).all())
+    args = (view.coarse, view.cb, view.segments, view.hot)
+    kw = dict(icfg=view.cfg, n_probe=4, topk=5, dim=view.dim,
+              with_stats=True)
+    st = search_impl(*args, torch.from_numpy(Qp).cuda(), q_valid=q_valid,
+                     **kw)[2]
+    st0 = search_impl(*args, torch.from_numpy(Q[:n_real]).cuda(), **kw)[2]
+    assert int(st["n_bounded"]) == int(st0["n_bounded"])

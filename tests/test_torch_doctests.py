@@ -15,6 +15,7 @@ MODULES = (
     "repro_torch.core.measures",
     "repro_torch.core.pq",
     "repro_torch.core.topk",
+    "repro_torch.index.planner",
     "repro_torch.index.streaming",
     "repro_torch.kernels.dtw_band.ops",
     "repro_torch.kernels.lb_cascade.ops",
@@ -22,6 +23,7 @@ MODULES = (
     "repro_torch.kernels.pq_attn.ops",
     "repro_torch.kernels.tune",
     "repro_torch.obs",
+    "repro_torch.serve_index.config",
 )
 
 

@@ -1,11 +1,14 @@
 """The port's examples (``repro_torch.examples``) run on the CPU and
 print their tables, at their own sizes; ``nn_classification`` under dtw
-(the LB-pruned search) and erp (the dense path)."""
+(the LB-pruned search) and erp (the dense path); ``index_service`` as a
+lifecycle loop and through the serving core (``--serve``)."""
 
 import pytest
 import torch
 
-from repro_torch.examples import clustering, nn_classification, quickstart
+from repro_torch import obs
+from repro_torch.examples import (clustering, index_service,
+                                  nn_classification, quickstart)
 
 
 def test_quickstart_runs(capsys):
@@ -47,8 +50,28 @@ def test_nn_classification_runs(capsys, argv, pruned):
     assert exact.split()[-2] == lb.split()[-2]   # pruning keeps the answer
 
 
+def test_index_service_runs(capsys):
+    index_service.main(["--device", "cpu", "--iters", "6"])
+    out = capsys.readouterr().out
+    assert "bootstrap: n_lists=8 hot_capacity=64 measure=dtw on cpu" in out
+    assert "search identical: True" in out
+    assert "sharded planner agrees with single-device search" in out
+    assert "index service obs summary" in out
+    assert not obs.enabled()
+
+
+def test_index_service_serve_runs(capsys):
+    index_service.main(["--device", "cpu", "--serve", "--iters", "6"])
+    out = capsys.readouterr().out
+    assert "serve: warmed 4 query buckets" in out
+    line = next(l for l in out.splitlines() if " requests / " in l)
+    assert int(line.split(" requests / ")[1].split()[0]) > 0
+    assert "6 ingest rounds, 0 shed" in line
+    assert "serving obs summary" in out and "serving.batch_search" in out
+
+
 def test_examples_need_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mod in (quickstart, clustering, nn_classification):
+    for mod in (quickstart, clustering, nn_classification, index_service):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main([])
