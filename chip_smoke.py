@@ -76,7 +76,29 @@ window 7), then the search paths beyond 1-NN on the same data:
   against ``forward`` over the prompt and its token; and on the reduced
   config the card against the CPU route (prefill, exact and PQ decode).
   One more step of each decode runs under ``torch.profiler`` (device
-  busy time, idle share, top kernels).
+  busy time, idle share, top kernels);
+- ``lm_local_global_path``, ``lm_moe_path``, ``lm_vlm_path``
+  (``LM_FAMILY_PATHS``): the same serving, each through the same entry
+  points, for gemma2-27b at full width (46 layers, d_model 4608, vocab
+  256000, window 4096; 2 prompts of 4608 tokens, so the window cuts the
+  coded tail of every local layer: row 11 starts at 513-543 there, 46 x
+  31 launches, 23 x 31 of them from a window start, which count also as
+  ``pq_attn[window]``), deepseek-moe-16b at full width (28 layers, 64
+  routed and 2 shared experts, top 6; 4 prompts of 2048 tokens; the
+  tokens routed to each expert and those dropped by capacity at prefill
+  printed) and qwen2-vl-72b at full width but 8 of its 80 layers
+  (``reduced`` in its line: 145 GB of weights do not fit one card; 2
+  prompts of 256 patch embeddings and 768 tokens, 15 + 15 steps).  Each
+  frees the previous phase's model first and prints its seconds, ms a
+  step and peak memory; on its first PQ step every layer's kernel route
+  is held against its plain route and row 11 against its plain version
+  on that layer's own range; its first exact step against ``forward``
+  (moe: with a capacity no expert fills and every token on the experts
+  the prefill and the step gave it, since capacity drops depend on the
+  batch and bf16 router logits an ulp apart pick other experts); and its
+  reduced config on the card against the CPU route (prefill, exact
+  decode, PQ decode with ``mode="softmax"``, ``"topk"`` and
+  ``quantize_v=True``; the same cache's codes bit for bit).
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
@@ -104,7 +126,9 @@ shape and at the exact search's, equal bit for bit, and so are
 under every measure, and ``dtw_band_full`` (a warp a pair, a thread a
 pair) on the baseline's pairs; ``pq_attn`` is
 launched on two streams at once, each launch equal to its single-stream
-result, every stream's ticket counters back at 0.
+result, every stream's ticket counters back at 0, and is held and timed
+again with a window start on gemma2's first local layer
+(``pq_attn[window]``), equal to the shifted prefix bit for bit.
 
     python3 chip_smoke.py
 
@@ -208,6 +232,13 @@ PQ_ROUTE_TOL = 2e-2       # pq_attention_decode kernel vs plain route (bf16)
 PQ_ATTN_TOL = 2e-4        # pq_attn vs its plain version / the oracle
 LOGIT_ATOL = 2e-2         # LM logits, reduced config: card vs CPU route
 LOGIT_CORR = 0.999        # full width: decode step vs forward
+# the other families at full width: (phase, arch, batch, prompt, generated,
+# patch embeddings, layers or None for the config's own depth)
+LM_FAMILY_PATHS = (
+    ("lm_local_global_path", "gemma2-27b", 2, 4608, 32, 0, None),
+    ("lm_moe_path", "deepseek-moe-16b", 4, 2048, 32, 0, None),
+    ("lm_vlm_path", "qwen2-vl-72b", 2, 1024, 16, 256, 8),
+)
 # the slice-1 main path's kernels (each must launch there)
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
@@ -369,13 +400,19 @@ def main() -> int:
     ctx["eval_launches"] = {"table1_path": table1_path(torch, _build),
                             "fig5_path": fig5_path(torch, _build)}
     ctx["lm"] = lm_path(torch, _build)
+    ctx["lm_families"] = {spec[0]: lm_family_path(torch, _build, *spec)
+                          for spec in LM_FAMILY_PATHS}
     small_reference(torch)
     small_lm_reference(torch)
     kernels = kernel_phases(torch, ctx)
     kernels.append(lb_refine_phases(torch, ctx, waves))
     kernels += adaptive_kernel_phases(torch, ctx, waves)
     kernels += quant_kernel_phases(torch, ctx)
-    kernels.append(pq_attn_phase(torch, ctx["lm"]))
+    lm_launches = [ctx["lm"]["launches"]] + [
+        f["launches"] for f in ctx["lm_families"].values()]
+    kernels.append(pq_attn_phase(torch, ctx["lm"], lm_launches))
+    kernels.append(pq_attn_window_phase(
+        torch, ctx["lm_families"]["lm_local_global_path"], lm_launches))
     kernels.append(full_kernel_phase(torch, ctx))
     measure_sweep(torch)
     profiler_phase()
@@ -2150,8 +2187,8 @@ def lm_path(torch, _build) -> dict:
                   f"pq_attention_decode layer {len(route_err) - 1}: kernel "
                   "route within the tolerance of the plain route")
             if not captured:
-                captured.update(q=q.clone(), pos=pos, layer=pqkv.PQKVCache(
-                    *(t.clone() for t in layer_cache)))
+                captured.update(q=q.clone(), pos=pos, layer=_clone_layer(
+                    torch, pqkv, layer_cache))
                 # layer 0 sees the exact decode's input: exact attention
                 # over its keys measures what the PQ keys cost
                 keys = cache["k"][0, :, :pos + 1].float()
@@ -2235,6 +2272,374 @@ def lm_path(torch, _build) -> dict:
     return dict(launches=launches, **captured)
 
 
+def _clone_layer(torch, pqkv, layer_cache):
+    """A copy of one layer's PQ cache (its absent fields stay None)."""
+    return pqkv.PQKVCache(*(None if t is None else t.clone()
+                            for t in layer_cache))
+
+
+def _uncounted(_build, fn):
+    """``fn()`` with the launch counters restored after it: launches made
+    to hold a kernel against its plain version inside a path's run do not
+    count as the path's."""
+    saved = dict(_build.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        _build.LAUNCHES.update(saved)
+
+
+def _forward_chunk(n: int) -> int:
+    """A query chunk for ``forward`` over ``n`` positions: the largest
+    divisor of ``n`` up to 512 if it is at least 64 (gemma2's 4609 = 11 x
+    419), else ``n`` (one chunk)."""
+    best = max(d for d in range(1, min(n, 512) + 1) if n % d == 0)
+    return best if best >= 64 else n
+
+
+def lm_family_path(torch, _build, phase, arch, B, S, n_gen, n_patches,
+                   layers) -> dict:
+    """One family's serving at full width (module docstring): seeded
+    random weights, prefill of ``B`` prompts of ``S`` tokens (the first
+    ``n_patches`` positions patch embeddings), ``n_gen - 1`` exact greedy
+    steps, ``compress_cache`` with ``PQKVConfig()`` and the same steps
+    with the PQ cache.  ``layers`` cuts the depth (listed as ``reduced``).
+    Returns the path's launch counts and, for a local/global model, its
+    first local layer's tensors at the first PQ step."""
+    import gc
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.pq_attn.ops import pq_attn
+    from repro_torch.kernels.pq_attn.ref import pq_attn_lut_ref
+    from repro_torch.models import lm
+    from repro_torch.serve import pqkv
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.prefill import prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                         n_layers=layers)
+    L, n_steps = cfg.n_layers, n_gen - 1
+    pqc = pqkv.PQKVConfig()
+    W = pqc.recent_window
+    seconds, step_ms = {}, {"exact": [], "pq": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = timed("init", lambda: lm.init_params(cfg, gen))
+    cache = init_cache(cfg, B, S + n_gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if n_patches:
+        batch["patches"] = torch.randn((B, n_patches, cfg.d_model),
+                                       generator=gen, device="cuda")
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+
+    # the experts' routing at prefill, layer by layer
+    routing, inner_moe = [], lm.moe
+
+    def moe_hook(p, cfg_, x, *a, **kw):
+        st = {}
+        out = inner_moe(p, cfg_, x, *a, stats=st, **kw)
+        routing.append(st)
+        return out
+
+    _build.reset_launches()
+    lm.moe = moe_hook
+    try:
+        logits, cache = timed("prefill", lambda: prefill(params, cfg, cache,
+                                                         batch))
+    finally:
+        lm.moe = inner_moe
+    check(bool(torch.isfinite(logits).all()), f"{phase}: prefill finite")
+    first = _greedy(torch, logits)
+    exact_toks, tok, exact_first = [first], first, None
+    for g in range(n_steps):
+        logits, cache = timed("step", lambda: serve_step(
+            params, cfg, cache, tok, S + g))
+        step_ms["exact"].append(seconds.pop("step") * 1e3)
+        check(bool(torch.isfinite(logits).all()),
+              f"{phase}: exact step {g} finite")
+        if g == 0:
+            exact_first = logits.clone()
+        tok = _greedy(torch, logits)
+        exact_toks.append(tok)
+    # the exact decode is over: the PQ cache takes its value tensor
+    pq_cache = timed("compress", lambda: pqkv.compress_cache(
+        cache, cfg, pqc, pos=S, generator=torch.Generator().manual_seed(1)))
+    del cache
+
+    inner = pqkv.pq_attention_decode
+    calls, windowed, route_err, attn_err, captured = [0], [0], [], [], {}
+
+    def hooked(q, layer_cache, pos, **kw):
+        out = inner(q, layer_cache, pos, **kw)
+        calls[0] += 1
+        window = kw.get("window", 0)
+        start, stop = pqkv.tail_range(pos, W, window)
+        windowed[0] += start > 0
+        if pos == S:
+            plain = inner(q, layer_cache, pos, route="plain", **kw)
+            diff = (out.float() - plain.float()).abs()
+            route_err.append(float(diff.max()))
+            check(bool((diff <= PQ_ROUTE_TOL
+                        + PQ_ROUTE_TOL * plain.float().abs()).all()),
+                  f"{phase} layer {len(route_err) - 1}: kernel route within "
+                  "the tolerance of the plain route")
+            Bq, G, R, hd = q.shape
+            M, K = layer_cache.k_books.shape[1:3]
+            qlut = pqkv._query_table(q, layer_cache.k_books).reshape(
+                Bq, G * R, M, K)
+            got = _uncounted(_build, lambda: pq_attn(
+                qlut, layer_cache.k_codes, layer_cache.v, stop, hd ** -0.5,
+                start))
+            want = pq_attn_lut_ref(qlut, layer_cache.k_codes, layer_cache.v,
+                                   stop, hd ** -0.5, start)
+            attn_err.append(max(float((a - b).abs().max())
+                                for a, b in zip(got, want)))
+            check(all(bool(torch.allclose(a, b, rtol=PQ_ATTN_TOL,
+                                          atol=PQ_ATTN_TOL))
+                      for a, b in zip(got, want)),
+                  f"{phase} layer {len(attn_err) - 1}: pq_attn over "
+                  f"[{start}, {stop}) within PQ_ATTN_TOL of its plain version")
+            if 0 < start < stop and "window" not in captured:
+                captured.update(window=window, q=q.clone(), pos=pos,
+                                layer=_clone_layer(torch, pqkv, layer_cache))
+        return out
+
+    pqkv.pq_attention_decode = hooked
+    try:
+        pq_toks, tok, pq_first = [first], first, None
+        for g in range(n_steps):
+            logits, pq_cache = timed("step", lambda: pqkv.pq_serve_step(
+                params, cfg, pq_cache, tok, S + g, pqc=pqc))
+            step_ms["pq"].append(seconds.pop("step") * 1e3)
+            check(bool(torch.isfinite(logits).all()),
+                  f"{phase}: PQ step {g} finite")
+            if g == 0:
+                pq_first = logits.clone()
+            tok = _greedy(torch, logits)
+            pq_toks.append(tok)
+    finally:
+        pqkv.pq_attention_decode = inner
+    launches = dict(_build.LAUNCHES)
+    want_windowed = sum(pqkv.tail_range(S + g, W, lm.layer_window(cfg, i))[0]
+                        > 0 for g in range(n_steps) for i in range(L))
+    check(len(route_err) == len(attn_err) == L,
+          f"{phase}: every layer checked on the first PQ step")
+    check(launches["pq_attn"] == L * n_steps == calls[0],
+          f"{phase}: pq_attn launched in every layer of every PQ step: "
+          f"{launches}")
+    check(launches["pq_attn[window]"] == windowed[0] == want_windowed,
+          f"{phase}: {want_windowed} launches with a window start: "
+          f"{launches}")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("pq_attn", "pq_attn[window]")),
+          f"{phase}: no other kernel on the LM path: {launches}")
+
+    # the exact decode's first step against one forward pass over prompt +
+    # token (logit correlation, as lm_path: cuBLAS sums by shape)
+    fwd_batch = dict(batch, tokens=torch.cat([batch["tokens"], first], 1))
+
+    def forward_last():
+        h = lm.forward(params, cfg, fwd_batch, q_chunk=_forward_chunk(S + 1),
+                       return_hidden=True)[:, -1:]
+        return lm.logits_from_hidden(params, cfg, h)
+
+    fwd_last = timed("forward_check", forward_last)
+    fwd_corr = _corr(torch, fwd_last, exact_first)
+    fwd_top1 = float((_greedy(torch, fwd_last)
+                      == _greedy(torch, exact_first)).float().mean())
+    vs_forward = {"max_abs_err": float((fwd_last - exact_first).abs().max()),
+                  "corr": fwd_corr, "top1_agreement": fwd_top1}
+    if cfg.family == "moe":
+        # Capacity drops depend on the batch's other tokens: a decode step
+        # (T = B, nothing dropped) is not forward's last position where
+        # capacity binds, in the reference too.  And the router's logits
+        # are bf16: products of other shapes round them an ulp apart now
+        # and then, and the k-th and (k+1)-th expert trade places.  So the
+        # step is held against forward with a capacity no expert can fill
+        # and every token on the experts it took in the prefill and the
+        # step that built the cache.
+        taken = {"prefill": [], "step": []}
+        where = ["prefill"]
+
+        def no_drop(p, cfg_, x, *a, **kw):
+            st = {}
+            pinned = None
+            if where[0] == "forward":
+                layer = len(taken["forward"])
+                pinned = torch.cat([taken["prefill"][layer],
+                                    taken["step"][layer]], dim=1)
+            out = inner_moe(p, cfg_, x, 2.0 * cfg_.n_experts
+                            / cfg_.n_active_experts, stats=st,
+                            routing=pinned)
+            taken[where[0]].append(st["top_i"].reshape(*x.shape[:2], -1))
+            return out
+
+        lm.moe = no_drop
+        try:
+            cache2 = init_cache(cfg, B, S + 1)
+            prefill(params, cfg, cache2, batch)
+            where[0] = "step"
+            step_nd = serve_step(params, cfg, cache2, first, S)[0]
+            del cache2
+            where[0] = "forward"
+            taken["forward"] = []
+            fwd_nd = forward_last()
+        finally:
+            lm.moe = inner_moe
+        corr_nd = _corr(torch, fwd_nd, step_nd)
+        vs_forward["pinned_routing_no_drop"] = {
+            "max_abs_err": float((fwd_nd - step_nd).abs().max()),
+            "corr": corr_nd, "top1_agreement": float(
+                (_greedy(torch, fwd_nd) == _greedy(torch, step_nd))
+                .float().mean())}
+        check(corr_nd >= LOGIT_CORR, f"{phase}: decode step agrees with "
+              f"forward on the same experts without drops: {vs_forward}")
+    else:
+        check(fwd_corr >= LOGIT_CORR, f"{phase}: decode step agrees with "
+              f"forward (logit correlation {fwd_corr})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    exact_t, pq_t = torch.cat(exact_toks, 1), torch.cat(pq_toks, 1)
+    ms = {k: sum(v[1:]) / len(v[1:]) for k, v in step_ms.items()}
+    record = {
+        "phase": phase, "arch": cfg.name, "family": cfg.family,
+        "layers": L, "d_model": cfg.d_model, "batch": B, "prompt": S,
+        "patches": n_patches, "generated": n_gen,
+        "reduced": ([] if layers is None else
+                    [f"n_layers {full.n_layers} -> {layers}"]),
+        "pqkv": dataclasses.asdict(pqc), "seconds": seconds,
+        "decode_ms_per_step": ms,
+        "first_step_ms": {k: v[0] for k, v in step_ms.items()},
+        "decode_tok_per_s": {k: B * 1e3 / v for k, v in ms.items()},
+        "pqkv_memory": pqkv.pqkv_memory(cfg, pqc, B, S + n_gen),
+        "greedy_agreement": float((pq_t == exact_t).float().mean()),
+        "first_step_logit_corr": _corr(torch, pq_first, exact_first),
+        "decode_vs_forward": vs_forward,
+        "route_max_abs_err": max(route_err),
+        "pq_attn_max_abs_err": max(attn_err),
+        "routes": {"pq_attention_decode_calls": calls[0],
+                   "pq_attn_launches": launches["pq_attn"],
+                   "window_start_launches": launches["pq_attn[window]"]},
+        "launches": launches, "weights_gib": weights_gib,
+        "peak_mem_gib": peak_gib, "tolerance": {
+            "route": {"rtol": PQ_ROUTE_TOL, "atol": PQ_ROUTE_TOL},
+            "pq_attn": {"rtol": PQ_ATTN_TOL, "atol": PQ_ATTN_TOL},
+            "decode_vs_forward": {"corr": LOGIT_CORR}}}
+    if routing:
+        routed = torch.stack([st["routed"] for st in routing])   # (L, E)
+        record["moe_prefill"] = {
+            "tokens": B * S, "capacity": int(routing[0]["tok_ec"].shape[1]),
+            "routed_per_expert": routed.sum(0).tolist(),
+            "dropped_per_layer": [st["dropped"] for st in routing],
+            "dropped": sum(st["dropped"] for st in routing)}
+        check(len(routing) == L and all(
+            int(r.sum()) == B * S * cfg.n_active_experts for r in routed),
+            f"{phase}: every layer routed k experts a token at prefill")
+    del params, pq_cache, fwd_batch, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["small_reference"] = small_family_reference(torch, arch,
+                                                       n_patches > 0)
+    emit(record)
+    return dict(launches=launches, **captured)
+
+
+def small_family_reference(torch, arch, patches) -> dict:
+    """The family's reduced config with weights made on the CPU and
+    carried to the card (gemma2's prompt 8 past its window of 32; the vlm
+    with patch embeddings): prefill, 3 exact decode steps and 3 PQ steps
+    in each of ``mode="softmax"``, ``"topk"`` and ``quantize_v=True``
+    (books fit on the CPU) give the CPU route's logits within
+    ``LOGIT_ATOL``.  The codes of the two runs may differ where a key lies
+    near two codewords (the card's products round their sums in another
+    order; gemma2's softcap is another ``tanh``): they are counted, and
+    the CPU run's prefill cache compressed on the card gives the CPU's
+    key and value codes bit for bit."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve import pqkv
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.prefill import prefill
+    cfg = get_reduced(arch)
+    B = 2
+    S = cfg.sliding_window + 8 if cfg.sliding_window else 24
+    base = dict(n_sub=4, codebook_size=16, recent_window=8)
+    modes = {"softmax": pqkv.PQKVConfig(**base),
+             "topk": pqkv.PQKVConfig(**base, mode="topk", top_t=8),
+             "quantize_v": pqkv.PQKVConfig(**base, quantize_v=True)}
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if patches:
+        batch["patches"] = torch.randn((B, cfg.n_frontend_tokens,
+                                        cfg.d_model), generator=g)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(torch, p_cpu, dev)
+        logits, cache = prefill(params, cfg, init_cache(cfg, B, S + 4, dev),
+                                {k: v.to(dev) for k, v in batch.items()})
+        if dev == "cpu":
+            fit = torch.Generator().manual_seed(5)
+            books = pqkv.fit_kv_books(cache["k"], modes["softmax"], fit, S)
+            v_books = pqkv.fit_kv_books(cache["v"], modes["softmax"], fit, S)
+            cpu_cache = {k: v.clone() for k, v in cache.items()}
+        pq = {m: pqkv.compress_cache(
+            {"k": cache["k"], "v": cache["v"].clone()}, cfg, c, pos=S,
+            books=books, v_books=v_books) for m, c in modes.items()}
+        out = {"prefill": [logits], "exact": []}
+        out.update({m: [] for m in modes})
+        tok = _greedy(torch, logits)
+        pq_tok = dict.fromkeys(modes, tok)
+        for step in range(3):
+            logits, cache = serve_step(params, cfg, cache, tok, S + step)
+            out["exact"].append(logits)
+            tok = _greedy(torch, logits)
+            for m, c in modes.items():
+                lg, pq[m] = pqkv.pq_serve_step(params, cfg, pq[m], pq_tok[m],
+                                               S + step, pqc=c)
+                out[m].append(lg)
+                pq_tok[m] = _greedy(torch, lg)
+        codes = [pq[m].k_codes for m in modes] + [pq["quantize_v"].v_codes]
+        runs[dev] = ({k: [t.cpu() for t in v] for k, v in out.items()},
+                     [c.cpu() for c in codes])
+    errs = {k: max(float((a - b).abs().max()) for a, b in
+                   zip(runs["cpu"][0][k], runs["cuda"][0][k]))
+            for k in runs["cpu"][0]}
+    differ = sum(int((a != b).sum())
+                 for a, b in zip(runs["cpu"][1], runs["cuda"][1]))
+    same_input = [pqkv.compress_cache(
+        {k: v.to(dev) for k, v in cpu_cache.items()}, cfg,
+        modes["quantize_v"], pos=S, books=books, v_books=v_books)
+        for dev in ("cpu", "cuda")]
+    same_codes = all(torch.equal(getattr(same_input[0], n),
+                                 getattr(same_input[1], n).cpu())
+                     for n in ("k_codes", "v_codes"))
+    out = {"arch": cfg.name, "prompt": S, "patches": bool(patches),
+           "logits_max_abs_err": errs, "pq_codes_differing": differ,
+           "pq_codes": sum(int(c.numel()) for c in runs["cpu"][1]),
+           "same_cache_codes_identical": same_codes,
+           "tolerance": {"atol": LOGIT_ATOL}}
+    emit({"phase": "small_family_reference", **out})
+    check(max(errs.values()) <= LOGIT_ATOL, f"{arch} reduced: card logits "
+          f"within the tolerance of the CPU route: {errs}")
+    check(same_codes, f"{arch} reduced: the same cache's codes identical on "
+          "card and CPU")
+    return out
+
+
 def small_lm_reference(torch) -> None:
     """internlm2's reduced config with weights made on the CPU and carried
     to the card: prefill, 3 exact and 3 PQ decode steps (books fit on the
@@ -2292,12 +2697,13 @@ def _to(torch, x, dev):
     return tuple(_to(torch, f, dev) for f in x)
 
 
-def pq_attn_phase(torch, lm) -> dict:
+def pq_attn_phase(torch, lm, lm_launches) -> dict:
     """Row 11 on the first PQ step's layer-0 tensors (B=8, tail 1921,
     G=8, R=2, M=8, K=256, Dv=128): with the serving path's bf16 table,
     uint8 codes and bf16 values against its plain version (timed), and
     with a float32 table and values against the reference's oracle
-    (dequantise, then exact softmax), both within ``PQ_ATTN_TOL``."""
+    (dequantise, then exact softmax), both within ``PQ_ATTN_TOL``.  Its
+    launches are the LM paths' (``lm_launches``, one dict a path)."""
     import torch.nn.functional as F
     from repro_torch.kernels.pq_attn.ops import (launch_pq_attn, pq_attn,
                                                  pq_attn_decode,
@@ -2352,7 +2758,8 @@ def pq_attn_phase(torch, lm) -> dict:
     chunk, n_split = split_geometry(n, B * G)
     row = {"name": "pq_attn", "route": "cuda", "source": SOURCES["pq_attn"],
            "replaces": TPU_SITES["pq_attn"],
-           "launches": lm["launches"]["pq_attn"], "max_abs_err": max_abs,
+           "launches": sum(x["pq_attn"] for x in lm_launches),
+           "max_abs_err": max_abs,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "design": DESIGNS["pq_attn"], "variant": f"{n_split} splits"}
@@ -2369,6 +2776,77 @@ def pq_attn_phase(torch, lm) -> dict:
           "with its plain version")
     check(ok32, "pq_attn (float32) agrees with the dequantise-then-softmax "
           "oracle")
+    return row
+
+
+def pq_attn_window_phase(torch, fam, lm_launches) -> dict:
+    """Row 11 with a window start on gemma2's first local layer at its
+    first PQ step (B=2, positions [513, 4481) of 4640, G=16, R=2, M=8,
+    K=256, Dv=128): against its plain version, timed beside it and beside
+    ``scaled_dot_product_attention`` over the keys reconstructed for the
+    same positions.  ``launches``: the launches with ``start > 0`` (each
+    also counts as ``pq_attn``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.pq_attn.ops import (launch_pq_attn, pq_attn,
+                                                 split_geometry)
+    from repro_torch.kernels.pq_attn.ref import (pq_attn_lut_ref,
+                                                 reconstruct_keys)
+    from repro_torch.serve import pqkv
+    q, pos, layer, window = fam["q"], fam["pos"], fam["layer"], fam["window"]
+    B, G, R, hd = q.shape
+    codes, books, v = layer.k_codes, layer.k_books, layer.v
+    M, K = books.shape[1], books.shape[2]
+    H, W = G * R, layer.k_recent.shape[1]
+    start, stop = pqkv.tail_range(pos, W, window)
+    n = stop - start
+    check(start > 0 and n > 0, "pq_attn[window]: a window start")
+    scale = hd ** -0.5
+    qlut = pqkv._query_table(q, books).reshape(B, H, M, K).contiguous()
+    got = pq_attn(qlut, codes, v, stop, scale, start)
+    want, plain_ms = _sync_ms(torch, lambda: pq_attn_lut_ref(
+        qlut, codes, v, stop, scale, start))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    ok = all(bool(torch.allclose(a, b, rtol=PQ_ATTN_TOL, atol=PQ_ATTN_TOL))
+             for a, b in zip(got, want))
+    shifted = pq_attn(qlut, codes[:, start:].contiguous(),
+                      v[:, start:].contiguous(), n, scale)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, shifted))
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    ms = _mean_ms(torch, lambda: launch_pq_attn(qlut, codes, v, stop, scale,
+                                                out, m, l, start), REPS)
+    check(torch.equal(out, got[0]) and torch.equal(m, got[1])
+          and torch.equal(l, got[2]), "pq_attn[window]: the launch alone "
+          "equals the wrapper, bit for bit")
+    keys = reconstruct_keys(codes[:, start:stop], books).to(torch.bfloat16)
+    kh = keys.permute(0, 2, 1, 3).contiguous()            # (B, G, n, hd)
+    vh = v[:, start:stop].permute(0, 2, 1, 3).contiguous()
+    library_ms = _mean_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.reshape(B, H, 1, hd), kh, vh, enable_gqa=True), REPS)
+    nbytes = (B * n * G * (M + hd * v.element_size())
+              + qlut.numel() * qlut.element_size() + B * H * (hd + 2) * 4)
+    ops = B * H * n * (M + 4 + 2 * hd)
+    bound_ms, bound_by = bound(nbytes, ops)
+    chunk, n_split = split_geometry(n, B * G)
+    row = {"name": "pq_attn[window]", "route": "cuda",
+           "source": SOURCES["pq_attn"], "replaces": TPU_SITES["pq_attn"],
+           "launches": sum(x["pq_attn[window]"] for x in lm_launches),
+           "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "design": DESIGNS["pq_attn"],
+           "variant": f"start {start}, {n_split} splits"}
+    emit({"phase": "kernel", **row, "shapes": {
+              "batch": B, "pos": pos, "window": window, "start": start,
+              "stop": stop, "groups": G, "reps": R, "M": M, "K": K,
+              "Dv": hd, "table": str(qlut.dtype), "codes": str(codes.dtype),
+              "values": str(v.dtype), "chunk": chunk, "n_split": n_split,
+              "ctas": B * G * n_split},
+          "equals_shifted_prefix": same_bits, "agrees": ok,
+          "in_table": True,
+          "tolerance": {"rtol": PQ_ATTN_TOL, "atol": PQ_ATTN_TOL}})
+    check(ok, "pq_attn[window] agrees with its plain version")
+    check(same_bits, "pq_attn[window] equals the shifted prefix bit for bit")
     return row
 
 

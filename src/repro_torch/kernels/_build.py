@@ -49,12 +49,14 @@ FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", ARCH,
 
 # dtw_band_adaptive's wdtw, erp and msm launches count under their own
 # ``op[measure]`` names (the dispatch ledger's key form), its dtw launches
-# under the bare name.
+# under the bare name.  A pq_attn launch over a window (start > 0) counts
+# under ``pq_attn`` and also under ``pq_attn[window]``.
 KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
            "prealign_encode", "lb_refine", "dtw_band_adaptive",
            "lb_refine_adaptive", "adc_sym_quant", "adc_lookup_quant",
            "pq_attn", "dtw_band_full", "dtw_band_adaptive[erp]",
-           "dtw_band_adaptive[msm]", "dtw_band_adaptive[wdtw]")
+           "dtw_band_adaptive[msm]", "dtw_band_adaptive[wdtw]",
+           "pq_attn[window]")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -80,7 +82,7 @@ _SIGNATURES = {
     "pq_adc_sym_rows": [_P] * 6 + [_I] * 9 + [_P],
     "pq_adc_lookup_quant": [_P] * 5 + [_I] * 8 + [_P],
     "pq_adc_lookup_rows": [_P] * 5 + [_I] * 9 + [_P],
-    "pq_attn": [_P] * 8 + [_I] * 11 + [_F] + [_I] * 3 + [_P],
+    "pq_attn": [_P] * 8 + [_I] * 12 + [_F] + [_I] * 3 + [_P],
     "pq_dtw_band_full": [_P] * 4 + [_I] * 6 + [_P],
 }
 

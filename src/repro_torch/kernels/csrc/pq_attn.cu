@@ -8,8 +8,10 @@
 //   scale * sum_m qlut[h, m, code[s, g(h), m]]
 //
 // (the paper's asymmetric distance, specialised to dot products), masked
-// to the first valid_len positions; softmax over positions; the output is
-// the softmax-weighted sum of the exact cached values.
+// to the positions [start, valid_len); softmax over positions; the output
+// is the softmax-weighted sum of the exact cached values.  start > 0 is a
+// sliding window's first position (gemma2's local layers: the coded tail
+// (pos - window, pos - W]); start = 0 is the whole prefix.
 //
 // Layouts (row-major, contiguous):
 //   qlut   (B, G*R, M, K)  float32 or bf16: head h = g*R + r reads group g
@@ -28,10 +30,11 @@
 // one core; one CTA per (row, group) would give 64 CTAs on 132 SMs, each
 // waiting on one tile's loads at a time.
 //
-// Design.  The grid is (B*G, n_split): the valid prefix is cut into
-// n_split chunks of `chunk` positions (kernels/pq_attn/ops.py::
-// split_geometry: at the serving shape 8 chunks of 256, 512 CTAs, about 4
-// on each SM).  A CTA of 256 threads:
+// Design.  The grid is (B*G, n_split): the range [start, valid_len) is
+// cut into n_split chunks of `chunk` positions, split s taking
+// [start + s * chunk, ...) (kernels/pq_attn/ops.py::split_geometry over
+// valid_len - start: at the serving shape 8 chunks of 256, 512 CTAs,
+// about 4 on each SM).  A CTA of 256 threads:
 //
 //   1. stages its group's R x M x K table in shared memory (8 KiB in bf16)
 //      in the type the caller gives it, in 16-byte pieces;
@@ -58,9 +61,9 @@
 // the wrapper and left at 0 by every launch; launches that share them
 // must be ordered (one stream).
 //
-// Masked positions never enter the sums.  An empty prefix (valid_len = 0,
-// one split) returns out = 0, m = -1e30, l = 0, the TPU kernel's initial
-// scratch.  A code >= K is clamped to K - 1 (never a fault; the wrapper
+// Masked positions never enter the sums.  An empty range (start >=
+// valid_len, one split) returns out = 0, m = -1e30, l = 0, the TPU
+// kernel's initial scratch.  A code >= K is clamped to K - 1 (never a fault; the wrapper
 // documents the range).
 
 #include <cuda_bf16.h>
@@ -175,8 +178,9 @@ __global__ void __launch_bounds__(kThreads)
                    const VT* __restrict__ v, float* __restrict__ out,
                    float* __restrict__ m_out, float* __restrict__ l_out,
                    float* __restrict__ ws, int* __restrict__ counters, int S,
-                   int G, int R, int M, int K, int Dv, int valid_len,
-                   int chunk, float scale, int codes_vec, int table_vec) {
+                   int G, int R, int M, int K, int Dv, int range_start,
+                   int valid_len, int chunk, float scale, int codes_vec,
+                   int table_vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_cg = Dv / VW;                  // column groups
   const int n_pl = position_lanes(Dv, VW);   // position lanes (>= 2)
@@ -191,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
   const int g = row % G;
   const int split = blockIdx.y;
   const int n_split = gridDim.y;
-  const int start = split * chunk;
+  const int start = range_start + split * chunk;
   const int n = max(0, min(chunk, valid_len - start));
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -371,7 +375,7 @@ struct Args {
   float* l;
   float* ws;
   int* counters;
-  int rows, n_split, S, G, R, M, K, Dv, valid_len, chunk;
+  int rows, n_split, S, G, R, M, K, Dv, start, valid_len, chunk;
   float scale;
   int codes_vec, table_vec;
   size_t smem;
@@ -389,8 +393,8 @@ int launch(const Args& a) {
   kernel<<<dim3(a.rows, a.n_split), kThreads, a.smem, a.stream>>>(
       static_cast<const TT*>(a.qlut), static_cast<const CT*>(a.codes),
       static_cast<const VT*>(a.v), a.out, a.m, a.l, a.ws, a.counters, a.S,
-      a.G, a.R, a.M, a.K, a.Dv, a.valid_len, a.chunk, a.scale, a.codes_vec,
-      a.table_vec);
+      a.G, a.R, a.M, a.K, a.Dv, a.start, a.valid_len, a.chunk, a.scale,
+      a.codes_vec, a.table_vec);
   return (int)cudaGetLastError();
 }
 
@@ -432,17 +436,21 @@ size_t pq_attn_smem_bytes(int R, int M, int K, int Dv, int chunk, int vw,
 
 // ws: rows * n_split * R * (Dv + 2) floats when n_split > 1 (unused at 1);
 // counters: rows int32, all 0.  vw: values per load (4, or 8 for bf16
-// values whose width and storage allow 16-byte loads).
+// values whose width and storage allow 16-byte loads).  The range is
+// [start, valid_len); the splits cover its max(valid_len - start, 0)
+// positions, none of them empty.
 int pq_attn(const void* qlut, const void* codes, const void* v, float* out,
             float* m, float* l, float* ws, int* counters, int B, int S,
-            int G, int R, int M, int K, int Dv, int valid_len, int chunk,
-            int n_split, int vw, float scale, int table_bf16, int codes_u8,
-            int values_bf16, void* stream) {
+            int G, int R, int M, int K, int Dv, int start, int valid_len,
+            int chunk, int n_split, int vw, float scale, int table_bf16,
+            int codes_u8, int values_bf16, void* stream) {
+  const long long len = valid_len > start ? valid_len - start : 0;
   if (R < 1 || R > kMaxR || Dv < 4 || Dv > 512 || Dv % vw != 0 ||
       (vw != 4 && vw != 8) || (vw == 8 && !values_bf16) || valid_len < 0 ||
-      valid_len > S || chunk < 1 || n_split < 1 || n_split > 65535 ||
-      (long long)(n_split - 1) * chunk >= (valid_len > 0 ? valid_len : 1) ||
-      (long long)n_split * chunk < valid_len ||
+      valid_len > S || start < 0 || start > S || chunk < 1 || n_split < 1 ||
+      n_split > 65535 ||
+      (long long)(n_split - 1) * chunk >= (len > 0 ? len : 1) ||
+      (long long)n_split * chunk < len ||
       (n_split > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -462,6 +470,7 @@ int pq_attn(const void* qlut, const void* codes, const void* v, float* out,
   a.M = M;
   a.K = K;
   a.Dv = Dv;
+  a.start = start;
   a.valid_len = valid_len;
   a.chunk = chunk;
   a.scale = scale;

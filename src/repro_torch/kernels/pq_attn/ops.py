@@ -2,15 +2,17 @@
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises.  :func:`pq_attn` is the kernel's own interface (a
-query table, codes, values, ``valid_len``) and returns the running max and
+query table, codes, values, the range ``[start, valid_len)``: ``start > 0``
+is a sliding window's first position) and returns the running max and
 denominator beside the output, so a caller can merge another softmax piece
 (the PQ-KV cache's exact ring).  :func:`pq_attn_decode` keeps the
 reference's signature (a query and codebooks) and builds the float32 table
 itself.  :func:`launch_pq_attn` is the launch alone, on checked inputs;
-it counts as ``pq_attn``.
+it counts as ``pq_attn``, and with ``start > 0`` also as
+``pq_attn[window]``.
 
-The kernel splits the valid prefix over CTAs (:func:`split_geometry`, from
-the shapes alone) and merges the splits inside the same launch: one launch
+The kernel splits the range over CTAs (:func:`split_geometry` of its
+length, from the shapes alone) and merges the splits inside the same launch: one launch
 per call.  The merge's workspace (:func:`workspace_floats`) is allocated
 per call; its tickets are an int32 counter per (row, group), which every
 launch leaves at 0.  The counters are kept per ``(device, stream)``
@@ -143,7 +145,7 @@ def encode_keys(k: torch.Tensor, k_books: torch.Tensor) -> torch.Tensor:
     return torch.argmin(d2, dim=-1).to(torch.int32)
 
 
-def _check(qlut, codes, v, valid_len):
+def _check(qlut, codes, v, valid_len, start):
     if qlut.dim() != 4 or codes.dim() != 4 or v.dim() != 4:
         raise ValueError("pq_attn takes qlut (B, H, M, K), codes (B, S, G, "
                          "M) and v (B, S, G, Dv)")
@@ -155,18 +157,20 @@ def _check(qlut, codes, v, valid_len):
                          f"codes {tuple(codes.shape)}, v {tuple(v.shape)}")
     if not 0 <= valid_len <= S:
         raise ValueError(f"valid_len={valid_len} outside [0, {S}]")
+    if not 0 <= start <= S:
+        raise ValueError(f"start={start} outside [0, {S}]")
 
 
 def launch_pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
                    valid_len: int, scale: float, out: torch.Tensor,
-                   m: torch.Tensor, l: torch.Tensor) -> None:
-    """Launch the kernel into ``out (B, H, Dv)``, ``m, l (B, H)`` float32:
-    contiguous inputs of the kernel's types on one CUDA device, checked by
-    :func:`pq_attn`."""
+                   m: torch.Tensor, l: torch.Tensor, start: int = 0) -> None:
+    """Launch the kernel over positions ``[start, valid_len)`` into ``out
+    (B, H, Dv)``, ``m, l (B, H)`` float32: contiguous inputs of the
+    kernel's types on one CUDA device, checked by :func:`pq_attn`."""
     B, H, M, K = qlut.shape
     _, S, G, _ = codes.shape
     Dv, R = v.shape[-1], H // G
-    chunk, n_split = split_geometry(valid_len, B * G)
+    chunk, n_split = split_geometry(valid_len - start, B * G)
     n_ws = workspace_floats(B * G, n_split, R, Dv)
     ws = (torch.empty(n_ws, dtype=torch.float32, device=out.device)
           if n_ws else None)
@@ -175,25 +179,28 @@ def launch_pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     status = _build.lib().pq_attn(
         qlut.data_ptr(), codes.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), _build.ptr(ws), _build.ptr(counters),
-        B, S, G, R, M, K, Dv, int(valid_len), chunk, n_split,
+        B, S, G, R, M, K, Dv, int(start), int(valid_len), chunk, n_split,
         value_vector(v), float(scale), int(qlut.dtype == torch.bfloat16),
         int(codes.dtype == torch.uint8), int(v.dtype == torch.bfloat16),
         stream)
     _build.check(status, "pq_attn")
     _build.count_launch("pq_attn")
+    if start > 0:
+        _build.count_launch("pq_attn[window]")
 
 
 def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
-            valid_len: int, scale: float):
-    """Softmax attention of the table's heads over the first ``valid_len``
-    coded positions: ``qlut (B, H, M, K)``, ``codes (B, S, G, M)``, ``v
-    (B, S, G, Dv)`` -> ``(out (B, H, Dv), m (B, H), l (B, H))`` float32,
-    ``m`` the largest score and ``l = sum exp(score - m)``."""
-    valid_len = int(valid_len)
-    _check(qlut, codes, v, valid_len)
+            valid_len: int, scale: float, start: int = 0):
+    """Softmax attention of the table's heads over the coded positions
+    ``[start, valid_len)``: ``qlut (B, H, M, K)``, ``codes (B, S, G, M)``,
+    ``v (B, S, G, Dv)`` -> ``(out (B, H, Dv), m (B, H), l (B, H))``
+    float32, ``m`` the largest score and ``l = sum exp(score - m)``.  An
+    empty range (``start >= valid_len``) gives ``valid_len = 0``'s result."""
+    valid_len, start = int(valid_len), int(start)
+    _check(qlut, codes, v, valid_len, start)
     dev = _build.kernel_device(qlut, codes, v)
     if dev is None:
-        return pq_attn_lut_ref(qlut, codes, v, valid_len, scale)
+        return pq_attn_lut_ref(qlut, codes, v, valid_len, scale, start)
     if (qlut.dtype not in _TABLE_TYPES or codes.dtype not in _CODE_TYPES
             or v.dtype not in _VALUE_TYPES):
         raise ValueError(f"pq_attn kernel takes float32/bf16 tables, "
@@ -209,7 +216,7 @@ def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     if v.data_ptr() % (4 * v.element_size()):
         raise ValueError("pq_attn reads values 4 at a time: their storage "
                          "must be aligned to 4 elements")
-    chunk, _ = split_geometry(valid_len, B * G)
+    chunk, _ = split_geometry(valid_len - start, B * G)
     smem = _build.lib().pq_attn_smem_bytes(
         H // G, M, K, Dv, chunk, value_vector(v),
         int(qlut.dtype == torch.bfloat16))
@@ -220,7 +227,7 @@ def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B * G:
-        launch_pq_attn(qlut, codes, v, valid_len, scale, out, m, l)
+        launch_pq_attn(qlut, codes, v, valid_len, scale, out, m, l, start)
     return out, m, l
 
 

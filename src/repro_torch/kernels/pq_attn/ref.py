@@ -2,7 +2,7 @@
 
 :func:`pq_attn_lut_ref` is the kernel's own function on its own inputs (a
 query table, codes, values): the table entries gathered and summed in
-float32, then one softmax over the first ``valid_len`` positions.
+float32, then one softmax over the positions ``[start, valid_len)``.
 :func:`pq_attn_decode_ref` is the reference's oracle: reconstruct the keys
 from the codes and run exact attention in float32.  ADC scores are
 algebraically the scores against reconstructed keys, so the two agree up
@@ -55,29 +55,33 @@ def pq_attn_decode_ref(q: torch.Tensor, k_codes: torch.Tensor,
 
 
 def pq_attn_lut_ref(qlut: torch.Tensor, codes: torch.Tensor,
-                    v: torch.Tensor, valid_len: int, scale: float
+                    v: torch.Tensor, valid_len: int, scale: float,
+                    start: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``qlut (B, G*R, M, K)``, ``codes (B, S, G, M)``, ``v (B, S, G, Dv)``
     -> ``(out (B, H, Dv), m (B, H), l (B, H))`` float32: the softmax of
-    ``scale * sum_m qlut[h, m, code]`` over positions ``[0, valid_len)``,
-    its maximum ``m`` and denominator ``l = sum exp(score - m)``.  An empty
-    prefix gives ``out = 0, m = -1e30, l = 0``."""
+    ``scale * sum_m qlut[h, m, code]`` over positions ``[start,
+    valid_len)``, its maximum ``m`` and denominator ``l = sum exp(score -
+    m)``.  An empty range gives ``out = 0, m = -1e30, l = 0``."""
     B, H, M, K = qlut.shape
     G = codes.shape[2]
     R = H // G
     Dv = v.shape[-1]
-    n = int(valid_len)
+    start = int(start)
+    n = max(int(valid_len) - start, 0)
     if n == 0:
         z = torch.zeros((B, H), dtype=torch.float32, device=qlut.device)
         return (torch.zeros((B, H, Dv), dtype=torch.float32,
                             device=qlut.device), z + NEG_INIT, z)
     table = qlut.float().reshape(B, G, R, M, K)
-    idx = codes[:, :n].long().clamp(0, K - 1).permute(0, 2, 3, 1)  # B,G,M,n
+    idx = codes[:, start:start + n].long().clamp(0, K - 1).permute(
+        0, 2, 3, 1)                                                  # B,G,M,n
     idx = idx[:, :, None].expand(B, G, R, M, n)
     scores = torch.gather(table, 4, idx).sum(dim=3) * scale       # B,G,R,n
     m = scores.amax(dim=-1)
     e = torch.exp(scores - m[..., None])
     l = e.sum(dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", e, v[:, :n].float())
+    out = torch.einsum("bgrs,bsgd->bgrd", e,
+                       v[:, start:start + n].float())
     out = out / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, H, Dv), m.reshape(B, H), l.reshape(B, H)

@@ -6,9 +6,11 @@ compresses a copy of it with product quantization (codebooks fit on the
 observed keys), reports the memory ratio (paper §3.4 applied to the
 cache) and generates beside the exact decode with ADC-approximated
 attention plus an exact recent window, then reports how often the two
-greedy outputs agree.  Dense family (the other families raise).
+greedy outputs agree; ``--pq-quantize-v`` codes the values too.  The
+dense (gemma2's local/global layers included), moe and vlm families
+(text only, as the reference's launcher); ssm, hybrid and encdec raise.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
         --reduced --device cpu --pqkv
 
 Without ``--device`` it runs on the card (and raises if there is none).
@@ -56,7 +58,7 @@ def main(argv=None):
     ap.add_argument("--pq-k", type=int, default=16)
     ap.add_argument("--pq-window", type=int, default=16)
     ap.add_argument("--pq-quantize-v", action="store_true",
-                    help="not ported: raises")
+                    help="PQ-code the values too")
     ap.add_argument("--production-mesh", action="store_true",
                     help="not ported (one card): raises")
     ap.add_argument("--device", default="cuda",

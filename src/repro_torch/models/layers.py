@@ -1,5 +1,6 @@
-"""Transformer building blocks, dense subset (counterpart of
-:mod:`repro.models.layers`).
+"""Transformer building blocks (counterpart of :mod:`repro.models.layers`):
+norms, RoPE and M-RoPE, attention with an optional sliding window, the
+dense MLP and the top-k routed experts.
 
 Numerics follow the reference op by op, because its values are what the
 port is held to:
@@ -19,7 +20,14 @@ port is held to:
   rounded to float32.  The reference's compiler approximates ``cos`` and
   ``sin``, one float32 ulp off the correctly rounded value on some table
   entries, which stays below a bf16 ulp of the rotated activations almost
-  always.
+  always.  M-RoPE's sectioned tables (:func:`_mrope_tables`) take the
+  same frequencies and float32 angles, and pick each frequency's angle
+  from its section's position axis;
+* the experts (:func:`moe`): float32 routing on bf16-rounded router
+  logits, top-k by a stable descending sort (the reference's ``top_k``
+  keeps the lower index first on ties), float32 gate and up products,
+  a bf16 down product, and the bf16 combine summed expert by expert in
+  the reference's update order (:func:`_combine`).
 
 Parameters are NamedTuples of tensors with the reference's field names;
 weight matrices and norm scales may be stored in bf16 (every use in the
@@ -38,9 +46,10 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 
-__all__ = ["rms_norm", "softcap", "rotary", "apply_rope", "AttnParams",
-           "init_attn", "attention", "attention_decode", "MlpParams",
-           "init_mlp", "mlp", "normal_weight"]
+__all__ = ["rms_norm", "softcap", "rotary", "apply_rope", "mrope_positions",
+           "AttnParams", "init_attn", "attention", "attention_decode",
+           "MlpParams", "init_mlp", "mlp", "MoeParams", "init_moe", "moe",
+           "moe_capacity", "top_k", "normal_weight"]
 
 _NEG_INF = -2.0e38
 BF16 = torch.bfloat16
@@ -74,18 +83,57 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    """``theta ** -(t / half)`` for ``t < half``, float32 rounded once."""
+    expo = -(torch.arange(half, dtype=torch.float32, device=device)
+             * torch.tensor(1.0 / half, dtype=torch.float32))
+    base = torch.tensor(theta, dtype=torch.float32).double()
+    return torch.pow(base, expo.double()).float()
+
+
+def _cos_sin(ang: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 angles -> their cos and sin, float64 rounded to float32."""
+    ang = ang.double()
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
 def rotary(positions: torch.Tensor, head_dim: int, theta: float
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables: ``positions (..., S)`` -> ``(..., S, hd/2)`` each."""
+    freqs = _freqs(head_dim // 2, theta, positions.device)
+    return _cos_sin(positions.float()[..., None] * freqs)
+
+
+def mrope_positions(text_positions: torch.Tensor, n_frontend: int,
+                    sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE position ids ``(3, B, S)`` for (t, h, w): the first
+    ``n_frontend`` positions are vision patches on a square (h, w) grid at
+    t = 0; text positions advance all three equally."""
+    B, S = text_positions.shape
+    side = max(1, int(n_frontend ** 0.5))
+    pos = text_positions
+    idx = torch.arange(S, device=pos.device)
+    is_patch = (idx < n_frontend)[None, :]
+    t = torch.where(is_patch, torch.zeros_like(pos), pos)
+    h = torch.where(is_patch, (idx // side)[None, :].to(pos.dtype), pos)
+    w = torch.where(is_patch, (idx % side)[None, :].to(pos.dtype), pos)
+    return torch.stack([t, h, w])
+
+
+def _mrope_tables(mpos: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sectioned rope tables from ``mpos (3, B, S)`` -> ``(B, S, hd/2)``:
+    frequency ``t`` takes the angle of the axis whose section holds it
+    (sections past ``hd/2`` are cut, an index past them takes axis 2)."""
     half = head_dim // 2
-    dev = positions.device
-    expo = -(torch.arange(half, dtype=torch.float32, device=dev)
-             * torch.tensor(1.0 / half, dtype=torch.float32))
-    base = torch.tensor(theta, dtype=torch.float32).double()
-    freqs = torch.pow(base, expo.double()).float()
-    ang = positions.float()[..., None] * freqs
-    ang = ang.double()
-    return torch.cos(ang).float(), torch.sin(ang).float()
+    dev = mpos.device
+    ang = mpos.float()[..., None] * _freqs(half, theta, dev)  # 3,B,S,half
+    bounds = torch.cumsum(torch.tensor(tuple(sections), device=dev), 0)
+    which = torch.searchsorted(bounds, torch.arange(half, device=dev),
+                               right=True).clamp(0, 2)
+    picked = torch.gather(ang, 0, which.expand(1, *ang.shape[1:]))[0]
+    return _cos_sin(picked)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -179,20 +227,19 @@ def _attend_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, q_chunk: int = 512,
-              cos_sin: Optional[Tuple] = None,
+              positions: torch.Tensor, *, window: int = 0,
+              q_chunk: int = 512, cos_sin: Optional[Tuple] = None,
               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> torch.Tensor:
     """Causal full-sequence attention (prefill), query-chunked: each chunk
     of ``q_chunk`` queries attends to all ``S`` keys under the causal mask,
     so one chunk's float32 scores ``(B, G, R, q_chunk, S)`` are the largest
-    transient.  ``kv=(k, v)`` passes keys (roped) and values already
-    projected from ``x``, as prefill does to fill its cache."""
+    transient.  ``window > 0`` keeps only the last ``window`` keys of each
+    query (gemma2's local layers).  ``kv=(k, v)`` passes keys (roped) and
+    values already projected from ``x``, as prefill does to fill its
+    cache."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    if cfg.local_global or cfg.sliding_window:
-        raise NotImplementedError(
-            "gemma2-style local/global attention is not ported")
     scale = hd ** -0.5
     if cos_sin is None:
         cos_sin = rotary(positions, hd, cfg.rope_theta)
@@ -211,6 +258,8 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     for c in range(nc):
         qpos = c * qc + torch.arange(qc, device=x.device)
         mask = kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
         outs.append(_attend_block(q[:, c * qc:(c + 1) * qc], k, v,
                                   scale=scale, cap=cfg.attn_softcap,
                                   mask=mask))
@@ -220,11 +269,12 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, *, cos_sin: Optional[Tuple] = None
-                     ) -> torch.Tensor:
+                     pos: int, *, window: int = 0,
+                     cos_sin: Optional[Tuple] = None) -> torch.Tensor:
     """One-token decode: ``x (B, 1, d)``; caches ``(B, Smax, G, hd)``,
     written at ``pos`` in place (the reference's one-hot select exists only
-    for its sharded cache).  Returns ``out (B, 1, d)``."""
+    for its sharded cache); ``window > 0`` attends to the last ``window``
+    positions only.  Returns ``out (B, 1, d)``."""
     B = x.shape[0]
     hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     Smax = k_cache.shape[1]
@@ -239,7 +289,10 @@ def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     v_new = _dot(x, p.wv, p.bv).reshape(B, 1, G, hd)
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    mask = torch.arange(Smax, device=x.device) <= pos
+    kpos = torch.arange(Smax, device=x.device)
+    mask = kpos <= pos
+    if window > 0:
+        mask &= kpos > pos - window
     out = _attend_block(q, k_cache, v_cache, scale=hd ** -0.5,
                         cap=cfg.attn_softcap, mask=mask[None, :])
     return _dot(out.reshape(B, 1, H * hd), p.wo)
@@ -266,3 +319,105 @@ def mlp(p: MlpParams, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     g = _act(_dot(x, p.w_gate).float(), act).to(BF16)
     u = _dot(x, p.w_up)
     return _dot(g * u, p.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k routing, capacity drop, optional shared experts)
+# ---------------------------------------------------------------------------
+
+class MoeParams(NamedTuple):
+    router: torch.Tensor             # (d, E)
+    we_gate: torch.Tensor            # (E, d, f)
+    we_up: torch.Tensor              # (E, d, f)
+    we_down: torch.Tensor            # (E, f, d)
+    shared: Optional[MlpParams]      # fused shared experts or None
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig,
+             device: torch.device) -> MoeParams:
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    shared = (init_mlp(generator, d, f * cfg.n_shared_experts, device)
+              if cfg.n_shared_experts else None)
+    return MoeParams(router=normal_weight(generator, (d, E), device),
+                     we_gate=normal_weight(generator, (E, d, f), device),
+                     we_up=normal_weight(generator, (E, d, f), device),
+                     we_down=normal_weight(generator, (E, f, d), device),
+                     shared=shared)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of the last axis and their indices, the
+    lower index first among equal values (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int,
+                 capacity_factor: float = 1.25) -> int:
+    """Tokens an expert takes at most: the reference's formula, Python's
+    float floor division included, at least 8 and at most ``tokens``."""
+    k, E = cfg.n_active_experts, cfg.n_experts
+    C = max(8, int(-(-k * tokens * capacity_factor // E) // 8 * 8))
+    return min(C, tokens)
+
+
+def _combine(y: torch.Tensor, tok_ec: torch.Tensor, T: int) -> torch.Tensor:
+    """``out[tok_ec[e, c]] += y[e, c]`` in bf16, one expert after another
+    (the reference's scatter-add, which rounds after every add in update
+    order).  An expert's token ids are distinct, so each ``index_add_``
+    adds one term to a row, with no atomics racing on the card."""
+    out = torch.zeros((T, y.shape[-1]), dtype=BF16, device=y.device)
+    for e in range(y.shape[0]):
+        out.index_add_(0, tok_ec[e], y[e])
+    return out
+
+
+def moe(p: MoeParams, cfg: ModelConfig, x: torch.Tensor,
+        capacity_factor: float = 1.25, *, stats: Optional[dict] = None,
+        routing: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Top-k routed experts with a static per-expert capacity ``C``
+    (:func:`moe_capacity`): each expert takes the ``C`` tokens with the
+    largest routing weight (zero-weight tokens fill what is left), runs
+    its SwiGLU/GeGLU on them, and the weighted outputs are summed back per
+    token.  ``stats``, if given, receives the tokens routed to each expert
+    (``routed``), the routed (token, expert) pairs dropped by capacity
+    (``dropped``), each token's ``k`` experts (``top_i``, ``(T, k)``) and
+    ``tok_ec``, the ``(E, C)`` token ids taken.  ``routing (T, k)``, if
+    given, are the experts each token takes in place of the router's top
+    ``k`` (weighted by the router's probabilities there): it holds two
+    computations of the same tokens to the same experts, where bf16
+    router logits an ulp apart would pick differently."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.n_active_experts
+    T = B * S
+    xf = x.reshape(T, d)
+    logits = _dot(xf, p.router).float()                     # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    if routing is None:
+        top_w, top_i = top_k(probs, k)                       # (T, k)
+    else:
+        top_i = routing.reshape(T, k).to(device=x.device, dtype=torch.int64)
+        top_w = torch.gather(probs, 1, top_i)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    W = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    W.scatter_(1, top_i, top_w)
+    C = moe_capacity(cfg, T, capacity_factor)
+    w_ec, tok_ec = top_k(W.T, C)                             # (E, C) each
+    if stats is not None:
+        routed = torch.zeros(E, dtype=torch.int64, device=x.device)
+        routed.scatter_add_(0, top_i.reshape(-1),
+                            torch.ones_like(top_i.reshape(-1)))
+        kept = (w_ec > 0).sum(dim=1)
+        stats.update(routed=routed, dropped=int((routed - kept).sum()),
+                     top_i=top_i, tok_ec=tok_ec)
+    xg = xf[tok_ec.reshape(-1)].reshape(E, C, d).to(BF16).float()
+    g = torch.bmm(xg, p.we_gate.to(BF16).float())           # float32 sums
+    u = torch.bmm(xg, p.we_up.to(BF16).float())
+    h = (_act(g, cfg.act) * u).to(BF16)
+    y = torch.bmm(h, p.we_down.to(BF16))                     # bf16 (E, C, d)
+    y = y * w_ec[..., None].to(BF16)
+    out = _combine(y, tok_ec, T)
+    if p.shared is not None:
+        out = out + mlp(p.shared, xf.to(BF16), cfg.act)
+    return out.reshape(B, S, d)

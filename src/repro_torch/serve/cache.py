@@ -1,8 +1,9 @@
-"""KV cache construction, dense family (counterpart of
-:mod:`repro.serve.cache`).
+"""KV cache construction (counterpart of :mod:`repro.serve.cache`).
 
 A cache is a dict of bf16 tensors with a leading layer axis,
-``{"k", "v"}: (L, B, max_len, G, hd)``.  Decode writes it in place.  A
+``{"k", "v"}: (L, B, max_len, G, hd)``, the same layout for the dense
+(gemma2's local and global layers alike), moe and vlm families, as the
+reference's ``init_cache`` gives them.  Decode writes it in place.  A
 cache can be PQ-compressed (:mod:`repro_torch.serve.pqkv`).
 """
 

@@ -592,6 +592,100 @@ def test_pq_attn_split_valid_lengths(gen, which):
         assert int(counters.abs().sum()) == 0
 
 
+@pytest.mark.parametrize("which", ["empty", "past", "one", "inside-split",
+                                   "split-edge", "local-layer"])
+def test_pq_attn_window_start(gen, which):
+    """Positions ``[start, valid_len)`` with ``start > 0``: an empty range
+    (``start = valid_len``, and past it), one position, a range that
+    starts inside the first split of the whole cache's geometry, one that
+    starts on a split's edge, and a gemma2 local layer's tail
+    ``(pos - 4096, pos - 128]`` at ``pos = 4620``.  Within
+    ``PQ_ATTN_TOL`` of the plain version; the same bits as the shifted
+    prefix of ``valid_len - start`` positions and on a second launch; an
+    empty range gives ``valid_len = 0``'s result; counters back at 0."""
+    B, G = 2, 8
+    S = 4640 if which == "local-layer" else 2080
+    chunk = split_geometry(S, B * G)[0]
+    start, valid = {"empty": (700, 700), "past": (900, 700),
+                    "one": (1000, 1001), "inside-split": (chunk // 2 + 3, S),
+                    "split-edge": (chunk, S - 5),
+                    "local-layer": (4620 - 4096 + 1, 4620 - 128 + 1)}[which]
+    qlut, codes, v = _pq_inputs(gen, B, S, G)
+    before = _build.LAUNCHES["pq_attn"]
+    got = pq_attn(qlut, codes, v, valid, 0.125, start)
+    assert _build.LAUNCHES["pq_attn"] == before + 1
+    again = pq_attn(qlut, codes, v, valid, 0.125, start)
+    want = pq_attn_lut_ref(qlut, codes, v, valid, 0.125, start)
+    n = max(valid - start, 0)
+    shifted = pq_attn(qlut, codes[:, start:].contiguous(),
+                      v[:, start:].contiguous(), n, 0.125) if n else \
+        pq_attn(qlut, codes, v, 0, 0.125)
+    for g, a, w, sh in zip(got, again, want, shifted):
+        assert torch.equal(g, a) and torch.equal(g, sh)
+        torch.testing.assert_close(g, w, rtol=PQ_ATTN_TOL, atol=PQ_ATTN_TOL)
+    counters = pq_attn_ops._COUNTERS.get(_counter_key(qlut.device))
+    if counters is not None:
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("pos,window", [(700, 300), (700, 100), (4700, 4096)])
+def test_pq_attention_decode_window_kernel_route_matches_plain(gen, pos,
+                                                               window):
+    """gemma2's local layers on the card: the kernel route (a window start
+    on row 11, the ring masked to the window) against the plain route at
+    the PQ-KV tolerance, an empty tail (``window <= W``) included."""
+    from repro_torch.serve import pqkv
+    B, S, G, R, hd, M, K, W = 2, pos + 8, 4, 2, 64, 8, 32, 128
+    k = _randn(gen, B, S, G, hd).to(torch.bfloat16)
+    books = _randn(gen, G, M, K, hd // M)
+    cache = pqkv.PQKVCache(
+        k_codes=pqkv.encode_kv(k, books), k_books=books,
+        v=_randn(gen, B, S, G, hd).to(torch.bfloat16),
+        k_recent=_randn(gen, B, W, G, hd).to(torch.bfloat16),
+        v_recent=_randn(gen, B, W, G, hd).to(torch.bfloat16))
+    q = _randn(gen, B, G, R, hd).to(torch.bfloat16)
+    pqc = pqkv.PQKVConfig(n_sub=M, codebook_size=K, recent_window=W)
+    before = _build.LAUNCHES["pq_attn"]
+    got = pqkv.pq_attention_decode(q, cache, pos, pqc=pqc, window=window)
+    assert _build.LAUNCHES["pq_attn"] == before + 1
+    want = pqkv.pq_attention_decode(q, cache, pos, pqc=pqc, window=window,
+                                    route="plain")
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("B,S", [(4, 32), (4, 1)])
+def test_moe_matches_cpu_route(gen, arch, B, S):
+    """The experts on the card against the CPU route at the reduced
+    config, at a prompt's shape and at decode's: the same routed ids, the
+    output within the LM tolerance 2e-2, and the same bits on a second
+    call (the combine adds expert by expert: no atomics race).  The tokens
+    repeat 5 distinct rows, so routing weights tie exactly or lie far
+    apart: the card's router product and softmax round differently from
+    the CPU's, and would reorder weights an ulp apart."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import layers
+    cfg = get_reduced(arch)
+    p_cpu = layers.init_moe(torch.Generator().manual_seed(1), cfg, "cpu")
+    g = torch.Generator().manual_seed(2)
+    rows = torch.randn((5, cfg.d_model), generator=g)
+    x = rows[torch.randint(0, 5, (B * S,), generator=g)].reshape(
+        B, S, cfg.d_model).to(torch.bfloat16)
+    p_card = layers.MoeParams(*(
+        None if t is None else
+        (layers.MlpParams(*(w.cuda() for w in t)) if isinstance(
+            t, layers.MlpParams) else t.cuda()) for t in p_cpu))
+    want_stats, got_stats = {}, {}
+    want = layers.moe(p_cpu, cfg, x, stats=want_stats)
+    got = layers.moe(p_card, cfg, x.cuda(), stats=got_stats)
+    again = layers.moe(p_card, cfg, x.cuda())
+    assert torch.equal(got, again)
+    assert torch.equal(got_stats["tok_ec"].cpu(), want_stats["tok_ec"])
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_pq_attn_split_counts_cover_one_and_many():
     B, S, G = 3, 2080, 8
     chunk = split_geometry(S, B * G)[0]

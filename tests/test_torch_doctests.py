@@ -23,6 +23,7 @@ MODULES = (
     "repro_torch.kernels.pq_attn.ops",
     "repro_torch.kernels.tune",
     "repro_torch.obs",
+    "repro_torch.serve.pqkv",
     "repro_torch.serve_index.config",
 )
 

@@ -135,6 +135,71 @@ def test_empty_prefix():
     assert torch.equal(l, torch.zeros((1, 2)))
 
 
+def _oracle(qlut, codes, v, start, stop, scale):
+    """numpy: softmax over ``[start, stop)`` of ``scale * sum_m qlut[h, m,
+    code]`` in float64 -> (out, m, l)."""
+    B, H, M, K = qlut.shape
+    G = codes.shape[2]
+    R = H // G
+    out = np.zeros((B, H, v.shape[-1]))
+    m = np.full((B, H), ref.NEG_INIT)
+    l = np.zeros((B, H))
+    for b in range(B):
+        for h in range(H):
+            g = h // R
+            if stop <= start:
+                continue
+            sc = np.array([scale * sum(float(qlut[b, h, mm, codes[b, s, g, mm]])
+                                       for mm in range(M))
+                           for s in range(start, stop)])
+            m[b, h] = sc.max()
+            e = np.exp(sc - sc.max())
+            l[b, h] = e.sum()
+            out[b, h] = (e[:, None] * v[b, start:stop, g]).sum(0) / e.sum()
+    return out, m, l
+
+
+@pytest.mark.parametrize("start,stop", [(0, 77), (13, 77), (64, 100),
+                                        (99, 100), (40, 40), (70, 30),
+                                        (100, 100)])
+def test_window_start_against_numpy_oracle(start, stop):
+    """Positions ``[start, valid_len)``: a window's tail (gemma2's local
+    layers), one position, and empty ranges (``start >= valid_len``),
+    against a float64 numpy oracle within ``RTOL``/``ATOL``."""
+    B, S, G, R, M, K, Dv = 2, 100, 2, 2, 4, 16, 8
+    rng = np.random.default_rng(start * 101 + stop)
+    qlut = rng.standard_normal((B, G * R, M, K)).astype(np.float32)
+    codes = rng.integers(0, K, (B, S, G, M)).astype(np.uint8)
+    v = rng.standard_normal((B, S, G, Dv)).astype(np.float32)
+    got = ops.pq_attn(*_t(qlut, codes, v), stop, 0.4, start)
+    want = _oracle(qlut, codes, v, start, stop, 0.4)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL)
+    if stop <= start:
+        empty = ops.pq_attn(*_t(qlut, codes, v), 0, 0.4)
+        for g, e in zip(got, empty):
+            assert torch.equal(g, e)
+
+
+def test_window_start_equals_shifted_prefix():
+    """``[start, valid_len)`` is the prefix of ``valid_len - start``
+    positions of the cache shifted by ``start``, bit for bit."""
+    B, S, G, R, M, K, Dv = 2, 90, 2, 4, 4, 16, 8
+    rng = np.random.default_rng(3)
+    qlut, codes, v = _t(
+        rng.standard_normal((B, G * R, M, K)).astype(np.float32),
+        rng.integers(0, K, (B, S, G, M)).astype(np.uint8),
+        rng.standard_normal((B, S, G, Dv)).astype(np.float32))
+    got = ops.pq_attn(qlut, codes, v, 81, 0.5, 17)
+    want = ops.pq_attn(qlut, codes[:, 17:].contiguous(),
+                       v[:, 17:].contiguous(), 64, 0.5)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="start"):
+        ops.pq_attn(qlut, codes, v, 81, 0.5, S + 1)
+
+
 def test_storage_types_read_as_given():
     """uint8 codes equal int32 codes; a bf16 table and bf16 values equal
     float32 copies of the same (rounded) numbers, bit for bit."""

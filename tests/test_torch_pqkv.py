@@ -12,11 +12,15 @@ reference's own PQ-KV tolerance, ``2e-2`` (``tests/test_pqkv.py``).
 One ``pq_serve_step`` on the reference's weights and cache: logits within
 ``2e-2``, the updated cache's codes equal and its bf16 tensors within one
 ulp at their scale (XLA keeps some bf16 intermediates in float32; see
-``tests/test_torch_lm.py``).
+``tests/test_torch_lm.py``).  The same tolerances hold gemma2's local
+windows (both routes), ``mode="topk"`` and ``quantize_v=True`` (plain
+route), and two PQ decode steps of the reduced gemma2, moe and vlm
+configs in every mode.
 """
 
 import contextlib
 import dataclasses
+import functools
 import io
 
 import jax
@@ -86,9 +90,11 @@ def test_encode_decode_match_reference():
 # Decode attention, one layer
 # ---------------------------------------------------------------------------
 
-def _layer(S, W, pos, seed=0, B=2, G=2, R=2, hd=16, M=4, K=16):
+def _layer(S, W, pos, seed=0, B=2, G=2, R=2, hd=16, M=4, K=16,
+           coded_v=False):
     """Random q/k/v, random books, and the ring holding positions
-    ``<= pos`` at slot ``p % W``; both packages' layer caches."""
+    ``<= pos`` at slot ``p % W``; both packages' layer caches (``coded_v``:
+    the values coded with their own random books)."""
     rng = np.random.default_rng(seed)
     bf = jnp.bfloat16
     q = jnp.asarray(rng.standard_normal((B, G, R, hd)), jnp.float32).astype(bf)
@@ -102,11 +108,20 @@ def _layer(S, W, pos, seed=0, B=2, G=2, R=2, hd=16, M=4, K=16):
         ring_k[:, p % W] = np.asarray(k[:, p], np.float32)
         ring_v[:, p % W] = np.asarray(v[:, p], np.float32)
     ring_k, ring_v = jnp.asarray(ring_k).astype(bf), jnp.asarray(ring_v).astype(bf)
-    jcache = (codes, books, v, None, None, ring_k, ring_v)
+    if coded_v:
+        v_books = jnp.asarray(rng.standard_normal((G, M, K, hd // M)),
+                              jnp.float32)
+        v_codes = jpq.encode_kv(v, v_books)
+        jcache = (codes, books, None, v_codes, v_books, ring_k, ring_v)
+        v_part = dict(v=None, v_codes=torch.from_numpy(np.array(v_codes)),
+                      v_books=_t(v_books))
+    else:
+        jcache = (codes, books, v, None, None, ring_k, ring_v)
+        v_part = dict(v=_t(v, torch.bfloat16))
     tcache = tpq.PQKVCache(
         k_codes=torch.from_numpy(np.array(codes)), k_books=_t(books),
-        v=_t(v, torch.bfloat16), k_recent=_t(ring_k, torch.bfloat16),
-        v_recent=_t(ring_v, torch.bfloat16))
+        k_recent=_t(ring_k, torch.bfloat16),
+        v_recent=_t(ring_v, torch.bfloat16), **v_part)
     return q, jcache, _t(q, torch.bfloat16), tcache
 
 
@@ -130,6 +145,83 @@ def test_attention_decode_matches_reference(S, W, pos):
     # the default route for CPU tensors is the plain one
     assert torch.equal(tpq.pq_attention_decode(tq, tcache, pos, pqc=pqc),
                        plain)
+
+
+@pytest.mark.parametrize("S,W,pos,window", [
+    (64, 8, 40, 16), (64, 8, 63, 24), (64, 8, 20, 8), (64, 8, 12, 40),
+    (64, 16, 50, 4), (32, 8, 31, 31)],
+    ids=["tail-cut", "last", "window=W", "window>pos", "window<W",
+         "window~S"])
+def test_windowed_attention_decode_matches_reference(S, W, pos, window):
+    """gemma2's local layers: the tail ``(pos - window, pos - W]`` and the
+    ring's slots after ``pos - window``; empty tails (``window <= W``)
+    included.  The plain route within one ulp, the kernel route (a window
+    start on ``pq_attn``) within ``PQ_TOL``."""
+    jq, jcache, tq, tcache = _layer(S, W, pos, seed=S + W + pos + window)
+    kw = dict(n_sub=4, codebook_size=16, recent_window=W)
+    want = np.asarray(jpq.pq_attention_decode(
+        jq, jcache, jnp.int32(pos), pqc=jpq.PQKVConfig(**kw),
+        window=window), np.float32)
+    pqc = tpq.PQKVConfig(**kw)
+    plain = tpq.pq_attention_decode(tq, tcache, pos, pqc=pqc, window=window)
+    kernel = tpq.pq_attention_decode(tq, tcache, pos, pqc=pqc, window=window,
+                                     route="kernel")
+    assert _ulps(plain.float(), want) <= 1
+    np.testing.assert_allclose(kernel.float().numpy(), want, rtol=PQ_TOL,
+                               atol=PQ_TOL)
+    start, stop = tpq.tail_range(pos, W, window)
+    assert (start, stop) == (max(pos - window + 1, 0), max(pos - W + 1, 0))
+
+
+@pytest.mark.parametrize("coded_v", [False, True], ids=["exact_v", "coded_v"])
+@pytest.mark.parametrize("top_t,window", [(4, 0), (9, 0), (32, 0), (40, 0),
+                                          (4, 20)])
+def test_topk_matches_reference(top_t, window, coded_v):
+    """``mode="topk"``: the top ``top_t`` ADC-scored tail positions' values
+    (exact or decoded from their codes) and the exact ring, within one ulp
+    of the reference; ``top_t >= S`` included."""
+    S, W, pos = 32, 8, 27
+    jq, jcache, tq, tcache = _layer(S, W, pos, seed=top_t + window,
+                                    coded_v=coded_v)
+    kw = dict(n_sub=4, codebook_size=16, recent_window=W, mode="topk",
+              top_t=top_t)
+    want = np.asarray(jpq.pq_attention_decode(
+        jq, jcache, jnp.int32(pos), pqc=jpq.PQKVConfig(**kw),
+        window=window), np.float32)
+    got = tpq.pq_attention_decode(tq, tcache, pos, pqc=tpq.PQKVConfig(**kw),
+                                  window=window)
+    assert got.dtype == torch.bfloat16
+    assert _ulps(got.float(), want) <= 1
+
+
+def test_topk_covers_softmax_when_t_is_s():
+    """top-T with T = S reduces to the dense softmax route (the reference's
+    ``tests/test_pqkv.py`` check, at its tolerance ``2e-2``)."""
+    jq, jcache, tq, tcache = _layer(16, 4, 15, seed=11)
+    dense = tpq.pq_attention_decode(tq, tcache, 15,
+                                    pqc=tpq.PQKVConfig(recent_window=4))
+    sparse = tpq.pq_attention_decode(
+        tq, tcache, 15, pqc=tpq.PQKVConfig(recent_window=4, mode="topk",
+                                           top_t=16))
+    np.testing.assert_allclose(dense.float().numpy(), sparse.float().numpy(),
+                               rtol=PQ_TOL, atol=PQ_TOL)
+
+
+@pytest.mark.parametrize("S,W,pos,window", [(32, 8, 20, 0), (32, 8, 31, 0),
+                                            (16, 16, 15, 0), (64, 8, 50, 20),
+                                            (300, 16, 299, 0)])
+def test_quantize_v_matches_reference(S, W, pos, window):
+    """Coded values, ``mode="softmax"``: the softmax mass aggregated per
+    codeword times the value books, within one ulp of the reference (at S
+    = 300 its contraction runs in chunks of 256 positions)."""
+    jq, jcache, tq, tcache = _layer(S, W, pos, seed=pos, coded_v=True)
+    kw = dict(n_sub=4, codebook_size=16, recent_window=W, quantize_v=True)
+    want = np.asarray(jpq.pq_attention_decode(
+        jq, jcache, jnp.int32(pos), pqc=jpq.PQKVConfig(**kw),
+        window=window), np.float32)
+    got = tpq.pq_attention_decode(tq, tcache, pos,
+                                  pqc=tpq.PQKVConfig(**kw), window=window)
+    assert _ulps(got.float(), want) <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +328,119 @@ def test_kernel_route_step_matches_plain(served, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# The other families: gemma2's local/global layers, moe, vlm; every mode
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("gemma2-27b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+            "qwen2-vl-72b")
+MODES = {"softmax": {}, "topk": dict(mode="topk", top_t=6),
+         "quantize_v": dict(quantize_v=True),
+         "topk+quantize_v": dict(mode="topk", top_t=6, quantize_v=True)}
+
+
+FAMILY_STEPS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _family_prefill(arch, quantize_v):
+    """A reference prefill of the reduced config (gemma2: 40 tokens, past
+    its window of 32; the vlm with patch embeddings) and the reference's
+    PQ cache of it (the books do not depend on the mode)."""
+    import test_torch_lm as tl
+    jcfg, tcfg, jp, tp = tl._both(arch, seed=2)
+    B = 2
+    S = tl._prompt_len(tcfg)
+    jb, _ = tl._batches(arch + ("+patches" if tcfg.family == "vlm" else ""),
+                        tcfg, B, S, seed=2)
+    jl, jc = jax.jit(lambda p, c, b: j_prefill(p, jcfg, c, b, q_chunk=8))(
+        jp, j_init_cache(jcfg, B, S + FAMILY_STEPS + 1), jb)
+    kw = dict(n_sub=4, codebook_size=16, recent_window=8, kmeans_iters=3,
+              fit_sample=64, quantize_v=quantize_v)
+    jpc = jpq.compress_cache(jc, jcfg, jpq.PQKVConfig(**kw), pos=S,
+                             key=jax.random.PRNGKey(3))
+    return jcfg, tcfg, jp, tp, S, jl, jc, jpc, kw
+
+
+def _family_run(arch, mode):
+    """``FAMILY_STEPS`` PQ decode steps in both packages from the
+    reference's PQ cache (:func:`_family_prefill`): logits within
+    ``PQ_TOL``, codes equal, bf16 tensors within one ulp, the same greedy
+    tokens."""
+    jcfg, tcfg, jp, tp, S, jl, jc, jpc, kw = _family_prefill(
+        arch, MODES[mode].get("quantize_v", False))
+    kw = dict(kw, **MODES[mode])
+    jpqc, tpqc = jpq.PQKVConfig(**kw), tpq.PQKVConfig(**kw)
+    tpc = tpq.compress_cache(
+        {"k": _t(jc["k"], torch.bfloat16), "v": _t(jc["v"], torch.bfloat16)},
+        tcfg, tpqc, pos=S, books=_t(jpc.k_books),
+        v_books=None if jpc.v_books is None else _t(jpc.v_books))
+    names = ("k_codes", "v_codes") if jpqc.quantize_v else ("k_codes",)
+    assert (tpc.v is None) == jpqc.quantize_v
+    j_step = jax.jit(lambda p, c, t, pos: jpq.pq_serve_step(
+        p, jcfg, c, t, pos, pqc=jpqc))
+    tok = np.array(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+    for g in range(FAMILY_STEPS):
+        jl, jpc = j_step(jp, jpc, jnp.asarray(tok), jnp.int32(S + g))
+        tlg, tpc = tpq.pq_serve_step(tp, tcfg, tpc, torch.from_numpy(tok),
+                                     S + g, pqc=tpqc)
+        np.testing.assert_allclose(tlg.numpy(), np.asarray(jl), rtol=0,
+                                   atol=PQ_TOL)
+        for name in names:
+            np.testing.assert_array_equal(getattr(tpc, name).numpy(),
+                                          np.asarray(getattr(jpc, name)),
+                                          err_msg=name)
+        for name in ("v", "k_recent", "v_recent"):
+            if getattr(jpc, name) is not None:
+                assert _ulps(getattr(tpc, name).float(), np.asarray(
+                    getattr(jpc, name), np.float32)) <= 1, name
+        tok = np.array(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+        np.testing.assert_array_equal(
+            torch.argmax(tlg[:, -1], -1).numpy(), tok[:, 0])
+
+
+@pytest.mark.parametrize("mode", tuple(MODES))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_pq_serve_steps_match_reference(arch, mode):
+    _family_run(arch, mode)
+
+
+def test_quantize_v_cache_matches_reference(served):
+    """``compress_cache`` and ``init_pq_cache`` with coded values, from the
+    reference's key and value books: codes equal, no exact values, the
+    reference's shapes and dtypes."""
+    sv = served
+    kw = dict(n_sub=4, codebook_size=16, recent_window=8, kmeans_iters=3,
+              fit_sample=32, quantize_v=True)
+    jpqc, tpqc = jpq.PQKVConfig(**kw), tpq.PQKVConfig(**kw)
+    jpc = jpq.compress_cache(sv["jc"], sv["jcfg"], jpqc, pos=sv["S"],
+                             key=jax.random.PRNGKey(1))
+    tpc = tpq.compress_cache(sv["tcache"], sv["tcfg"], tpqc, pos=sv["S"],
+                             books=_t(jpc.k_books), v_books=_t(jpc.v_books))
+    assert jpc.v is None and tpc.v is None
+    for name in ("k_codes", "v_codes", "k_books", "v_books", "k_recent",
+                 "v_recent"):
+        np.testing.assert_array_equal(
+            getattr(tpc, name).float().numpy(),
+            np.asarray(getattr(jpc, name), np.float32), err_msg=name)
+    jc = jpq.init_pq_cache(sv["jcfg"], jpqc, 2, 32, jpc.k_books,
+                           v_books=jpc.v_books)
+    tc = tpq.init_pq_cache(sv["tcfg"], tpqc, 2, 32, _t(jpc.k_books),
+                           device=CPU, v_books=_t(jpc.v_books))
+    for name in tc._fields:
+        got, want = getattr(tc, name), getattr(jc, name)
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert tuple(got.shape) == np.asarray(want).shape, name
+            assert str(got.dtype).split(".")[1] == str(
+                np.asarray(want).dtype), name
+    # fit from a generator: value books beside the key books
+    fit = tpq.compress_cache(sv["tcache"], sv["tcfg"], tpqc, pos=sv["S"],
+                             generator=torch.Generator().manual_seed(0))
+    assert fit.v_books.shape == fit.k_books.shape
+    assert not torch.equal(fit.v_books, fit.k_books)
+
+
+# ---------------------------------------------------------------------------
 # Codebook fitting
 # ---------------------------------------------------------------------------
 
@@ -295,7 +500,9 @@ def test_fit_kv_books_shape_finite_and_fit():
 @pytest.mark.parametrize("arch,kw", [
     ("internlm2-1.8b", {}),
     ("qwen2-72b", dict(n_sub=4, codebook_size=16, recent_window=16)),
-    ("minitron-8b", dict(codebook_size=64))])
+    ("minitron-8b", dict(codebook_size=64)),
+    ("gemma2-27b", dict(quantize_v=True)),
+    ("deepseek-moe-16b", dict(mode="topk", quantize_v=True))])
 def test_pqkv_memory_matches_reference(arch, kw):
     want = jpq.pqkv_memory(jregistry.get_config(arch), jpq.PQKVConfig(**kw),
                            8, 2080)
@@ -305,18 +512,27 @@ def test_pqkv_memory_matches_reference(arch, kw):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="topk"):
-        tpq.PQKVConfig(mode="topk")
-    with pytest.raises(NotImplementedError, match="quantize_v"):
-        tpq.PQKVConfig(quantize_v=True)
-    cfg = dataclasses.replace(ModelConfig(**TINY), family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
+    """What raises: an unported family (ssm), ``route="kernel"`` for the
+    modes without a kernel (``topk``, coded values), an unknown mode, coded
+    values without their books, and a fit without a generator."""
+    cfg = dataclasses.replace(ModelConfig(**TINY), family="ssm")
+    with pytest.raises(NotImplementedError, match="ssm"):
         tpq.init_pq_cache(cfg, tpq.PQKVConfig(), 1, 8,
                           torch.zeros((2, 2, 8, 256, 2)), device=CPU)
-    jq, _, tq, tcache = _layer(16, 8, 9)
-    with pytest.raises(NotImplementedError, match="window"):
-        tpq.pq_attention_decode(tq, tcache, 9, pqc=tpq.PQKVConfig(),
-                                window=4)
+    with pytest.raises(ValueError, match="mode"):
+        tpq.PQKVConfig(mode="sparse")
+    _, _, tq, tcache = _layer(16, 8, 9)
+    with pytest.raises(ValueError, match="mode='topk'"):
+        tpq.pq_attention_decode(tq, tcache, 9, route="kernel",
+                                pqc=tpq.PQKVConfig(mode="topk"))
+    _, _, tq, coded = _layer(16, 8, 9, coded_v=True)
+    with pytest.raises(ValueError, match="quantize_v"):
+        tpq.pq_attention_decode(tq, coded, 9, route="kernel",
+                                pqc=tpq.PQKVConfig(quantize_v=True))
+    with pytest.raises(ValueError, match="v_books"):
+        tpq.init_pq_cache(ModelConfig(**TINY), tpq.PQKVConfig(
+            quantize_v=True), 1, 8, torch.zeros((2, 2, 8, 256, 2)),
+            device=CPU)
     with pytest.raises(ValueError, match="generator"):
         tpq.compress_cache({"k": torch.zeros((2, 1, 8, 2, 16)),
                             "v": torch.zeros((2, 1, 8, 2, 16))},
@@ -333,7 +549,25 @@ def test_serve_cli_on_cpu():
     for line in ("prefill 16 tokens", "PQ-KV: exact", "decoded 3 steps x 2",
                  "greedy agreement with exact decode"):
         assert line in text, text
-    for flag in ("--pq-quantize-v", "--production-mesh"):
-        with pytest.raises(NotImplementedError):
-            tserve.main(["--arch", "internlm2-1.8b", "--reduced",
-                         "--device", "cpu", "--pqkv", flag])
+    with pytest.raises(NotImplementedError):
+        tserve.main(["--arch", "internlm2-1.8b", "--reduced", "--device",
+                     "cpu", "--pqkv", "--production-mesh"])
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("gemma2-27b", ["--prompt-len", "40"]),
+    ("deepseek-moe-16b", ["--pq-quantize-v"]),
+    ("qwen2-vl-72b", ["--pq-quantize-v"])])
+def test_serve_cli_families_on_cpu(arch, flags):
+    """The launcher serves every ported family, exact and PQ-KV decode,
+    with coded values under ``--pq-quantize-v``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                     "--batch", "2", "--gen", "3", "--pqkv", "--pq-window",
+                     "8", *flags])
+    text = out.getvalue()
+    for line in (f"family={tregistry.get_reduced(arch).family}",
+                 "PQ-KV: exact", "decoded 2 steps x 2",
+                 "greedy agreement with exact decode"):
+        assert line in text, text
