@@ -98,7 +98,31 @@ window 7), then the search paths beyond 1-NN on the same data:
   batch and bf16 router logits an ulp apart pick other experts); and its
   reduced config on the card against the CPU route (prefill, exact
   decode, PQ decode with ``mode="softmax"``, ``"topk"`` and
-  ``quantize_v=True``; the same cache's codes bit for bit).
+  ``quantize_v=True``; the same cache's codes bit for bit);
+- ``lm_ssm_path``, ``lm_hybrid_path``, ``lm_encdec_path``
+  (``LM_SEQUENTIAL_PATHS``): the families the reference serves token by
+  token, at full width and depth from seeded random weights: mamba2-780m
+  (48 SSD layers, d_model 1536; 8 prompts of 512 tokens), zamba2-2.7b
+  (54 SSD layers in 9 groups, each after the weight-tied attention + MLP
+  block; 4 prompts of 512 tokens) and seamless-m4t-large-v2 (24 encoder
+  and 24 decoder layers; 4 x 1024 frames through
+  ``prefill_cache_encdec``, then 4 prompts of 128 tokens).  Each prompt
+  goes through ``serve_step`` one token at a time, then 31 greedy steps;
+  prefill seconds, ms a step, tokens a second, weights and peak memory
+  printed.  They run last, after every kernel's profiler window: after a
+  million or more eager launches a profiler session loses its first few
+  kernel records; so each family's decode step is profiled before any
+  of their prefills, on a fresh cache of the phase's shape, in two
+  sessions whose kernel counts must agree.  The last prefill step's
+  logits are held against ``forward`` / ``forward_encdec`` over the
+  prompt (correlation); layer 0's SSD state after the prefill against
+  ``ssd_forward(return_state=True)`` on the input the decode gave it
+  (the hybrid's shared block through ``attention_decode``) and on
+  ``forward``'s input, with every layer's state on ``forward``'s input
+  printed (ssm, hybrid); the reduced config on the card against the CPU
+  route (logits, greedy tokens); and the SSM projections' float32
+  product against float64.  No kernel of the port launches on these
+  paths.
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
@@ -239,6 +263,21 @@ LM_FAMILY_PATHS = (
     ("lm_moe_path", "deepseek-moe-16b", 4, 2048, 32, 0, None),
     ("lm_vlm_path", "qwen2-vl-72b", 2, 1024, 16, 256, 8),
 )
+# the families served token by token (no batched prefill, no PQ-KV, as in
+# the reference), at full width and depth: (phase, arch, batch, prompt,
+# generated); encdec first encodes its config's 1024 frames
+LM_SEQUENTIAL_PATHS = (
+    ("lm_ssm_path", "mamba2-780m", 8, 512, 32),
+    ("lm_hybrid_path", "zamba2-2.7b", 4, 512, 32),
+    ("lm_encdec_path", "seamless-m4t-large-v2", 4, 128, 32),
+)
+# layer 0's SSD state after the prefill against ssd_forward's, norm-wise:
+# on the input the decode gave layer 0 (the embedding; for the hybrid the
+# shared block run through attention_decode), which leaves only the chunked
+# scan against the recurrence (1.8e-6 read for mamba2), and on forward's
+# own input (the hybrid's shared block parts by bf16 ulps there: 2.7e-3)
+SSD_STATE_RTOL = {"decode_input": 1e-4, "forward_input": 1e-2}
+DOT_F32_RTOL = 1e-5       # the SSM projections keep float32 sums
 # the slice-1 main path's kernels (each must launch there)
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
@@ -416,6 +455,12 @@ def main() -> int:
     kernels.append(full_kernel_phase(torch, ctx))
     measure_sweep(torch)
     profiler_phase()
+    # last: after millions of eager launches a torch.profiler session
+    # loses its first few kernel records, which would empty the kernel
+    # rows' five-launch windows above; their own steps are profiled first
+    seq_profiles = profile_sequential_steps(torch)
+    for spec in LM_SEQUENTIAL_PATHS:
+        lm_sequential_path(torch, _build, *spec, seq_profiles[spec[0]])
     emit({"kernels": kernels})
 
     out = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -2556,6 +2601,321 @@ def lm_family_path(torch, _build, phase, arch, B, S, n_gen, n_patches,
     return dict(launches=launches, **captured)
 
 
+def profile_sequential_steps(torch) -> dict:
+    """One decode step of each ``LM_SEQUENTIAL_PATHS`` family under
+    ``torch.profiler``, before any of their prefills: after a million or
+    more eager launches a profiler session loses its first kernel records
+    (ROADMAP queue 3), and the three prefills launch 3.3 million.  The
+    step is the phase's last (position ``S + n_gen - 1``) on a fresh
+    cache of the phase's shape, so the same kernels at the same shapes
+    run on zero states and keys.  Profiled twice after a warm-up call:
+    the two sessions' kernel counts must agree."""
+    import gc
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import prefill_cache_encdec, serve_step
+
+    out = {}
+    for phase, arch, B, S, n_gen in LM_SEQUENTIAL_PATHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        init = (encdec.init_params_encdec if cfg.family == "encdec"
+                else lm.init_params)
+        params = init(cfg, gen)
+        cache = init_cache(cfg, B, S + n_gen)
+        if cfg.family == "encdec":
+            prefill_cache_encdec(params, cfg, cache, torch.randn(
+                (B, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+                device="cuda"))
+        tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+
+        def step():
+            serve_step(params, cfg, cache, tok, S + n_gen - 1)
+
+        step()
+        runs = [_profile(torch, step) for _ in range(2)]
+        counts = [r["kernels"] for r in runs]
+        check(counts[0] == counts[1] > 0, f"{phase}: a profiled decode "
+              f"step keeps every kernel record: {counts}")
+        out[phase] = dict(runs[1], kernels_both_sessions=counts,
+                          taken="before the prefills, fresh cache")
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssd_state_witness(torch, params, cfg, prompt, ssd_after, slot_like
+                       ) -> dict:
+    """Where the SSD states the token-by-token prefill left
+    (``ssd_after``, every layer) part from the full-sequence pass.
+    ``decode_input_layer0``: layer 0's ``ssd_forward(return_state=True)``
+    on the input the decode gave that layer (the embedding; for the
+    hybrid the shared block run through ``attention_decode`` one token at
+    a time into a KV slot shaped as ``slot_like``), norm-wise relative:
+    the chunked scan against the recurrence alone.  For the hybrid also
+    that block's bf16 output against the full-sequence block's (share of
+    elements that differ, the largest difference in bf16 ulps).
+    ``forward_input_by_layer``: each layer's state on ``forward``'s own
+    input, layer by layer (the loop is ``lm.forward``'s; its last hidden
+    states must equal ``forward``'s)."""
+    from repro_torch.models import layers, lm, ssm
+    from repro_torch.serve.decode import decode_cos_sin
+
+    B, S = prompt.shape
+    hybrid = cfg.family == "hybrid"
+    x = lm.embed_tokens(params, cfg, prompt)
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    cs = layers.rotary(pos, cfg.head_dim_, cfg.rope_theta) if hybrid else None
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def shared_full(h):
+        return lm.block_apply(params.shared_attn, cfg, h,
+                              lambda ap, xn: layers.attention(
+                                  ap, cfg, xn, pos, cos_sin=cs))
+
+    def layer0_state(h):
+        blk = params.blocks[0]
+        return ssm.ssd_forward(blk.ssm, cfg,
+                               layers.rms_norm(h, blk.ln, cfg.norm_eps),
+                               return_state=True)[1]
+
+    out = {}
+    x0 = x
+    if hybrid:
+        k, v = torch.zeros_like(slot_like), torch.zeros_like(slot_like)
+        rows = []
+        for p in range(S):
+            cs_p = decode_cos_sin(cfg, B, p, x.device)
+            rows.append(lm.block_apply(
+                params.shared_attn, cfg, x[:, p:p + 1],
+                lambda ap, xn: layers.attention_decode(
+                    ap, cfg, xn, k, v, p, cos_sin=cs_p)))
+        x0 = torch.cat(rows, 1)
+        a, b = x0.float(), shared_full(x).float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()).clamp_min(1e-30))) - 7)
+        out["shared_block_decode_vs_full"] = {
+            "differing_share": float((a != b).float().mean()),
+            "max_ulps": float(((a - b).abs() / ulp).max())}
+        del k, v, rows, a, b
+    out["decode_input_layer0"] = rel(layer0_state(x0), ssd_after[0])
+    by_layer = []
+    for i, blk in enumerate(params.blocks):
+        if lm.shared_slot(cfg, i) is not None:
+            x = shared_full(x)
+        y, state = ssm.ssd_forward(
+            blk.ssm, cfg, layers.rms_norm(x, blk.ln, cfg.norm_eps),
+            return_state=True)
+        by_layer.append(rel(state, ssd_after[i]))
+        x = x + y
+    out["forward_input_by_layer"] = by_layer
+    out["loop_equals_forward"] = bool(torch.equal(
+        x, lm.forward(params, cfg, {"tokens": prompt}, return_hidden=True)))
+    return out
+
+
+def lm_sequential_path(torch, _build, phase, arch, B, S, n_gen,
+                       profiled) -> None:
+    """One family served token by token at full width and depth (module
+    docstring): the launcher's path, ``serve_step`` over the prompt one
+    token at a time (encdec after ``prefill_cache_encdec``), then ``n_gen
+    - 1`` greedy steps.  ``profiled``: the step
+    :func:`profile_sequential_steps` took for this phase."""
+    import gc
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec, layers, lm
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import prefill_cache_encdec, serve_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30   # earlier phases'
+    cfg = get_config(arch)
+    is_encdec = cfg.family == "encdec"
+    n_steps = n_gen - 1
+    seconds, step_ms = {}, []
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init = encdec.init_params_encdec if is_encdec else lm.init_params
+    params = timed("init", lambda: init(cfg, gen))
+    weights_gib = _tree_bytes(torch, params) / 2 ** 30
+    cache = init_cache(cfg, B, S + n_gen)
+    cache_gib = sum(t.numel() * t.element_size()
+                    for t in cache.values()) / 2 ** 30
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    frames = (torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                          generator=gen, device="cuda")
+              if is_encdec else None)
+
+    _build.reset_launches()
+    if is_encdec:
+        timed("encode", lambda: prefill_cache_encdec(params, cfg, cache,
+                                                     frames))
+
+    def prefill():
+        logits = None
+        for p in range(S):
+            logits, _ = serve_step(params, cfg, cache, prompt[:, p:p + 1], p)
+        return logits
+
+    last = timed("prefill", prefill)
+    check(bool(torch.isfinite(last).all()), f"{phase}: prefill finite")
+    ssd_after = cache["ssd"].clone() if "ssd" in cache else None
+    tok = _greedy(torch, last)
+    toks = [tok]
+    for g in range(n_steps):
+        logits, _ = timed("step", lambda: serve_step(params, cfg, cache, tok,
+                                                     S + g))
+        step_ms.append(seconds.pop("step") * 1e3)
+        check(bool(torch.isfinite(logits).all()), f"{phase}: step {g} finite")
+        tok = _greedy(torch, logits)
+        toks.append(tok)
+    launches = dict(_build.LAUNCHES)
+    check(not any(launches.values()),
+          f"{phase}: no kernel of the port on this path: {launches}")
+    witness = (_ssd_state_witness(
+        torch, params, cfg, prompt, ssd_after,
+        cache["attn_k"][0] if "attn_k" in cache else None)
+        if ssd_after is not None else None)
+    del cache, ssd_after
+
+    # the last prefill step against one full-sequence pass over the prompt
+    def forward_last():
+        if is_encdec:
+            h = encdec.forward_encdec(params, cfg, {"frames": frames,
+                                                    "tokens": prompt},
+                                      return_hidden=True)
+        else:
+            h = lm.forward(params, cfg, {"tokens": prompt},
+                           return_hidden=True)
+        return lm.logits_from_hidden(params, cfg, h[:, -1:])
+
+    fwd_last = timed("forward_check", forward_last)
+    corr = _corr(torch, fwd_last, last)
+    vs_forward = {"max_abs_err": float((fwd_last - last).abs().max()),
+                  "corr": corr, "top1_agreement": float(
+                      (_greedy(torch, fwd_last) == _greedy(torch, last))
+                      .float().mean())}
+    check(corr >= LOGIT_CORR, f"{phase}: last prefill step agrees with "
+          f"forward: {vs_forward}")
+    if not is_encdec:
+        # the model's own sensitivity: forward with SSD chunks of 64
+        # against 128 (equal up to float32 rounding), printed only
+        h64 = lm.forward(params, cfg, {"tokens": prompt}, ssm_chunk=64,
+                         return_hidden=True)
+        vs_forward["forward_chunk64_vs_128_corr"] = _corr(
+            torch, lm.logits_from_hidden(params, cfg, h64[:, -1:]), fwd_last)
+        del h64
+    record = {
+        "phase": phase, "arch": cfg.name, "family": cfg.family,
+        "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+        "d_model": cfg.d_model, "batch": B, "prompt": S,
+        "frames": cfg.n_frontend_tokens if is_encdec else 0,
+        "generated": n_gen, "reduced": [], "seconds": seconds,
+        "prefill_tok_per_s": B * S / seconds["prefill"],
+        "decode_ms_per_step": sum(step_ms[1:]) / len(step_ms[1:]),
+        "first_step_ms": step_ms[0],
+        "decode_tok_per_s": B * 1e3 / (sum(step_ms[1:]) / len(step_ms[1:])),
+        "weights_gib": weights_gib, "cache_gib": cache_gib,
+        "resident_gib_before": base_gib,
+        "prefill_vs_forward": vs_forward, "profiled_step": profiled,
+        "launches": launches,
+        "sample_tokens": torch.cat(toks, 1)[0, :8].tolist()}
+    if witness is not None:
+        record["ssd_state"] = witness
+        tol = SSD_STATE_RTOL
+        check(witness["loop_equals_forward"], f"{phase}: the witness's "
+              "layer loop is forward's")
+        check(witness["decode_input_layer0"] <= tol["decode_input"],
+              f"{phase}: layer 0's SSD state after the prefill equals "
+              f"ssd_forward's on the decode's input within "
+              f"{tol['decode_input']}: {witness['decode_input_layer0']}")
+        check(witness["forward_input_by_layer"][0] <= tol["forward_input"],
+              f"{phase}: layer 0's SSD state on forward's input within "
+              f"{tol['forward_input']}: "
+              f"{witness['forward_input_by_layer'][0]}")
+        # the projections' float32 product against float64
+        blk = params.blocks[0]
+        xn = layers.rms_norm(lm.embed_tokens(params, cfg, prompt[:, :64]),
+                             blk.ln, cfg.norm_eps)
+        got = layers._dot_f32(xn, blk.ssm.wx).double()
+        want = xn.double() @ blk.ssm.wx.double()
+        dot_rel = float(((got - want).abs().max() / want.abs().max()))
+        record["dot_f32"] = {"max_rel_err_vs_f64": dot_rel}
+        check(dot_rel <= DOT_F32_RTOL, f"{phase}: the SSM projections keep "
+              f"float32 sums: {record['dot_f32']}")
+    record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, frames, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["small_reference"] = small_sequential_reference(torch, arch)
+    record["tolerance"] = {"prefill_vs_forward": {"corr": LOGIT_CORR},
+                           "layer0_ssd_state": SSD_STATE_RTOL,
+                           "dot_f32": {"rel": DOT_F32_RTOL},
+                           "small_reference": {"atol": LOGIT_ATOL}}
+    record["nvidia_smi"] = nvidia_smi_line()
+    emit(record)
+
+
+def small_sequential_reference(torch, arch) -> dict:
+    """The family's reduced config with weights made on the CPU and
+    carried to the card: a 12-token prompt through ``serve_step`` one
+    token at a time (encdec after ``prefill_cache_encdec`` of 16 frames),
+    then 4 greedy steps, give the CPU route's logits within
+    ``LOGIT_ATOL`` and its greedy tokens."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import prefill_cache_encdec, serve_step
+    cfg = get_reduced(arch)
+    B, S, n_gen = 2, 12, 4
+    init = (encdec.init_params_encdec if cfg.family == "encdec"
+            else lm.init_params)
+    p_cpu = init(cfg, torch.Generator().manual_seed(3), "cpu")
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    frames = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(torch, p_cpu, dev)
+        cache = init_cache(cfg, B, S + n_gen, dev)
+        if cfg.family == "encdec":
+            prefill_cache_encdec(params, cfg, cache, frames.to(dev))
+        logits, toks = [], []
+        for p in range(S + n_gen):
+            tok = (tokens[:, p:p + 1] if p < S
+                   else _greedy(torch, logits[-1])).to(dev)
+            if p >= S:
+                toks.append(tok.cpu())
+            lg, _ = serve_step(params, cfg, cache, tok, p)
+            logits.append(lg.cpu())
+        toks.append(_greedy(torch, logits[-1]).cpu())
+        runs[dev] = (torch.cat(logits, 1), torch.cat(toks, 1))
+    err = float((runs["cpu"][0] - runs["cuda"][0]).abs().max())
+    same = bool(torch.equal(runs["cpu"][1], runs["cuda"][1]))
+    out = {"arch": cfg.name, "prompt": S, "generated": n_gen,
+           "logits_max_abs_err": err, "greedy_tokens_equal": same}
+    check(err <= LOGIT_ATOL, f"{arch} reduced: card logits within the "
+          f"tolerance of the CPU route: {err}")
+    check(same, f"{arch} reduced: the card's greedy tokens are the CPU's")
+    return out
+
+
 def small_family_reference(torch, arch, patches) -> dict:
     """The family's reduced config with weights made on the CPU and
     carried to the card (gemma2's prompt 8 past its window of 32; the vlm
@@ -2686,6 +3046,15 @@ def small_lm_reference(torch) -> None:
     check(max(errs) <= LOGIT_ATOL, "small LM: card logits within the "
           "tolerance of the CPU route")
     check(codes_equal, "small LM: PQ codes identical on card and CPU")
+
+
+def _tree_bytes(torch, x) -> int:
+    """Bytes of a parameter tree's tensors (NamedTuples and tuples)."""
+    if x is None:
+        return 0
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return sum(_tree_bytes(torch, f) for f in x)
 
 
 def _to(torch, x, dev):

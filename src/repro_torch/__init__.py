@@ -11,9 +11,10 @@ Entry points (``fit``, ``encode``, ``cdist_sym``, ``cdist_asym``,
 passes ``device="cpu"``; with no card and no explicit CPU request they
 raise.
 
-The LM stack (``models``, ``serve``, ``launch.serve``) runs the dense
-family and its PQ-compressed KV cache on the card, its decode attention
-through the ``pq_attn`` kernel.
+The LM stack (``models``, ``serve``, ``launch.serve``) serves the
+dense, moe and vlm families with an exact or PQ-compressed KV cache on
+the card, the PQ decode attention through the ``pq_attn`` kernel, and
+the ssm, hybrid and encdec families token by token, in plain PyTorch.
 
 Float32 products on the card stay in full float32: TF32 would break the
 parity of ``euclidean_sq`` and of every ADC sum with the reference.  bf16

@@ -1,5 +1,5 @@
-"""Serving launcher (counterpart of :mod:`repro.launch.serve`): batched
-prefill + greedy decode, with an optional PQ-KV cache.
+"""Serving launcher (counterpart of :mod:`repro.launch.serve`): prefill +
+greedy decode, with an optional PQ-KV cache.
 
 After the prompt is prefilled into an exact KV cache, ``--pqkv``
 compresses a copy of it with product quantization (codebooks fit on the
@@ -8,7 +8,12 @@ cache) and generates beside the exact decode with ADC-approximated
 attention plus an exact recent window, then reports how often the two
 greedy outputs agree; ``--pq-quantize-v`` codes the values too.  The
 dense (gemma2's local/global layers included), moe and vlm families
-(text only, as the reference's launcher); ssm, hybrid and encdec raise.
+(text only, as the reference's launcher) prefill in one batched pass.
+The ssm, hybrid and encdec families prefill one token at a time through
+``serve_step``, as the reference's launcher does; encdec first encodes
+``(B, n_frontend_tokens, d)`` random frames into its cross-attention
+cache (``prefill_cache_encdec``).  ``--pqkv`` raises for these three,
+naming the family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
         --reduced --device cpu --pqkv
@@ -26,9 +31,10 @@ import torch
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_reduced
-from repro_torch.models.lm import init_params
+from repro_torch.models.encdec import init_params_encdec
+from repro_torch.models.lm import KV_FAMILIES, check_kv_family, init_params
 from repro_torch.serve.cache import init_cache
-from repro_torch.serve.decode import serve_step
+from repro_torch.serve.decode import prefill_cache_encdec, serve_step
 from repro_torch.serve.pqkv import (PQKVConfig, compress_cache,
                                     pq_serve_step, pqkv_memory)
 from repro_torch.serve.prefill import prefill
@@ -76,20 +82,31 @@ def main(argv=None):
           f"device={dev}")
     pqc = None
     if args.pqkv:
+        check_kv_family(cfg, "--pqkv")
         pqc = PQKVConfig(n_sub=args.pq_sub, codebook_size=args.pq_k,
                          recent_window=args.pq_window,
                          quantize_v=args.pq_quantize_v)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(cfg, gen, device=dev)
+    init = init_params_encdec if cfg.family == "encdec" else init_params
+    params = init(cfg, gen, device=dev)
     cache = init_cache(cfg, args.batch, max_len, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
+    if cfg.family == "encdec":
+        frames = torch.randn((args.batch, cfg.n_frontend_tokens,
+                              cfg.d_model), generator=gen, device=dev)
+        cache = prefill_cache_encdec(params, cfg, cache, frames)
 
-    # ---- prefill: one batched cache-filling pass ----
+    # ---- prefill: one batched cache-filling pass where supported ----
     t0 = time.perf_counter()
     with obs.span("serve.prefill") as sp:
-        logits, cache = prefill(params, cfg, cache, {"tokens": prompt})
+        if cfg.family in KV_FAMILIES:
+            logits, cache = prefill(params, cfg, cache, {"tokens": prompt})
+        else:   # ssm / hybrid / encdec decoders prefill token by token
+            for p in range(args.prompt_len):
+                logits, cache = serve_step(params, cfg, cache,
+                                           prompt[:, p:p + 1], p)
         sp.fence(logits)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

@@ -1,0 +1,195 @@
+"""Encoder-decoder backbone, seamless-m4t style (counterpart of
+:mod:`repro.models.encdec`).
+
+The speech frontend is a stub: the encoder takes precomputed frame
+embeddings ``(B, S_frames, d_model)``.  Encoder blocks are bidirectional;
+decoder blocks add cross-attention to the encoder's output.
+Cross-attention queries use position-0 rope tables (the identity
+rotation), and the cross keys and values take no rope.  The layers are a
+Python loop over flat tuples of per-layer parameters (the reference scans
+over stacked ones).
+
+>>> import torch
+>>> from repro_torch.configs.registry import get_reduced
+>>> cfg = get_reduced("seamless-m4t-large-v2")
+>>> g = torch.Generator().manual_seed(0)
+>>> p = init_params_encdec(cfg, g, "cpu")
+>>> batch = {"frames": torch.randn((1, cfg.n_frontend_tokens, cfg.d_model),
+...                                generator=g),
+...          "tokens": torch.zeros((1, 3), dtype=torch.int32)}
+>>> forward_encdec(p, cfg, batch).shape
+torch.Size([1, 3, 512])
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from .._device import DeviceArg, resolve_device
+from .config import ModelConfig
+from .layers import (BF16, AttnParams, MlpParams, _dot, attention, init_attn,
+                     init_mlp, mlp, normal_weight, rms_norm, rotary)
+from .lm import (_take, _weight, attn_from_numpy, embed_tokens,
+                 logits_from_hidden, mlp_from_numpy)
+
+__all__ = ["EncBlock", "DecBlock", "EncDecParams", "init_params_encdec",
+           "encdec_params_from_numpy", "encode_frames", "cross_kv",
+           "forward_encdec"]
+
+
+class EncBlock(NamedTuple):
+    ln1: torch.Tensor
+    attn: AttnParams
+    ln2: torch.Tensor
+    mlp: MlpParams
+
+
+class DecBlock(NamedTuple):
+    ln1: torch.Tensor
+    self_attn: AttnParams
+    ln_x: torch.Tensor
+    cross_attn: AttnParams
+    ln2: torch.Tensor
+    mlp: MlpParams
+
+
+class EncDecParams(NamedTuple):
+    embed: torch.Tensor                  # (Vp, d) decoder token embeddings
+    frame_proj: torch.Tensor             # (d, d) frontend-stub projection
+    enc_blocks: Sequence[EncBlock]       # one per encoder layer
+    enc_norm: torch.Tensor
+    dec_blocks: Sequence[DecBlock]       # one per decoder layer
+    final_norm: torch.Tensor
+    lm_head: Optional[torch.Tensor]
+
+
+def init_params_encdec(cfg: ModelConfig, generator: torch.Generator,
+                       device: DeviceArg = None) -> EncDecParams:
+    """Random parameters (reference scale: ``N(0, 0.02)`` weights, zero
+    norm scales), weights stored in bf16 on ``device``."""
+    dev = resolve_device(device)
+    d, Vp = cfg.d_model, cfg.padded_vocab
+
+    def zeros():
+        return torch.zeros(d, dtype=BF16, device=dev)
+
+    def enc():
+        return EncBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
+                        ln2=zeros(), mlp=init_mlp(generator, d, cfg.d_ff, dev))
+
+    def dec():
+        return DecBlock(ln1=zeros(), self_attn=init_attn(generator, cfg, dev),
+                        ln_x=zeros(), cross_attn=init_attn(generator, cfg, dev),
+                        ln2=zeros(), mlp=init_mlp(generator, d, cfg.d_ff, dev))
+
+    enc_blocks = tuple(enc() for _ in range(cfg.n_enc_layers))
+    dec_blocks = tuple(dec() for _ in range(cfg.n_layers))
+    return EncDecParams(
+        embed=normal_weight(generator, (Vp, d), dev),
+        frame_proj=normal_weight(generator, (d, d), dev),
+        enc_blocks=enc_blocks, enc_norm=zeros(), dec_blocks=dec_blocks,
+        final_norm=zeros(), lm_head=normal_weight(generator, (Vp, d), dev))
+
+
+def encdec_params_from_numpy(params, cfg: ModelConfig,
+                             device: DeviceArg = None) -> EncDecParams:
+    """The reference's ``EncDecParams`` as numpy arrays -> the port's: its
+    ``enc_blocks`` / ``dec_blocks`` stacked along a leading layer axis,
+    read by attribute name.  Weights and norm scales in bf16, biases in
+    float32 (as ``lm.params_from_numpy``)."""
+    dev = resolve_device(device)
+
+    def enc(i):
+        b = _take(params.enc_blocks, i)
+        return EncBlock(ln1=_weight(b.ln1, dev),
+                        attn=attn_from_numpy(b.attn, dev),
+                        ln2=_weight(b.ln2, dev), mlp=mlp_from_numpy(b.mlp, dev))
+
+    def dec(i):
+        b = _take(params.dec_blocks, i)
+        return DecBlock(ln1=_weight(b.ln1, dev),
+                        self_attn=attn_from_numpy(b.self_attn, dev),
+                        ln_x=_weight(b.ln_x, dev),
+                        cross_attn=attn_from_numpy(b.cross_attn, dev),
+                        ln2=_weight(b.ln2, dev), mlp=mlp_from_numpy(b.mlp, dev))
+
+    return EncDecParams(
+        embed=_weight(params.embed, dev),
+        frame_proj=_weight(params.frame_proj, dev),
+        enc_blocks=tuple(enc(i) for i in range(cfg.n_enc_layers)),
+        enc_norm=_weight(params.enc_norm, dev),
+        dec_blocks=tuple(dec(i) for i in range(cfg.n_layers)),
+        final_norm=_weight(params.final_norm, dev),
+        lm_head=_weight(params.lm_head, dev))
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def encode_frames(params: EncDecParams, cfg: ModelConfig,
+                  frames: torch.Tensor, *, q_chunk: int = 512
+                  ) -> torch.Tensor:
+    """Bidirectional encoder over frontend-stub frames ``(B, Sf, d)``:
+    the frame projection (one bf16 product), the encoder blocks, then
+    ``enc_norm``.  Returns bf16 ``(B, Sf, d)``."""
+    x = _dot(frames, params.frame_proj)
+    B, Sf, _ = x.shape
+    positions = _positions(B, Sf, x.device)
+    cos_sin = rotary(positions, cfg.head_dim_, cfg.rope_theta)
+    for blk in params.enc_blocks:
+        x = x + attention(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
+                          positions, causal=False, q_chunk=q_chunk,
+                          cos_sin=cos_sin)
+        x = x + mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps), cfg.act)
+    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def cross_kv(blk_cross: AttnParams, cfg: ModelConfig,
+             enc_out: torch.Tensor):
+    """One decoder layer's cross-attention keys and values ``(B, Sf, G,
+    hd)`` from the encoder's output: bf16 products, no rope."""
+    B, Sf, _ = enc_out.shape
+    G, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = _dot(enc_out, blk_cross.wk, blk_cross.bk).reshape(B, Sf, G, hd)
+    v = _dot(enc_out, blk_cross.wv, blk_cross.bv).reshape(B, Sf, G, hd)
+    return k, v
+
+
+def zero_cos_sin(cfg: ModelConfig, B: int, S: int, device):
+    """Position-0 rope tables ``(B, S, hd/2)``: cross-attention's queries
+    (cos 1, sin 0: the identity)."""
+    zero = torch.zeros((B, S), dtype=torch.int32, device=device)
+    return rotary(zero, cfg.head_dim_, cfg.rope_theta)
+
+
+def forward_encdec(params: EncDecParams, cfg: ModelConfig, batch, *,
+                   q_chunk: int = 512,
+                   return_hidden: bool = False) -> torch.Tensor:
+    """``batch = {"frames": (B, Sf, d), "tokens": (B, S)}`` -> logits
+    ``(B, S, padded_vocab)`` float32 (the final hidden states with
+    ``return_hidden``)."""
+    enc_out = encode_frames(params, cfg, batch["frames"], q_chunk=q_chunk)
+    B, Sf, _ = enc_out.shape
+    x = embed_tokens(params, cfg, batch["tokens"])
+    S = x.shape[1]
+    positions = _positions(B, S, x.device)
+    cos_sin = rotary(positions, cfg.head_dim_, cfg.rope_theta)
+    zero_pos = torch.zeros_like(positions)
+    zeros = zero_cos_sin(cfg, B, S, x.device)
+    kv_mask = torch.ones((B, Sf), dtype=torch.bool, device=x.device)
+    for blk in params.dec_blocks:
+        x = x + attention(blk.self_attn, cfg,
+                          rms_norm(x, blk.ln1, cfg.norm_eps), positions,
+                          q_chunk=q_chunk, cos_sin=cos_sin)
+        k, v = cross_kv(blk.cross_attn, cfg, enc_out)
+        x = x + attention(blk.cross_attn, cfg,
+                          rms_norm(x, blk.ln_x, cfg.norm_eps), zero_pos,
+                          causal=False, q_chunk=q_chunk, cos_sin=zeros,
+                          kv=(k, v), kv_mask=kv_mask)
+        x = x + mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps), cfg.act)
+    if return_hidden:
+        return x
+    return logits_from_hidden(params, cfg, x)

@@ -1,13 +1,15 @@
 """Transformer building blocks (counterpart of :mod:`repro.models.layers`):
-norms, RoPE and M-RoPE, attention with an optional sliding window, the
-dense MLP and the top-k routed experts.
+norms, RoPE and M-RoPE, attention (causal with an optional sliding
+window, bidirectional, or across to another sequence), the dense MLP and
+the top-k routed experts.
 
 Numerics follow the reference op by op, because its values are what the
 port is held to:
 
 * every weight product is bf16 x bf16 accumulated in float32 and rounded
   once to bf16 (:func:`_dot`); a bias is added to that in float32 and the
-  sum rounded again;
+  sum rounded again.  The SSM projections keep the float32 sum
+  (:func:`_dot_f32`);
 * attention scores are the bf16 operands' products summed in float32
   (bf16 values are exact in float32, so a float32 product of the upcast
   operands is the same sum), softmax runs on float32 scores, and the
@@ -201,6 +203,22 @@ def _dot(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 product with a float32 result (the reference's
+    ``preferred_element_type=float32``, as its SSM projections take it):
+    ``x (..., d) @ w (d, e)``, no rounding to bf16.  On the card a cuBLAS
+    bf16 GEMM writes float32 (``torch.mm(..., out_dtype=float32)``, no
+    float32 copy of the weights).  On the CPU, whose ``matmul`` of bf16
+    tensors returns bf16, the bf16-rounded operands are upcast and
+    multiplied in float32; TF32 is off, so those products are exact."""
+    xb, wb = x.to(BF16), w.to(BF16)
+    if xb.is_cuda:
+        y = torch.mm(xb.reshape(-1, xb.shape[-1]), wb,
+                     out_dtype=torch.float32)
+        return y.reshape(*xb.shape[:-1], wb.shape[-1])
+    return torch.matmul(xb.float(), wb.float())
+
+
 def _qkv(p: AttnParams, cfg: ModelConfig, x: torch.Tensor, cos, sin):
     B, S, _ = x.shape
     hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
@@ -227,17 +245,22 @@ def _attend_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, window: int = 0,
-              q_chunk: int = 512, cos_sin: Optional[Tuple] = None,
-              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> torch.Tensor:
-    """Causal full-sequence attention (prefill), query-chunked: each chunk
-    of ``q_chunk`` queries attends to all ``S`` keys under the causal mask,
-    so one chunk's float32 scores ``(B, G, R, q_chunk, S)`` are the largest
-    transient.  ``window > 0`` keeps only the last ``window`` keys of each
-    query (gemma2's local layers).  ``kv=(k, v)`` passes keys (roped) and
-    values already projected from ``x``, as prefill does to fill its
-    cache."""
+              positions: torch.Tensor, *, causal: bool = True,
+              window: int = 0, q_chunk: int = 512,
+              cos_sin: Optional[Tuple] = None,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (prefill, the encoder), query-chunked: each
+    chunk of ``q_chunk`` queries attends to all keys under the mask, so one
+    chunk's float32 scores ``(B, G, R, q_chunk, Sk)`` are the largest
+    transient.  ``causal=False`` lets every query see every key (the
+    encoder); under ``causal``, ``window > 0`` keeps only the last
+    ``window`` keys of each query (gemma2's local layers).  ``kv=(k, v)``
+    passes keys and values ``(B, Sk, G, hd)`` taken as they are: prefill's
+    own (roped keys, to fill its cache), or another sequence's for
+    cross-attention (no rope; the reference's ``kv_override``), whose
+    ``kv_mask (B, Sk)`` says which keys a query may see.  Rope applies to
+    the queries only then."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     scale = hd ** -0.5
@@ -251,15 +274,21 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
         q = _dot(x, p.wq, p.bq).reshape(B, S, G, cfg.n_heads // G, hd)
         q = apply_rope(q, cos, sin)
         k, v = kv
+    Sk = k.shape[1]
     nc = S // q_chunk if (S % q_chunk == 0 and S > q_chunk) else 1
     qc = S // nc
-    kpos = torch.arange(S, device=x.device)
+    kpos = torch.arange(Sk, device=x.device)
     outs = []
     for c in range(nc):
         qpos = c * qc + torch.arange(qc, device=x.device)
-        mask = kpos[None, :] <= qpos[:, None]
-        if window > 0:
-            mask &= kpos[None, :] > qpos[:, None] - window
+        if causal:
+            mask = kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                mask &= kpos[None, :] > qpos[:, None] - window
+        else:
+            mask = torch.ones((qc, Sk), dtype=torch.bool, device=x.device)
+        if kv_mask is not None:
+            mask = mask[None] & kv_mask[:, None, :]
         outs.append(_attend_block(q[:, c * qc:(c + 1) * qc], k, v,
                                   scale=scale, cap=cfg.attn_softcap,
                                   mask=mask))
@@ -269,12 +298,13 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, *, window: int = 0,
+                     pos: int, *, window: int = 0, update_cache: bool = True,
                      cos_sin: Optional[Tuple] = None) -> torch.Tensor:
     """One-token decode: ``x (B, 1, d)``; caches ``(B, Smax, G, hd)``,
     written at ``pos`` in place (the reference's one-hot select exists only
-    for its sharded cache); ``window > 0`` attends to the last ``window``
-    positions only.  Returns ``out (B, 1, d)``."""
+    for its sharded cache); ``update_cache=False`` reads them without
+    writing (cross-attention decode); ``window > 0`` attends to the last
+    ``window`` positions only.  Returns ``out (B, 1, d)``."""
     B = x.shape[0]
     hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     Smax = k_cache.shape[1]
@@ -285,10 +315,12 @@ def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     cos, sin = cos_sin
     q = apply_rope(_dot(x, p.wq, p.bq).reshape(B, 1, G, H // G, hd),
                    cos, sin)
-    k_new = apply_rope(_dot(x, p.wk, p.bk).reshape(B, 1, G, hd), cos, sin)
-    v_new = _dot(x, p.wv, p.bv).reshape(B, 1, G, hd)
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    if update_cache:
+        k_new = apply_rope(_dot(x, p.wk, p.bk).reshape(B, 1, G, hd), cos,
+                           sin)
+        v_new = _dot(x, p.wv, p.bv).reshape(B, 1, G, hd)
+        k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     kpos = torch.arange(Smax, device=x.device)
     mask = kpos <= pos
     if window > 0:

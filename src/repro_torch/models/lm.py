@@ -1,18 +1,23 @@
-"""Decoder-only LM (counterpart of :mod:`repro.models.lm`): the dense, moe
-and vlm families.
+"""Decoder-only LM (counterpart of :mod:`repro.models.lm`): the dense,
+moe, ssm, hybrid and vlm families.
 
 dense   [pre-norm attention + SwiGLU/GeGLU] x L; gemma2 adds sandwich
         norms (``post_attn_ln``, ``post_mlp_ln``), softcaps, a scaled
         embedding and local/global alternation: layer ``2j`` attends over
         a ``sliding_window``, layer ``2j + 1`` over the whole prefix;
 moe     attention + top-k routed experts (+ optional shared experts);
+ssm     Mamba2 SSD blocks (:mod:`repro_torch.models.ssm`), attention-free;
+hybrid  the Mamba2 backbone with ONE weight-tied attention + MLP block
+        (``shared_attn``) applied before every ``attn_every`` SSM blocks
+        (zamba2-style): before layer ``i`` where ``i % attn_every == 0``,
+        its KV slot ``i // attn_every`` (:func:`shared_slot`);
 vlm     the dense backbone, a patch projection written over the first
         positions and M-RoPE positions.
 
 The layers are a Python loop over a flat tuple of per-layer parameters
-(the reference scans over stacked ones, gemma2's as ``(L/2, 2)`` pairs).
-The ssm, hybrid and encdec families raise ``NotImplementedError`` naming
-the family.
+(the reference scans over stacked ones, gemma2's as ``(L/2, 2)`` pairs,
+the hybrid's as ``(L / attn_every, attn_every)`` groups).  The
+encoder-decoder lives in :mod:`repro_torch.models.encdec`.
 
 Randomness: ``init_params`` draws with a ``torch.Generator``, whose numbers
 are not ``jax.random``'s; ``params_from_numpy`` carries the reference's
@@ -32,13 +37,18 @@ from .layers import (BF16, AttnParams, MlpParams, MoeParams, _dot,
                      _mrope_tables, attention, init_attn, init_mlp,
                      init_moe, mlp, moe, mrope_positions, normal_weight,
                      rms_norm, rotary, softcap)
+from .ssm import SsmParams, init_ssm, ssd_forward
 
-__all__ = ["DenseBlock", "MoeBlock", "LmParams", "FAMILIES",
-           "check_supported", "init_params", "params_from_numpy",
-           "layer_window", "embed_tokens", "embed_batch",
-           "logits_from_hidden", "block_apply", "forward"]
+__all__ = ["DenseBlock", "MoeBlock", "SsmBlock", "LmParams", "FAMILIES",
+           "KV_FAMILIES", "check_supported", "check_kv_family",
+           "init_params", "params_from_numpy", "layer_window", "shared_slot",
+           "embed_tokens", "embed_batch", "logits_from_hidden",
+           "block_apply", "ssm_block_apply", "forward"]
 
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+# the families with a KV cache of every layer: batched prefill and PQ-KV
+# serve these only, as in the reference
+KV_FAMILIES = ("dense", "moe", "vlm")
 
 
 class DenseBlock(NamedTuple):
@@ -57,19 +67,50 @@ class MoeBlock(NamedTuple):
     moe: MoeParams
 
 
+class SsmBlock(NamedTuple):
+    ln: torch.Tensor
+    ssm: SsmParams
+
+
 class LmParams(NamedTuple):
     embed: torch.Tensor                    # (Vp, d)
-    blocks: Sequence[Union[DenseBlock, MoeBlock]]   # one per layer
+    blocks: Sequence[Union[DenseBlock, MoeBlock, SsmBlock]]  # one a layer
     final_norm: torch.Tensor               # (d,)
     lm_head: Optional[torch.Tensor]        # (Vp, d); None when tied
     patch_proj: Optional[torch.Tensor] = None   # (d, d), vlm only
+    shared_attn: Optional[DenseBlock] = None    # hybrid only (weight-tied)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run: ssm, hybrid, encdec."""
+    """Raise for a family the decoder LM does not run: ``ValueError`` for
+    encdec (:mod:`repro_torch.models.encdec`), ``NotImplementedError``
+    for an unknown one."""
+    if cfg.family == "encdec":
+        raise ValueError("family 'encdec' lives in repro_torch.models.encdec"
+                         " (init_params_encdec, forward_encdec)")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported (dense, moe, vlm)")
+            f"the {cfg.family!r} family is not ported ({', '.join(FAMILIES)})")
+
+
+def check_kv_family(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` naming the family where ``what``
+    (batched prefill, PQ-KV) needs a KV cache in every layer: the ssm,
+    hybrid and encdec families prefill one token at a time through
+    ``serve_step``, and the reference refuses them PQ-KV too."""
+    if cfg.family not in KV_FAMILIES:
+        raise NotImplementedError(
+            f"{what}: not for the {cfg.family!r} family "
+            f"({', '.join(KV_FAMILIES)} only)")
+
+
+def shared_slot(cfg: ModelConfig, layer: int) -> Optional[int]:
+    """The hybrid's shared attention block runs before ``layer`` when
+    ``layer % attn_every == 0``: its KV slot (the group ``layer //
+    attn_every``), else ``None``.  ``None`` for every other family."""
+    if cfg.family != "hybrid" or layer % cfg.attn_every:
+        return None
+    return layer // cfg.attn_every
 
 
 def layer_window(cfg: ModelConfig, layer: int) -> int:
@@ -82,7 +123,9 @@ def layer_window(cfg: ModelConfig, layer: int) -> int:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceArg = None) -> LmParams:
     """Random parameters (reference scale: ``N(0, 0.02)`` weights, zero
-    norm scales), weights stored in bf16 on ``device``."""
+    norm scales), weights stored in bf16 on ``device`` (the SSM blocks'
+    float32 leaves in float32: :func:`~repro_torch.models.ssm.init_ssm`).
+    ``ValueError`` for encdec, as the reference's."""
     check_supported(cfg)
     dev = resolve_device(device)
     d = cfg.d_model
@@ -90,25 +133,87 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros():
         return torch.zeros(d, dtype=BF16, device=dev)
 
-    def block():
-        if cfg.family == "moe":
-            return MoeBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
-                            ln2=zeros(), moe=init_moe(generator, cfg, dev))
-        sandwich = cfg.local_global
+    def dense(sandwich):
         return DenseBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
                           post_attn_ln=zeros() if sandwich else None,
                           ln2=zeros(),
                           mlp=init_mlp(generator, d, cfg.d_ff, dev),
                           post_mlp_ln=zeros() if sandwich else None)
 
+    def block():
+        if cfg.family == "moe":
+            return MoeBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
+                            ln2=zeros(), moe=init_moe(generator, cfg, dev))
+        if cfg.family in ("ssm", "hybrid"):
+            return SsmBlock(ln=zeros(), ssm=init_ssm(generator, cfg, dev))
+        return dense(cfg.local_global)
+
     blocks = tuple(block() for _ in range(cfg.n_layers))
+    shared_attn = dense(False) if cfg.family == "hybrid" else None
     embed = normal_weight(generator, (cfg.padded_vocab, d), dev)
     lm_head = (None if cfg.tie_embeddings else
                normal_weight(generator, (cfg.padded_vocab, d), dev))
     patch_proj = (normal_weight(generator, (d, d), dev)
                   if cfg.family == "vlm" else None)
     return LmParams(embed=embed, blocks=blocks, final_norm=zeros(),
-                    lm_head=lm_head, patch_proj=patch_proj)
+                    lm_head=lm_head, patch_proj=patch_proj,
+                    shared_attn=shared_attn)
+
+
+def _weight(a, dev) -> Optional[torch.Tensor]:
+    """A numpy weight stored in bf16 (the reference rounds it to bf16 at
+    every use)."""
+    return (None if a is None else
+            torch.from_numpy(np.array(a, np.float32)).to(dev, BF16))
+
+
+def _f32(a, dev) -> Optional[torch.Tensor]:
+    """A numpy leaf the reference uses in float32 (biases, the SSM's
+    convolutions, ``a_log``, ``d_skip``, ``dt_bias``)."""
+    return (None if a is None else
+            torch.from_numpy(np.array(a, np.float32)).to(dev))
+
+
+def attn_from_numpy(at, dev) -> AttnParams:
+    """One layer's ``AttnParams`` fields (numpy) -> the port's."""
+    return AttnParams(wq=_weight(at.wq, dev), wk=_weight(at.wk, dev),
+                      wv=_weight(at.wv, dev), wo=_weight(at.wo, dev),
+                      bq=_f32(at.bq, dev), bk=_f32(at.bk, dev),
+                      bv=_f32(at.bv, dev))
+
+
+def mlp_from_numpy(ml, dev) -> MlpParams:
+    return MlpParams(w_gate=_weight(ml.w_gate, dev),
+                     w_up=_weight(ml.w_up, dev),
+                     w_down=_weight(ml.w_down, dev))
+
+
+def _dense_from_numpy(blk, dev) -> DenseBlock:
+    """One (unstacked) ``DenseBlock``'s fields (numpy) -> the port's."""
+    return DenseBlock(
+        ln1=_weight(blk.ln1, dev), attn=attn_from_numpy(blk.attn, dev),
+        post_attn_ln=_weight(getattr(blk, "post_attn_ln", None), dev),
+        ln2=_weight(blk.ln2, dev), mlp=mlp_from_numpy(blk.mlp, dev),
+        post_mlp_ln=_weight(getattr(blk, "post_mlp_ln", None), dev))
+
+
+def _ssm_from_numpy(s, dev) -> SsmParams:
+    """One layer's ``SsmParams`` fields (numpy): the projections, ``norm``
+    and ``out_proj`` in bf16, the float32 leaves in float32."""
+    f32 = ("conv_x", "conv_B", "conv_C", "conv_bx", "conv_bB", "conv_bC",
+           "a_log", "d_skip", "dt_bias")
+    return SsmParams(**{name: (_f32 if name in f32 else _weight)(
+        getattr(s, name), dev) for name in SsmParams._fields})
+
+
+def _take(tree, index):
+    """``tree`` (NamedTuples of stacked numpy arrays) at ``index`` of the
+    leading axes; ``None`` leaves stay ``None``."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_take(f, index) for f in tree))
+    return tree[index]
 
 
 def params_from_numpy(params, cfg: ModelConfig,
@@ -116,67 +221,54 @@ def params_from_numpy(params, cfg: ModelConfig,
     """The reference's parameters as numpy arrays -> the port's.
 
     ``params`` has the reference's ``LmParams`` fields (``embed``,
-    ``blocks``, ``final_norm``, ``lm_head``, ``patch_proj``), its
-    ``blocks`` the ``DenseBlock`` / ``MoeBlock`` fields stacked along a
-    leading layer axis (gemma2's along ``(L/2, 2)`` pairs: layer ``2j +
-    i`` is pair ``j``'s ``i``-th), read by attribute name.  Weights and
-    norm scales are stored in bf16 (the reference rounds them to bf16 at
-    every use), biases in float32."""
+    ``blocks``, ``final_norm``, ``lm_head``, ``patch_proj``,
+    ``shared_attn``), its ``blocks`` the ``DenseBlock`` / ``MoeBlock`` /
+    ``SsmBlock`` fields stacked along a leading layer axis, read by
+    attribute name: gemma2's along ``(L/2, 2)`` pairs (layer ``2j + i``
+    is pair ``j``'s ``i``-th), the hybrid's along ``(L / attn_every,
+    attn_every)`` groups (layer ``i`` is group ``i // attn_every``'s
+    ``i % attn_every``-th; ``shared_attn`` one unstacked ``DenseBlock``).
+    Weights and norm scales are stored in bf16 (the reference rounds them
+    to bf16 at every use), biases and the SSM's float32 leaves in
+    float32."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def weight(a):
-        return (None if a is None else
-                torch.from_numpy(np.array(a, np.float32)).to(dev, BF16))
+    def index(i):
+        if cfg.local_global:
+            return (i // 2, i % 2)
+        if cfg.family == "hybrid":
+            return divmod(i, cfg.attn_every)
+        return i
 
-    def bias(a):
-        return (None if a is None else
-                torch.from_numpy(np.array(a, np.float32)).to(dev))
-
-    def layer(a, i):
-        if a is None:
-            return None
-        return a[i // 2, i % 2] if cfg.local_global else a[i]
-
-    stacked = params.blocks
     blocks = []
     for i in range(cfg.n_layers):
-        at = stacked.attn
-        attn = AttnParams(
-            wq=weight(layer(at.wq, i)), wk=weight(layer(at.wk, i)),
-            wv=weight(layer(at.wv, i)), wo=weight(layer(at.wo, i)),
-            bq=bias(layer(at.bq, i)), bk=bias(layer(at.bk, i)),
-            bv=bias(layer(at.bv, i)))
+        blk = _take(params.blocks, index(i))
         if cfg.family == "moe":
-            mo = stacked.moe
-            sh = mo.shared
+            mo = blk.moe
             blocks.append(MoeBlock(
-                ln1=weight(layer(stacked.ln1, i)), attn=attn,
-                ln2=weight(layer(stacked.ln2, i)),
+                ln1=_weight(blk.ln1, dev), attn=attn_from_numpy(blk.attn, dev),
+                ln2=_weight(blk.ln2, dev),
                 moe=MoeParams(
-                    router=weight(layer(mo.router, i)),
-                    we_gate=weight(layer(mo.we_gate, i)),
-                    we_up=weight(layer(mo.we_up, i)),
-                    we_down=weight(layer(mo.we_down, i)),
-                    shared=None if sh is None else MlpParams(
-                        w_gate=weight(layer(sh.w_gate, i)),
-                        w_up=weight(layer(sh.w_up, i)),
-                        w_down=weight(layer(sh.w_down, i))))))
-            continue
-        ml = stacked.mlp
-        blocks.append(DenseBlock(
-            ln1=weight(layer(stacked.ln1, i)), attn=attn,
-            post_attn_ln=weight(layer(stacked.post_attn_ln, i)),
-            ln2=weight(layer(stacked.ln2, i)),
-            mlp=MlpParams(w_gate=weight(layer(ml.w_gate, i)),
-                          w_up=weight(layer(ml.w_up, i)),
-                          w_down=weight(layer(ml.w_down, i))),
-            post_mlp_ln=weight(layer(stacked.post_mlp_ln, i))))
+                    router=_weight(mo.router, dev),
+                    we_gate=_weight(mo.we_gate, dev),
+                    we_up=_weight(mo.we_up, dev),
+                    we_down=_weight(mo.we_down, dev),
+                    shared=(None if mo.shared is None
+                            else mlp_from_numpy(mo.shared, dev)))))
+        elif cfg.family in ("ssm", "hybrid"):
+            blocks.append(SsmBlock(ln=_weight(blk.ln, dev),
+                                   ssm=_ssm_from_numpy(blk.ssm, dev)))
+        else:
+            blocks.append(_dense_from_numpy(blk, dev))
+    shared = getattr(params, "shared_attn", None)
     return LmParams(
-        embed=weight(params.embed), blocks=tuple(blocks),
-        final_norm=weight(params.final_norm),
-        lm_head=weight(params.lm_head),
-        patch_proj=weight(getattr(params, "patch_proj", None)))
+        embed=_weight(params.embed, dev), blocks=tuple(blocks),
+        final_norm=_weight(params.final_norm, dev),
+        lm_head=_weight(params.lm_head, dev),
+        patch_proj=_weight(getattr(params, "patch_proj", None), dev),
+        shared_attn=None if shared is None else _dense_from_numpy(shared,
+                                                                  dev))
 
 
 def embed_tokens(params: LmParams, cfg: ModelConfig,
@@ -218,10 +310,19 @@ def block_apply(blk, cfg: ModelConfig, h: torch.Tensor, attn_fn
     return h + m
 
 
-def logits_from_hidden(params: LmParams, cfg: ModelConfig,
+def ssm_block_apply(blk: SsmBlock, cfg: ModelConfig, h: torch.Tensor, *,
+                    chunk: int = 128) -> torch.Tensor:
+    """One SSM block over a full sequence: ``h + ssd_forward(norm(h))``."""
+    return h + ssd_forward(blk.ssm, cfg, rms_norm(h, blk.ln, cfg.norm_eps),
+                           chunk=chunk)
+
+
+def logits_from_hidden(params, cfg: ModelConfig,
                        h: torch.Tensor) -> torch.Tensor:
     """Final norm and LM head: bf16 operands, float32 products and sums
-    (float32 logits), as the reference's ``preferred_element_type``."""
+    (float32 logits), as the reference's ``preferred_element_type``.
+    ``params`` is an :class:`LmParams` or an
+    :class:`~repro_torch.models.encdec.EncDecParams`."""
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     head = params.embed if params.lm_head is None else params.lm_head
     logits = torch.matmul(h.to(BF16).float(), head.to(BF16).float().T)
@@ -229,28 +330,39 @@ def logits_from_hidden(params: LmParams, cfg: ModelConfig,
 
 
 def forward(params: LmParams, cfg: ModelConfig, batch, *,
-            q_chunk: int = 512, return_hidden: bool = False) -> torch.Tensor:
+            q_chunk: int = 512, ssm_chunk: int = 128,
+            return_hidden: bool = False) -> torch.Tensor:
     """Token logits ``(B, S, padded_vocab)`` for ``batch = {"tokens": (B,
     S)[, "patches": (B, P, d)]}``; ``return_hidden=True`` returns the final
     hidden states.  A config with ``mrope`` takes M-RoPE positions whether
-    or not patches are given, as the reference's ``forward`` does."""
+    or not patches are given, as the reference's ``forward`` does.
+    ``ssm_chunk`` is the SSD chunk of the ssm and hybrid families."""
     check_supported(cfg)
     x = embed_batch(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    if cfg.mrope:
+    if cfg.family == "ssm":
+        cos_sin = None
+    elif cfg.mrope:
         cos_sin = _mrope_tables(
             mrope_positions(positions, cfg.n_frontend_tokens,
                             cfg.mrope_sections),
             cfg.head_dim_, cfg.rope_theta, cfg.mrope_sections)
     else:
         cos_sin = rotary(positions, cfg.head_dim_, cfg.rope_theta)
+
+    def attend(window):
+        return lambda p, xn: attention(p, cfg, xn, positions, window=window,
+                                       q_chunk=q_chunk, cos_sin=cos_sin)
+
     for i, blk in enumerate(params.blocks):
-        window = layer_window(cfg, i)
-        x = block_apply(blk, cfg, x, lambda p, xn: attention(
-            p, cfg, xn, positions, window=window, q_chunk=q_chunk,
-            cos_sin=cos_sin))
+        if shared_slot(cfg, i) is not None:
+            x = block_apply(params.shared_attn, cfg, x, attend(0))
+        if isinstance(blk, SsmBlock):
+            x = ssm_block_apply(blk, cfg, x, chunk=ssm_chunk)
+        else:
+            x = block_apply(blk, cfg, x, attend(layer_window(cfg, i)))
     if return_hidden:
         return x
     return logits_from_hidden(params, cfg, x)

@@ -54,7 +54,7 @@ from .._device import DeviceArg, resolve_device
 from ..kernels.pq_attn.ops import pq_attn
 from ..models.config import ModelConfig
 from ..models.layers import _dot, apply_rope, top_k
-from ..models.lm import (LmParams, block_apply, check_supported,
+from ..models.lm import (LmParams, block_apply, check_kv_family,
                          embed_tokens, layer_window, logits_from_hidden)
 from .decode import decode_cos_sin
 
@@ -215,7 +215,7 @@ def init_pq_cache(cfg: ModelConfig, pqc: PQKVConfig, batch: int,
                   v_books: Optional[torch.Tensor] = None) -> PQKVCache:
     """Empty compressed cache around pre-fit ``books`` (and ``v_books``,
     which ``quantize_v=True`` needs)."""
-    check_supported(cfg)
+    check_kv_family(cfg, "PQ-KV")
     dev = resolve_device(device)
     L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     W = pqc.recent_window
@@ -271,7 +271,7 @@ def compress_cache(cache: Dict[str, torch.Tensor], cfg: ModelConfig,
     coded the same way (``v_books``, else fit after the key books from the
     same generator); otherwise the PQ cache takes ``cache["v"]`` itself:
     copy it first if the exact cache goes on decoding."""
-    check_supported(cfg)
+    check_kv_family(cfg, "PQ-KV")
     k_cache, v_cache = cache["k"], cache["v"]
     L, B, Smax, G, hd = k_cache.shape
     W = pqc.recent_window
@@ -493,7 +493,7 @@ def pq_serve_step(params: LmParams, cfg: ModelConfig, pq_cache: PQKVCache,
     -> (logits ``(B, 1, Vp)`` float32, the cache updated at ``pos`` in
     place).  Dense (gemma2's local layers attend over their window, with
     the sandwich norms and the scaled embedding), moe and vlm families."""
-    check_supported(cfg)
+    check_kv_family(cfg, "PQ-KV")
     pos = int(pos)
     x = embed_tokens(params, cfg, token)
     cos_sin = decode_cos_sin(cfg, x.shape[0], pos, x.device)

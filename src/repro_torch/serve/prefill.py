@@ -1,7 +1,9 @@
 """Batched prefill (counterpart of :mod:`repro.serve.prefill`): one
 chunked-causal pass over the whole prompt that fills the KV cache and
 returns the last position's logits.  Dense (gemma2's local/global layers
-included), moe and vlm families."""
+included), moe and vlm families; the ssm, hybrid and encdec families
+raise, as in the reference: they prefill one token at a time through
+``serve_step``."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.layers import (_mrope_tables, _qkv, attention,
                              mrope_positions, rotary)
-from ..models.lm import (LmParams, block_apply, check_supported,
+from ..models.lm import (LmParams, block_apply, check_kv_family,
                          embed_batch, layer_window, logits_from_hidden)
 
 __all__ = ["prefill"]
@@ -27,7 +29,7 @@ def prefill(params: LmParams, cfg: ModelConfig,
     place).  ``S`` may be less than the cache's ``max_len``.  M-RoPE
     positions apply only when patches are given (text alone takes plain
     RoPE, which M-RoPE equals there, as decode does)."""
-    check_supported(cfg)
+    check_kv_family(cfg, "batched prefill")
     x = embed_batch(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,

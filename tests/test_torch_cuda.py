@@ -52,6 +52,13 @@ every request's rows alone the same ids and bits; the warm-replay gate
 (library loaded, nothing compiled, the same launches per request size,
 no growth of the allocator's reserve); a padded bucket's real rows equal
 the unpadded search.
+
+The LM families served token by token (ssm, hybrid, encdec) at their
+reduced configs: ``forward`` / ``forward_encdec`` and a prompt fed
+through ``serve_step`` on the card give the CPU route's logits within
+the LM tolerance ``2e-2`` and its greedy tokens, and the SSM states
+within ``1e-3`` of their scale; the SSM projections' bf16 product keeps
+its float32 sum on the card.
 """
 
 import pytest
@@ -1524,3 +1531,77 @@ def test_padded_bucket_equals_unpadded_on_card(gen, n_real, bucket):
                      **kw)[2]
     st0 = search_impl(*args, torch.from_numpy(Q[:n_real]).cuda(), **kw)[2]
     assert int(st["n_bounded"]) == int(st0["n_bounded"])
+
+
+SEQUENTIAL_ARCHS = ("mamba2-780m", "zamba2-2.7b", "seamless-m4t-large-v2")
+
+
+def _to_device(x, dev):
+    """A parameter tree (NamedTuples and tuples of tensors) on ``dev``."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.to(dev)
+    if hasattr(x, "_fields"):
+        return type(x)(*(_to_device(f, dev) for f in x))
+    return tuple(_to_device(f, dev) for f in x)
+
+
+@pytest.mark.parametrize("arch", SEQUENTIAL_ARCHS)
+def test_sequential_families_match_cpu_route(gen, arch):
+    """The reduced config's weights made on the CPU: the full-sequence
+    pass over 32 tokens (encdec: after 16 frames) and the same prompt fed
+    through ``serve_step`` plus 4 greedy steps, on the card and on the CPU
+    route: logits within 2e-2, the same greedy tokens, the caches' float32
+    SSM states within 1e-3 of their largest magnitude."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import prefill_cache_encdec, serve_step
+    cfg = get_reduced(arch)
+    B, S, n_gen = 2, 32, 4
+    is_encdec = cfg.family == "encdec"
+    init = encdec.init_params_encdec if is_encdec else lm.init_params
+    p_cpu = init(cfg, torch.Generator().manual_seed(7), "cpu")
+    g = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    frames = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _to_device(p_cpu, dev)
+        batch = {"tokens": tokens.to(dev), "frames": frames.to(dev)}
+        fwd = (encdec.forward_encdec(params, cfg, batch) if is_encdec
+               else lm.forward(params, cfg, batch, ssm_chunk=16))
+        cache = init_cache(cfg, B, S + n_gen, dev)
+        if is_encdec:
+            prefill_cache_encdec(params, cfg, cache, batch["frames"])
+        logits, toks = [], []
+        for p in range(S + n_gen):
+            tok = (tokens[:, p:p + 1] if p < S
+                   else torch.argmax(logits[-1][:, -1], -1)[:, None]).to(dev)
+            toks.append(tok.cpu())
+            lg, _ = serve_step(params, cfg, cache, tok, p)
+            logits.append(lg.cpu())
+        runs[dev] = (fwd.cpu(), torch.cat(logits, 1), torch.cat(toks, 1),
+                     {k: v.cpu() for k, v in cache.items()})
+    cpu, card = runs["cpu"], runs["cuda"]
+    torch.testing.assert_close(card[0], cpu[0], rtol=0, atol=2e-2)
+    torch.testing.assert_close(card[1], cpu[1], rtol=0, atol=2e-2)
+    assert torch.equal(card[2], cpu[2])
+    for name, want in cpu[3].items():
+        if want.dtype == torch.float32:
+            scale = float(want.abs().max())
+            assert float((card[3][name] - want).abs().max()) <= 1e-3 * scale
+
+
+def test_dot_f32_keeps_float32_sums_on_card(gen):
+    """The SSM projections' product on the card: bf16 operands, a float32
+    result within 1e-5 of the float64 product (a bf16 rounding would be
+    ~4e-3), at a decode row and at a prompt's rows."""
+    from repro_torch.models import layers
+    w = torch.randn((1536, 3072), generator=gen, device="cuda")
+    for rows in (8, 4096):
+        x = torch.randn((rows, 1, 1536), generator=gen, device="cuda")
+        got = layers._dot_f32(x, w)
+        assert got.dtype == torch.float32
+        want = x.to(torch.bfloat16).double() @ w.to(torch.bfloat16).double()
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        assert rel <= 1e-5, rel

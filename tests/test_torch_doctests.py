@@ -22,6 +22,8 @@ MODULES = (
     "repro_torch.kernels.pq_adc.ops",
     "repro_torch.kernels.pq_attn.ops",
     "repro_torch.kernels.tune",
+    "repro_torch.models.encdec",
+    "repro_torch.models.ssm",
     "repro_torch.obs",
     "repro_torch.serve.pqkv",
     "repro_torch.serve_index.config",

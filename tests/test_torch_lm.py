@@ -43,6 +43,7 @@ from repro.serve.prefill import prefill as j_prefill
 from repro_torch.configs import registry as tregistry
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import ssm as tssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.cache import init_cache
 from repro_torch.serve.decode import serve_step
@@ -303,13 +304,113 @@ def test_rope_tables_against_reference():
         np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=2 ** -23)
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(ModelConfig(**TINY), family=family)
-    with pytest.raises(NotImplementedError, match=family):
-        tlm.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
-    with pytest.raises(NotImplementedError, match=family):
-        init_cache(cfg, 1, 8, device=CPU)
+NEW_FAMILIES = ("mamba2-780m", "zamba2-2.7b", "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_params_and_cache_layouts(arch):
+    """The ssm, hybrid and encdec families: ``init_params`` /
+    ``init_params_encdec`` give the reference's parameter shapes (the
+    hybrid's ``(groups, attn_every)`` stacking flattened to layers), bf16
+    weights and float32 SSM leaves, and ``init_cache`` the reference's
+    cache shapes and dtypes (the hybrid's states with a flat layer axis),
+    all zero."""
+    from repro.models import encdec as jencdec
+    from repro_torch.models import encdec as tencdec
+    jcfg, cfg = _cfgs(arch)
+    gen = torch.Generator().manual_seed(0)
+    if cfg.family == "encdec":
+        ref = jax.eval_shape(lambda: jencdec.init_params_encdec(
+            jax.random.PRNGKey(0), jcfg))
+        p = tencdec.init_params_encdec(cfg, gen, device=CPU)
+        pairs = [(p.embed, ref.embed), (p.frame_proj, ref.frame_proj),
+                 (p.lm_head, ref.lm_head)]
+        for name in ("enc_blocks", "dec_blocks"):
+            ours, theirs = getattr(p, name), getattr(ref, name)
+            assert len(ours) == jax.tree.leaves(theirs)[0].shape[0]
+            pairs += zip(jax.tree.leaves(tuple(ours[-1])),
+                         [jax.ShapeDtypeStruct(a.shape[1:], a.dtype)
+                          for a in jax.tree.leaves(theirs)])
+    else:
+        ref = jax.eval_shape(lambda: jlm.init_params(jax.random.PRNGKey(0),
+                                                     jcfg))
+        p = tlm.init_params(cfg, gen, device=CPU)
+        assert len(p.blocks) == cfg.n_layers
+        assert (p.shared_attn is not None) == (cfg.family == "hybrid")
+        pairs = [(p.embed, ref.embed)]
+        lead = 2 if cfg.family == "hybrid" else 1
+        for field in tssm.SsmParams._fields:
+            want = getattr(ref.blocks.ssm, field)
+            pairs.append((getattr(p.blocks[0].ssm, field),
+                          jax.ShapeDtypeStruct(want.shape[lead:],
+                                               want.dtype)))
+            f32 = field.startswith("conv") or field in ("a_log", "d_skip",
+                                                        "dt_bias")
+            assert getattr(p.blocks[-1].ssm, field).dtype == (
+                torch.float32 if f32 else torch.bfloat16), field
+        if cfg.family == "hybrid":
+            pairs += list(zip(jax.tree.leaves(tuple(p.shared_attn)),
+                              jax.tree.leaves(ref.shared_attn)))
+    for leaf, want in pairs:
+        assert tuple(leaf.shape) == tuple(want.shape)
+    cache = init_cache(cfg, 2, 8, device=CPU)
+    want = j_init_cache(jcfg, 2, 8)
+    assert sorted(cache) == sorted(want)
+    for name, t in cache.items():
+        w = want[name]
+        shape = (w.shape if cfg.family != "hybrid" or name.startswith("attn")
+                 else (cfg.n_layers, *w.shape[2:]))
+        assert tuple(t.shape) == tuple(shape), name
+        assert str(t.dtype).split(".")[-1] == str(w.dtype), name
+        assert not t.any()
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_refuse_batched_prefill_and_pqkv(arch):
+    """Batched ``prefill`` and PQ-KV (``init_pq_cache``,
+    ``compress_cache``, ``pq_serve_step``) raise ``NotImplementedError``
+    naming the family for ssm, hybrid and encdec, as the reference
+    refuses them."""
+    from repro_torch.serve import pqkv
+    _, cfg = _cfgs(arch)
+    fam = cfg.family
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match=fam):
+        prefill(None, cfg, {}, tokens)
+    with pytest.raises(NotImplementedError, match=fam):
+        pqkv.init_pq_cache(cfg, pqkv.PQKVConfig(), 1, 8,
+                           torch.zeros((2, 2, 8, 256, 2)), device=CPU)
+    with pytest.raises(NotImplementedError, match=fam):
+        pqkv.compress_cache({}, cfg, pqkv.PQKVConfig(), pos=4)
+    with pytest.raises(NotImplementedError, match=fam):
+        pqkv.pq_serve_step(None, cfg, None, tokens["tokens"][:, :1], 4,
+                           pqc=pqkv.PQKVConfig())
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_serve_cli_new_families_on_cpu(arch):
+    """The launcher serves the ssm, hybrid and encdec families on the CPU,
+    prefilling one token at a time (encdec after encoding its frames);
+    ``--pqkv`` raises naming the family; without ``--device`` and without
+    a card it raises."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as tserve
+    fam = tregistry.get_reduced(arch).family
+    base = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8",
+            "--gen", "3"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tserve.main(base + ["--device", "cpu"])
+    text = out.getvalue()
+    for line in (f"family={fam}", "prefill 8 tokens", "decoded 2 steps x 2",
+                 "sample output ids"):
+        assert line in text, text
+    with pytest.raises(NotImplementedError, match=fam):
+        tserve.main(base + ["--device", "cpu", "--pqkv"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserve.main(base)
 
 
 def test_mrope_tables_against_reference():
