@@ -123,6 +123,29 @@ window 7), then the search paths beyond 1-NN on the same data:
   route (logits, greedy tokens); and the SSM projections' float32
   product against float64.  No kernel of the port launches on these
   paths.
+- ``train_path``, ``train_ssm_path`` (``TRAIN_PATHS``) and
+  ``train_family_paths`` (``TRAIN_FAMILY_PATHS``): LM training through
+  ``repro_torch.launch.train.main`` itself, from seeded float32 masters
+  at full width: internlm2-1.8b and mamba2-780m at full depth, 8 x 1024
+  tokens, 4 steps; zamba2-2.7b and seamless-m4t-large-v2 at full depth
+  and deepseek-moe-16b on 2 of its 28 layers (``reduced`` in its line:
+  16.9 B parameters would need 270 GB of training state), 4 x 1024, 3
+  steps.  Each prints every step's loss, ``ce`` and seconds, seconds a
+  step over the steps after the first, tokens a second, model FLOPs a
+  step (``_train_flops``) and TFLOP/s, peak memory and the state's GiB,
+  and checks that every loss and the gradient norm are finite, every
+  leaf moved, and step 1 run twice from the same state gives the same
+  loss and state bit for bit; for internlm2 and mamba2 (through
+  ``_dot_f32``'s backward and the tied embedding's two cotangents) layer
+  0 on the batch's first row (1 x 1024), forward and backward against
+  the CPU route, every gradient within ``BLOCK_GRAD_RTOL``.  Then
+  ``train_reduced_path``: each reduced config's train step
+  (``microbatches=2``) on the card against the CPU route from the same
+  masters; and ``train_resume_path``: ``main`` at a reduced config in a
+  temp dir, 6 steps against 3 (preempted by its own SIGTERM) plus a
+  resume to 6, the step-6 checkpoints equal bit for bit.  These run
+  after every other phase and open no profiler session; no kernel of the
+  port launches on them.
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
@@ -236,6 +259,13 @@ PROFILE_PAD_S = 0.05
 # a window that still holds no kernel record at all is profiled again, up to
 # this many times, before the kernel count is checked
 PROFILE_ATTEMPTS = 3
+# launches of the kernel in one ``_device_ms`` window: after millions of
+# eager launches a profiler session drops its first few kernel records
+# (3.1 of 5 a window on average in PR 24's final smoke; all 5 of a window,
+# three windows in a row, in one run of PR 25's tree), so a window
+# launches more than those; the device time is the mean over the records
+# it keeps
+PROFILE_LAUNCHES = 16
 PRUNED_QUERIES = 128      # queries for the LB-cascade 1-NN
 SEARCH_WINDOW = 51        # the exact searches' band: round(0.1 * 512)
 INDEX_LISTS = 64
@@ -278,6 +308,25 @@ LM_SEQUENTIAL_PATHS = (
 # own input (the hybrid's shared block parts by bf16 ulps there: 2.7e-3)
 SSD_STATE_RTOL = {"decode_input": 1e-4, "forward_input": 1e-2}
 DOT_F32_RTOL = 1e-5       # the SSM projections keep float32 sums
+# training through launch/train.main at full width: (phase, arch, batch,
+# seq, steps, layers or None for the config's depth)
+TRAIN_PATHS = (
+    ("train_path", "internlm2-1.8b", 8, 1024, 4, None),
+    ("train_ssm_path", "mamba2-780m", 8, 1024, 4, None),
+)
+TRAIN_FAMILY_PATHS = (
+    ("train_family_paths", "zamba2-2.7b", 4, 1024, 3, None),
+    ("train_family_paths", "seamless-m4t-large-v2", 4, 1024, 3, None),
+    # 16.9 B parameters would need 270 GB of training state
+    ("train_family_paths", "deepseek-moe-16b", 4, 1024, 3, 2),
+)
+TRAIN_SEED = 0
+BLOCK_GRAD_RTOL = 2e-2    # layer 0's gradients, card vs CPU route (bf16)
+TRAIN_LOSS_RTOL = 1e-3    # a reduced train step, card vs CPU route
+TRAIN_UPDATE_COS = 0.3    # ... each leaf's update against the CPU's
+TRAIN_UPDATE_RTOL = 0.1   # ... all weights' update, in norm
+RESUME_ARCH = "zamba2-2.7b"
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16, at 700 W
 # the slice-1 main path's kernels (each must launch there)
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
@@ -367,14 +416,15 @@ _windows = []
 
 
 def profiler_phase() -> None:
-    """How the ``_device_ms`` windows fared: kernels lost against ``REPS``
+    """How the ``_device_ms`` windows fared: kernels lost against
+    ``PROFILE_LAUNCHES``
     a window, and the range of the windows' least offsets of a kernel's
     start from its launch's (negative: the kernel's converted timestamp
     lies before its launch, by that much)."""
     offsets = [o for _, o in _windows if o is not None]
     emit({"phase": "profiler", "windows": len(_windows),
-          "pad_s": PROFILE_PAD_S, "launches_a_window": REPS,
-          "kernels_lost": sum(REPS - n for n, _ in _windows),
+          "pad_s": PROFILE_PAD_S, "launches_a_window": PROFILE_LAUNCHES,
+          "kernels_lost": sum(PROFILE_LAUNCHES - n for n, _ in _windows),
           "empty_windows": sum(1 for n, _ in _windows if n == 0),
           "launch_to_kernel_ms": ([min(offsets), max(offsets)]
                                   if offsets else None)})
@@ -461,6 +511,12 @@ def main() -> int:
     seq_profiles = profile_sequential_steps(torch)
     for spec in LM_SEQUENTIAL_PATHS:
         lm_sequential_path(torch, _build, *spec, seq_profiles[spec[0]])
+    for spec in TRAIN_PATHS:
+        train_full_path(torch, _build, *spec, block_check=True)
+    for spec in TRAIN_FAMILY_PATHS:
+        train_full_path(torch, _build, *spec, block_check=False)
+    train_reduced_path(torch)
+    train_resume_path(torch)
     emit({"kernels": kernels})
 
     out = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -2872,6 +2928,364 @@ def lm_sequential_path(torch, _build, phase, arch, B, S, n_gen,
     emit(record)
 
 
+# ---------------------------------------------------------------------------
+# Training (after the serving paths; no profiler session)
+# ---------------------------------------------------------------------------
+
+def _free(torch) -> float:
+    """Free what earlier phases left, reset the peak; the GiB still held."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _train_flops(cfg, params, B: int, S: int) -> dict:
+    """Model FLOPs of one training step: 6 x (each matrix's parameters x
+    the tokens it multiplies: routed experts at k/E of the tokens, the
+    hybrid's shared block once a group, the LM head; not the embedding
+    gather, the depthwise convolutions or the SSD scan), plus 3 x the
+    attention's score and value products (4 B Sq Sk H hd a layer, the
+    whole score block, as the port computes it)."""
+    from repro_torch import _tree
+    T = B * S
+    Sf = cfg.n_frontend_tokens
+    hhd = cfg.n_heads * cfg.head_dim_
+    n_groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    tied = getattr(params, "lm_head", None) is None
+    matmul = 0
+    for path, leaf in _tree.leaves_with_paths(params):
+        name = _tree.path_name(path)
+        if leaf.dim() < 2 or "conv_" in name:
+            continue
+        if path[0] == "embed":
+            tokens = T if tied else 0
+        elif path[0] in ("frame_proj", "enc_blocks") or (
+                path[0] == "dec_blocks" and path[2] == "cross_attn"
+                and path[3] in ("wk", "wv")):
+            tokens = B * Sf
+        elif path[0] == "patch_proj":
+            tokens = B * Sf
+        elif path[0] == "shared_attn":
+            tokens = T * n_groups
+        elif "moe" in path and path[-1] in ("we_gate", "we_up", "we_down"):
+            tokens = T * cfg.n_active_experts / cfg.n_experts
+        else:
+            tokens = T
+        matmul += leaf.numel() * tokens
+    if cfg.family == "encdec":
+        attn = (cfg.n_enc_layers * 4 * B * Sf * Sf * hhd
+                + cfg.n_layers * 4 * B * (S * S + S * Sf) * hhd)
+    elif cfg.family == "hybrid":
+        attn = n_groups * 4 * B * S * S * hhd
+    elif cfg.family == "ssm":
+        attn = 0
+    else:
+        attn = cfg.n_layers * 4 * B * S * S * hhd
+    return {"matmul_param_tokens": matmul, "attention_fwd": attn,
+            "model_flops": 6 * matmul + 3 * attn}
+
+
+def _train_block_check(torch, params, cfg, tokens) -> dict:
+    """Layer 0 of ``params`` (cast to bf16 as the train step casts it) on
+    its real input, the embedding of ``tokens (1, S)``, forward and
+    backward against a seeded bf16 cotangent, on the card and on the CPU
+    route: the input's gradient and each weight's within
+    ``BLOCK_GRAD_RTOL`` of the CPU's in relative norm."""
+    from repro_torch import _tree
+    from repro_torch.models import layers, lm
+    from repro_torch.train.step import bf16_cast
+    blk = bf16_cast({"blocks": (params.blocks[0],)})["blocks"][0]
+    x0 = lm.embed_tokens(params, cfg, tokens).detach()
+    S = tokens.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ct = torch.randn(x0.shape, generator=g, device="cuda").bfloat16()
+    grads, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        b = _tree.tree_map(lambda t: t.detach().to(dev).requires_grad_(), blk)
+        x = x0.detach().to(dev).requires_grad_()
+        start = time.perf_counter()
+        if cfg.family in ("ssm", "hybrid"):
+            y = lm.ssm_block_apply(b, cfg, x)
+        else:
+            pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+            cos_sin = layers.rotary(pos, cfg.head_dim_, cfg.rope_theta)
+            y = lm.block_apply(b, cfg, x, lambda p, xn: layers.attention(
+                p, cfg, xn, pos, window=lm.layer_window(cfg, 0),
+                q_chunk=min(512, S), cos_sin=cos_sin))
+        y.backward(ct.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds[dev] = time.perf_counter() - start
+        grads[dev] = [x.grad] + [t.grad for t in _tree.leaves(b)]
+    names = ["input"] + [_tree.path_name(p)
+                         for p, _ in _tree.leaves_with_paths(blk)]
+    rel = {}
+    for name, a, c in zip(names, grads["cuda"], grads["cpu"]):
+        a, c = a.float().cpu(), c.float()
+        rel[name] = float((a - c).norm() / c.norm())
+    worst = max(rel.values())
+    check(all(v <= BLOCK_GRAD_RTOL for v in rel.values()),
+          f"{cfg.name} layer 0: card gradients within {BLOCK_GRAD_RTOL} of "
+          f"the CPU route's: {rel}")
+    return {"batch": 1, "seq": S, "rel_norm_err": rel, "max": worst,
+            "tolerance": BLOCK_GRAD_RTOL, "seconds": seconds}
+
+
+def train_full_path(torch, _build, phase, arch, B, S, steps, layers,
+                    block_check) -> dict:
+    """``launch/train.main`` at full width (module docstring): ``steps``
+    steps from seeded float32 masters, then the checks: every loss and the
+    gradient norm finite, every leaf moved, step 1 run twice from the same
+    state giving the same loss and state bit for bit, and (``block_check``)
+    layer 0 against the CPU route."""
+    import math
+    import tempfile
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.train import optim, step as tstep
+
+    base_gib = _free(torch)
+    cfg = get_config(arch)
+    reduced = []
+    if layers is not None:
+        reduced.append(f"n_layers {cfg.n_layers} -> {layers}: "
+                       f"{cfg.param_count() / 1e9:.1f} B parameters need "
+                       f"{cfg.param_count() * 16 / 1e9:.0f} GB of training "
+                       "state at 16 B a parameter")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--seed", str(TRAIN_SEED)]
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "metrics.jsonl"
+        real_config = train.get_config
+        train.get_config = lambda _: cfg     # the cut depth, through main
+        try:
+            start = time.perf_counter()
+            state = train.main(argv + ["--metrics-out", str(out)])
+            main_s = time.perf_counter() - start
+        finally:
+            train.get_config = real_config
+        recs = [json.loads(line) for line in out.read_text().splitlines()]
+    peak_main_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(_build.LAUNCHES)
+    check(not any(launches.values()),
+          f"{phase}: no kernel of the port on this path: {launches}")
+    check(len(recs) == steps and all(math.isfinite(r["loss"]) for r in recs),
+          f"{phase}: {steps} finite losses: {recs}")
+    n_params = sum(t.numel() for t in _tree.leaves(state.params))
+    state_gib = _tree_bytes(torch, state) / 2 ** 30
+    flops = _train_flops(cfg, state.params, B, S)
+
+    seconds = {"main": main_s}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - mark
+        mark = now
+
+    # every leaf moved from main's initial draw
+    p_init = tstep.model_init(cfg)(
+        cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda",
+        dtype=torch.float32)
+    unmoved = [_tree.path_name(p) for (p, a), b in zip(
+        _tree.leaves_with_paths(state.params), _tree.leaves(p_init))
+        if torch.equal(a, b)]
+    check(not unmoved, f"{phase}: every leaf moved: {unmoved[:8]}")
+    del state
+    _free(torch)
+    lap("moved_check")
+
+    # step 1 twice from the same state (main's first step and batch)
+    opt_cfg = optim.AdamWConfig(total_steps=max(steps, 2),
+                                warmup_steps=max(2, steps // 10))
+    fn = tstep.make_train_step(cfg, opt_cfg, q_chunk=min(512, S))
+    batch = train.step_batch(TokenStream(cfg.vocab_size, S, B, seed=TRAIN_SEED),
+                         cfg, 0, B, torch.device("cuda"))
+
+    def fresh(params):
+        return tstep.TrainState(
+            step=torch.zeros((), dtype=torch.int32, device="cuda"),
+            params=params, opt=optim.adamw_init(params))
+
+    p0 = _tree.tree_map(torch.clone, p_init)
+    s1, m1 = fn(fresh(p_init), batch)
+    loss1 = float(m1["loss"])
+    lap("step1")
+    host = _tree.tree_map(lambda t: t.to("cpu", copy=True), s1)
+    del s1, p_init
+    _free(torch)
+    lap("state_to_host")
+    loss_g, _, grads = tstep.make_loss_and_grads(cfg, q_chunk=min(512, S))(
+        p0, batch)
+    gnorm = float(optim.global_norm(grads))
+    del grads
+    check(math.isfinite(gnorm), f"{phase}: gradient norm {gnorm}")
+    lap("grad_pass")
+    s2, m2 = fn(fresh(p0), batch)
+    lap("step1_again")
+    differ = [_tree.path_name(p) for (p, a), b in zip(
+        _tree.leaves_with_paths(s2), _tree.leaves(host))
+        if not torch.equal(a, b.to(a.device))]
+    lap("compare")
+    deterministic = {"loss_step1": loss1, "loss_rerun": float(m2["loss"]),
+                     "loss_grad_pass": float(loss_g),
+                     "leaves_differing": differ}
+    check(float(m2["loss"]) == loss1 == float(loss_g) and not differ,
+          f"{phase}: step 1 twice from one state, bit for bit: "
+          f"{deterministic}")
+    check(round(loss1, 4) == recs[0]["loss"],
+          f"{phase}: main's step 1 is this step: {recs[0]} {loss1}")
+    block = (_train_block_check(torch, s2.params, cfg, batch["tokens"][:1])
+             if block_check else None)
+    lap("block_check")
+    del s2, p0, host, batch
+    s_step = sum(r["sec"] for r in recs[1:]) / len(recs[1:])
+    record = {
+        "phase": phase, "arch": cfg.name, "family": cfg.family,
+        "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+        "d_model": cfg.d_model, "batch": B, "seq": S,
+        "frames": cfg.n_frontend_tokens if cfg.family == "encdec" else 0,
+        "steps": recs, "reduced": reduced, "seconds": seconds,
+        "s_per_step": s_step, "first_step_s": recs[0]["sec"],
+        "tokens_per_s": B * S / s_step, "params": n_params,
+        "model_flops_per_step": flops["model_flops"], "flops": flops,
+        "tflops_per_s": flops["model_flops"] / s_step / 1e12,
+        "share_of_bf16_peak": flops["model_flops"] / s_step / BF16_PEAK_FLOPS,
+        "grad_norm_step1": gnorm, "state_gib": state_gib,
+        "peak_mem_gib_main": peak_main_gib,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "resident_gib_before": base_gib, "every_leaf_moved": True,
+        "step1_bit_for_bit": deterministic, "block_check": block,
+        "launches": launches, "nvidia_smi": nvidia_smi_line()}
+    emit(record)
+    return record
+
+
+def train_reduced_path(torch) -> dict:
+    """Every reduced config: one ``make_train_step(q_chunk=16,
+    microbatches=2)`` step on the card and on the CPU route from the same
+    float32 masters (made on the CPU): the loss within
+    ``TRAIN_LOSS_RTOL``, each leaf's update at cosine >=
+    ``TRAIN_UPDATE_COS`` with the CPU's and all of them within
+    ``TRAIN_UPDATE_RTOL`` in norm (tests/test_torch_train.py's tolerances
+    against the reference: AdamW's first step moves a weight by about
+    ``lr`` times its gradient's sign, which rounding noise sets where a
+    gradient nearly vanishes)."""
+    from repro_torch import _tree
+    from repro_torch.configs.registry import ARCH_IDS, get_reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train import optim, step as tstep
+    base_gib = _free(torch)
+    rows = []
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        extra = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+        stream = TokenStream(cfg.vocab_size, 32, 4, seed=1, extras=(
+            {extra: (cfg.n_frontend_tokens, cfg.d_model)} if extra else None))
+        batch = {k: torch.from_numpy(v) for k, v in
+                 stream.batch_at(0).items()}
+        init = tstep.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                      "cpu")
+        fn = tstep.make_train_step(cfg, optim.AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=3), q_chunk=16,
+            microbatches=2)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            state = _tree.tree_map(lambda t: t.to(dev, copy=True), init)
+            state, m = fn(state, {k: v.to(dev) for k, v in batch.items()})
+            runs[dev] = (float(m["loss"]), [t.cpu() for t in
+                                            _tree.leaves(state.params)])
+        coss, card, cpu = [], [], []
+        for a, b, p in zip(runs["cuda"][1], runs["cpu"][1],
+                           _tree.leaves(init.params)):
+            da, db = (a - p).flatten(), (b - p).flatten()
+            coss.append(float(da @ db) / float(da.norm() * db.norm()))
+            card.append(da)
+            cpu.append(db)
+        card, cpu = torch.cat(card), torch.cat(cpu)
+        row = {"arch": cfg.name, "loss_cpu": runs["cpu"][0],
+               "loss_card": runs["cuda"][0],
+               "loss_rel_err": abs(runs["cuda"][0] - runs["cpu"][0])
+               / abs(runs["cpu"][0]),
+               "min_leaf_update_cos": min(coss),
+               "update_rel_err": float((card - cpu).norm() / cpu.norm())}
+        rows.append(row)
+        check(row["loss_rel_err"] <= TRAIN_LOSS_RTOL
+              and row["min_leaf_update_cos"] >= TRAIN_UPDATE_COS
+              and row["update_rel_err"] <= TRAIN_UPDATE_RTOL,
+              f"train_reduced_path: {arch} card vs CPU route: {row}")
+    record = {"phase": "train_reduced_path", "rows": rows,
+              "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
+                            "leaf_update_cos": TRAIN_UPDATE_COS,
+                            "update_rel": TRAIN_UPDATE_RTOL},
+              "resident_gib_before": base_gib}
+    emit(record)
+    return record
+
+
+def train_resume_path(torch) -> dict:
+    """``main`` at ``RESUME_ARCH``'s reduced config on the card, in a temp
+    dir: 6 steps with a checkpoint every 3; the same 6 steps preempted
+    after step 3 (SIGTERM sent by the process itself while the stream
+    draws step 3's batch), then resumed from that checkpoint to 6.  The
+    two step-6 checkpoints are equal bit for bit."""
+    import os
+    import signal
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train
+    base_gib = _free(torch)
+    argv = ["--arch", RESUME_ARCH, "--reduced", "--steps", "6", "--batch",
+            "4", "--seq", "64", "--microbatches", "2", "--ckpt-every", "3"]
+
+    class Preempted(train.TokenStream):
+        def batch_at(self, step):
+            if step == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return super().batch_at(step)
+
+    def ckpt(d):
+        step = os.path.join(d, "step_0000000006")
+        with open(os.path.join(step, "manifest.json")) as f:
+            man = json.load(f)["leaves"]
+        return [(m["name"], np.load(os.path.join(step, m["file"])))
+                for m in man]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+        train.main(argv + ["--ckpt-dir", full])
+        real_stream = train.TokenStream
+        train.TokenStream = Preempted
+        try:
+            stopped = train.main(argv + ["--ckpt-dir", part])
+        finally:
+            train.TokenStream = real_stream
+        stopped_at = int(stopped.step)
+        check(stopped_at == 3 and train.latest_step(part) == 3,
+              f"train_resume_path: preempted after step 3 ({stopped_at})")
+        train.main(argv + ["--ckpt-dir", part])
+        a, b = ckpt(full), ckpt(part)
+        differ = [n for (n, x), (_, y) in zip(a, b)
+                  if x.dtype != y.dtype or not np.array_equal(x, y)]
+        same_names = [n for n, _ in a] == [n for n, _ in b]
+    record = {"phase": "train_resume_path", "arch": RESUME_ARCH,
+              "reduced_config": True, "argv": argv, "stopped_at": stopped_at,
+              "leaves": len(a), "leaves_differing": differ,
+              "resident_gib_before": base_gib}
+    check(same_names and not differ, f"train_resume_path: the resumed run's "
+          f"step-6 checkpoint equals the uninterrupted run's: {record}")
+    emit(record)
+    return record
+
+
 def small_sequential_reference(torch, arch) -> dict:
     """The family's reduced config with weights made on the CPU and
     carried to the card: a 12-token prompt through ``serve_step`` one
@@ -3389,17 +3803,20 @@ def _errors(torch, got, want):
 
 def _device_ms(torch, launch_fn, name):
     """``launch_fn``'s own device time under ``torch.profiler``: the mean
-    over the kernels it records of ``REPS`` launches (it may miss one; a
-    window with no record at all is profiled again, ``PROFILE_ATTEMPTS``
-    times at most), the kernels seen and the profiles taken."""
+    over the kernels it records of ``PROFILE_LAUNCHES`` launches (it may
+    miss the first few; a window with no record at all is profiled again,
+    ``PROFILE_ATTEMPTS`` times at most), the kernels seen and the profiles
+    taken."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        prof = _profile(torch, lambda: [launch_fn() for _ in range(REPS)])
+        prof = _profile(torch, lambda: [launch_fn()
+                                        for _ in range(PROFILE_LAUNCHES)])
         _windows.append((prof["kernels"], prof["launch_to_kernel_ms"]))
         if prof["kernels"]:
             break
     n_seen = prof["kernels"]
-    check(1 <= n_seen <= REPS, f"{name}: {n_seen} kernels under the "
-          f"profiler for {REPS} launches ({attempt} profiles)")
+    check(1 <= n_seen <= PROFILE_LAUNCHES, f"{name}: {n_seen} kernels under "
+          f"the profiler for {PROFILE_LAUNCHES} launches ({attempt} "
+          "profiles)")
     return prof["device_busy_ms"] / n_seen, n_seen, attempt
 
 
@@ -3413,11 +3830,11 @@ def kernel_row(torch, launches, rows, name, shapes, kernel_fn, plain_fn,
     only; ``exact``: the outputs must be identical (max abs error 0);
     ``extra``: more fields of the record (a redesigned row's earlier
     form); ``profiled``: also ``device_ms``, the launch's own device time under
-    ``torch.profiler`` (the mean over the kernels it records of ``REPS``
-    launches: it may miss one; a window with no record at all is profiled
-    again, ``PROFILE_ATTEMPTS`` times at most, counted in
-    ``device_ms_profiles``), for launches near the host's launch overhead,
-    whose ``ms`` may read that overhead."""
+    ``torch.profiler`` (the mean over the kernels it records of
+    ``PROFILE_LAUNCHES`` launches: it may miss some; a window with no
+    record at all is profiled again, ``PROFILE_ATTEMPTS`` times at most,
+    counted in ``device_ms_profiles``), for launches near the host's
+    launch overhead, whose ``ms`` may read that overhead."""
     got = kernel_fn()
     torch.cuda.synchronize()
     want, plain_ms = _sync_ms(torch, plain_fn)

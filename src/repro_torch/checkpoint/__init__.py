@@ -1,1 +1,2 @@
-"""Persistence helpers of the port (atomic directories)."""
+"""Checkpoints of the port: the atomic-directory protocol and trees of
+tensors saved, restored and written in the background."""

@@ -1,24 +1,59 @@
-"""The atomic-directory protocol of the checkpoint layer (the helpers of
-:mod:`repro.checkpoint.ckpt`, which need no JAX), used by the streaming
-index's snapshots.  The pytree ``save``/``restore``/``AsyncCheckpointer``
-of the reference come with training.
+"""Fault-tolerant checkpointing (counterpart of :mod:`repro.checkpoint.ckpt`).
+
+* atomic step directories (write to ``.tmp-<name>``, fsync, rename): a
+  crash mid-write never corrupts the latest checkpoint;
+* ``keep_last`` garbage collection;
+* an async writer thread (:class:`AsyncCheckpointer`): the train step
+  never waits on storage;
+* leaves stored whole, one ``.npy`` file each, named by their field path,
+  with a JSON manifest.
+
+Trees are the port's: nested NamedTuples, tuples and dicts of tensors
+(:mod:`repro_torch._tree`; ``None`` fields are no leaves).  numpy has no
+bfloat16 without ``ml_dtypes``, so a bf16 leaf is stored as its 16 bits
+(``uint16``) with ``"bfloat16"`` in the manifest.  The port's checkpoints
+are its own: the reference stacks its layers, the port does not.
+
+The atomic-directory helpers are shared with the streaming index's
+snapshots (:mod:`repro_torch.index.snapshot`).
+
+>>> import tempfile, torch
+>>> d = tempfile.mkdtemp()
+>>> tree = {"w": torch.arange(6.0).reshape(2, 3).bfloat16(),
+...         "step": torch.tensor(7, dtype=torch.int32)}
+>>> _ = save(d, 7, tree)
+>>> latest_step(d)
+7
+>>> back = restore(d, 7, {"w": torch.zeros(2, 3, dtype=torch.bfloat16),
+...                       "step": torch.tensor(0, dtype=torch.int32)})
+>>> torch.equal(back["w"], tree["w"]), int(back["step"])
+(True, 7)
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
-from typing import Optional
+import threading
+from typing import Any, Optional
 
-__all__ = ["begin_atomic_dir", "write_manifest", "commit_atomic_dir",
+import numpy as np
+import torch
+
+from .._device import DeviceArg, resolve_device
+from .._tree import leaves_with_paths, path_name, tree_map, unflatten
+
+__all__ = ["save", "restore", "latest_step", "AsyncCheckpointer",
+           "begin_atomic_dir", "write_manifest", "commit_atomic_dir",
            "latest_numbered_dir", "gc_numbered_dirs", "MANIFEST"]
 
 MANIFEST = "manifest.json"
 
 
 # ---------------------------------------------------------------------------
-# Atomic-directory protocol (used by repro_torch.index.snapshot)
+# Atomic-directory protocol (shared with repro_torch.index.snapshot)
 #
 # Writers populate a ``.tmp-<name>`` staging directory, fsync a manifest as
 # the commit record, then rename over the final path (an existing version
@@ -118,3 +153,113 @@ def gc_numbered_dirs(directory: str, keep_last: int, prefix: str) -> None:
     dirs = sorted(d for d in os.listdir(directory) if d.startswith(prefix))
     for d in dirs[:-keep_last] if keep_last > 0 else []:
         shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors
+# ---------------------------------------------------------------------------
+
+def _to_numpy(t: torch.Tensor):
+    """A host tensor -> (numpy array, manifest dtype); bf16 as its bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), str(t.dtype).replace("torch.", "")
+
+
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the host, detached (a copy even for a CPU
+    tensor, so that a later in-place update cannot reach it)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def save(directory: str, step: int, tree: Any, keep_last: int = 3) -> str:
+    """Atomically persist ``tree`` under ``directory/step_<step>``."""
+    name = f"step_{step:010d}"
+    tmp = begin_atomic_dir(directory, name)
+    manifest = {"step": step, "leaves": []}
+    for path, leaf in leaves_with_paths(tree):
+        leaf_name = path_name(path)
+        arr, dtype = _to_numpy(leaf.detach().cpu())
+        fn = f"{len(manifest['leaves']):05d}_{leaf_name[:80]}.npy"
+        np.save(os.path.join(tmp, fn), arr)
+        manifest["leaves"].append({"file": fn, "name": leaf_name,
+                                   "shape": list(arr.shape), "dtype": dtype})
+    write_manifest(tmp, manifest)
+    final = commit_atomic_dir(tmp, directory, name)
+    gc_numbered_dirs(directory, keep_last, "step_")
+    return final
+
+
+def latest_step(directory: str) -> Optional[int]:
+    return latest_numbered_dir(directory, "step_")
+
+
+def restore(directory: str, step: int, like: Any,
+            device: DeviceArg = None) -> Any:
+    """Load step ``step`` into the structure of ``like``: each leaf in its
+    ``like`` leaf's dtype, on that leaf's device (or on ``device``, when
+    given).  ``ValueError`` when the leaf counts differ."""
+    d = os.path.join(directory, f"step_{step:010d}")
+    with open(os.path.join(d, MANIFEST)) as f:
+        manifest = json.load(f)
+    flat = leaves_with_paths(like)
+    if len(flat) != len(manifest["leaves"]):
+        raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
+                         f"the tree expects {len(flat)}")
+    dev = None if device is None else resolve_device(device)
+    out = []
+    for meta, (_, ref) in zip(manifest["leaves"], flat):
+        t = _from_numpy(np.load(os.path.join(d, meta["file"])),
+                        meta["dtype"])
+        out.append(t.to(device=ref.device if dev is None else dev,
+                        dtype=ref.dtype))
+    return unflatten(like, out)
+
+
+class AsyncCheckpointer:
+    """Background writer: ``submit`` copies the tree to the host and
+    returns; ``wait`` blocks until every submitted tree is on disk."""
+
+    def __init__(self, directory: str, keep_last: int = 3):
+        self.directory = directory
+        self.keep_last = keep_last
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, tree = item
+            try:
+                save(self.directory, step, tree, self.keep_last)
+            except Exception as e:        # surfaced on the next submit/wait
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, step: int, tree: Any) -> None:
+        if self._err:
+            raise self._err
+        # the host copy is taken now: the train step updates the live
+        # tensors in place
+        self._q.put((step, tree_map(_host, tree)))
+
+    def wait(self) -> None:
+        self._q.join()
+        if self._err:
+            raise self._err
+
+    def close(self) -> None:
+        self.wait()
+        self._q.put(None)
+        self._thread.join(timeout=10)

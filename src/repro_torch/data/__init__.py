@@ -1,1 +1,2 @@
-"""Synthetic datasets (numpy only), a copy of :mod:`repro.data.timeseries`."""
+"""Synthetic datasets (numpy only): copies of :mod:`repro.data.timeseries`
+and :mod:`repro.data.tokens`."""

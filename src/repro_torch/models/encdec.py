@@ -7,7 +7,9 @@ decoder blocks add cross-attention to the encoder's output.
 Cross-attention queries use position-0 rope tables (the identity
 rotation), and the cross keys and values take no rope.  The layers are a
 Python loop over flat tuples of per-layer parameters (the reference scans
-over stacked ones).
+over stacked ones); under autograd ``remat=True`` recomputes one encoder
+or decoder layer at a time in the backward pass, as the reference's
+``jax.checkpoint`` on its scanned bodies.
 
 >>> import torch
 >>> from repro_torch.configs.registry import get_reduced
@@ -30,7 +32,8 @@ import torch
 from .._device import DeviceArg, resolve_device
 from .config import ModelConfig
 from .layers import (BF16, AttnParams, MlpParams, _dot, attention, init_attn,
-                     init_mlp, mlp, normal_weight, rms_norm, rotary)
+                     init_mlp, mlp, normal_weight, remat_call, rms_norm,
+                     rotary)
 from .lm import (_take, _weight, attn_from_numpy, embed_tokens,
                  logits_from_hidden, mlp_from_numpy)
 
@@ -66,63 +69,72 @@ class EncDecParams(NamedTuple):
 
 
 def init_params_encdec(cfg: ModelConfig, generator: torch.Generator,
-                       device: DeviceArg = None) -> EncDecParams:
+                       device: DeviceArg = None,
+                       dtype: torch.dtype = BF16) -> EncDecParams:
     """Random parameters (reference scale: ``N(0, 0.02)`` weights, zero
-    norm scales), weights stored in bf16 on ``device``."""
+    norm scales), weights and norm scales stored in ``dtype`` on
+    ``device`` (bf16, or ``torch.float32`` for training masters)."""
     dev = resolve_device(device)
     d, Vp = cfg.d_model, cfg.padded_vocab
 
     def zeros():
-        return torch.zeros(d, dtype=BF16, device=dev)
+        return torch.zeros(d, dtype=dtype, device=dev)
+
+    def attn():
+        return init_attn(generator, cfg, dev, dtype)
+
+    def ff():
+        return init_mlp(generator, d, cfg.d_ff, dev, dtype)
 
     def enc():
-        return EncBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
-                        ln2=zeros(), mlp=init_mlp(generator, d, cfg.d_ff, dev))
+        return EncBlock(ln1=zeros(), attn=attn(), ln2=zeros(), mlp=ff())
 
     def dec():
-        return DecBlock(ln1=zeros(), self_attn=init_attn(generator, cfg, dev),
-                        ln_x=zeros(), cross_attn=init_attn(generator, cfg, dev),
-                        ln2=zeros(), mlp=init_mlp(generator, d, cfg.d_ff, dev))
+        return DecBlock(ln1=zeros(), self_attn=attn(), ln_x=zeros(),
+                        cross_attn=attn(), ln2=zeros(), mlp=ff())
 
     enc_blocks = tuple(enc() for _ in range(cfg.n_enc_layers))
     dec_blocks = tuple(dec() for _ in range(cfg.n_layers))
     return EncDecParams(
-        embed=normal_weight(generator, (Vp, d), dev),
-        frame_proj=normal_weight(generator, (d, d), dev),
+        embed=normal_weight(generator, (Vp, d), dev, dtype),
+        frame_proj=normal_weight(generator, (d, d), dev, dtype),
         enc_blocks=enc_blocks, enc_norm=zeros(), dec_blocks=dec_blocks,
-        final_norm=zeros(), lm_head=normal_weight(generator, (Vp, d), dev))
+        final_norm=zeros(),
+        lm_head=normal_weight(generator, (Vp, d), dev, dtype))
 
 
 def encdec_params_from_numpy(params, cfg: ModelConfig,
-                             device: DeviceArg = None) -> EncDecParams:
+                             device: DeviceArg = None,
+                             dtype: torch.dtype = BF16) -> EncDecParams:
     """The reference's ``EncDecParams`` as numpy arrays -> the port's: its
     ``enc_blocks`` / ``dec_blocks`` stacked along a leading layer axis,
-    read by attribute name.  Weights and norm scales in bf16, biases in
-    float32 (as ``lm.params_from_numpy``)."""
+    read by attribute name.  Weights and norm scales in ``dtype`` (bf16,
+    or float32 for training masters), biases in float32 (as
+    ``lm.params_from_numpy``)."""
     dev = resolve_device(device)
+
+    def w(a):
+        return _weight(a, dev, dtype)
 
     def enc(i):
         b = _take(params.enc_blocks, i)
-        return EncBlock(ln1=_weight(b.ln1, dev),
-                        attn=attn_from_numpy(b.attn, dev),
-                        ln2=_weight(b.ln2, dev), mlp=mlp_from_numpy(b.mlp, dev))
+        return EncBlock(ln1=w(b.ln1), attn=attn_from_numpy(b.attn, dev, dtype),
+                        ln2=w(b.ln2), mlp=mlp_from_numpy(b.mlp, dev, dtype))
 
     def dec(i):
         b = _take(params.dec_blocks, i)
-        return DecBlock(ln1=_weight(b.ln1, dev),
-                        self_attn=attn_from_numpy(b.self_attn, dev),
-                        ln_x=_weight(b.ln_x, dev),
-                        cross_attn=attn_from_numpy(b.cross_attn, dev),
-                        ln2=_weight(b.ln2, dev), mlp=mlp_from_numpy(b.mlp, dev))
+        return DecBlock(ln1=w(b.ln1),
+                        self_attn=attn_from_numpy(b.self_attn, dev, dtype),
+                        ln_x=w(b.ln_x),
+                        cross_attn=attn_from_numpy(b.cross_attn, dev, dtype),
+                        ln2=w(b.ln2), mlp=mlp_from_numpy(b.mlp, dev, dtype))
 
     return EncDecParams(
-        embed=_weight(params.embed, dev),
-        frame_proj=_weight(params.frame_proj, dev),
+        embed=w(params.embed), frame_proj=w(params.frame_proj),
         enc_blocks=tuple(enc(i) for i in range(cfg.n_enc_layers)),
-        enc_norm=_weight(params.enc_norm, dev),
+        enc_norm=w(params.enc_norm),
         dec_blocks=tuple(dec(i) for i in range(cfg.n_layers)),
-        final_norm=_weight(params.final_norm, dev),
-        lm_head=_weight(params.lm_head, dev))
+        final_norm=w(params.final_norm), lm_head=w(params.lm_head))
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -130,8 +142,8 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def encode_frames(params: EncDecParams, cfg: ModelConfig,
-                  frames: torch.Tensor, *, q_chunk: int = 512
-                  ) -> torch.Tensor:
+                  frames: torch.Tensor, *, q_chunk: int = 512,
+                  remat: bool = True) -> torch.Tensor:
     """Bidirectional encoder over frontend-stub frames ``(B, Sf, d)``:
     the frame projection (one bf16 product), the encoder blocks, then
     ``enc_norm``.  Returns bf16 ``(B, Sf, d)``."""
@@ -139,11 +151,18 @@ def encode_frames(params: EncDecParams, cfg: ModelConfig,
     B, Sf, _ = x.shape
     positions = _positions(B, Sf, x.device)
     cos_sin = rotary(positions, cfg.head_dim_, cfg.rope_theta)
+
+    def body(blk):
+        def run(h):
+            h = h + attention(blk.attn, cfg,
+                              rms_norm(h, blk.ln1, cfg.norm_eps), positions,
+                              causal=False, q_chunk=q_chunk, cos_sin=cos_sin)
+            return h + mlp(blk.mlp, rms_norm(h, blk.ln2, cfg.norm_eps),
+                           cfg.act)
+        return run
+
     for blk in params.enc_blocks:
-        x = x + attention(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
-                          positions, causal=False, q_chunk=q_chunk,
-                          cos_sin=cos_sin)
-        x = x + mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps), cfg.act)
+        x = remat_call(body(blk), x, remat)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -166,12 +185,13 @@ def zero_cos_sin(cfg: ModelConfig, B: int, S: int, device):
 
 
 def forward_encdec(params: EncDecParams, cfg: ModelConfig, batch, *,
-                   q_chunk: int = 512,
+                   q_chunk: int = 512, remat: bool = True,
                    return_hidden: bool = False) -> torch.Tensor:
     """``batch = {"frames": (B, Sf, d), "tokens": (B, S)}`` -> logits
     ``(B, S, padded_vocab)`` float32 (the final hidden states with
-    ``return_hidden``)."""
-    enc_out = encode_frames(params, cfg, batch["frames"], q_chunk=q_chunk)
+    ``return_hidden``).  ``remat`` as :func:`encode_frames`'s."""
+    enc_out = encode_frames(params, cfg, batch["frames"], q_chunk=q_chunk,
+                            remat=remat)
     B, Sf, _ = enc_out.shape
     x = embed_tokens(params, cfg, batch["tokens"])
     S = x.shape[1]
@@ -180,16 +200,22 @@ def forward_encdec(params: EncDecParams, cfg: ModelConfig, batch, *,
     zero_pos = torch.zeros_like(positions)
     zeros = zero_cos_sin(cfg, B, S, x.device)
     kv_mask = torch.ones((B, Sf), dtype=torch.bool, device=x.device)
+    def body(blk):
+        def run(h):
+            h = h + attention(blk.self_attn, cfg,
+                              rms_norm(h, blk.ln1, cfg.norm_eps), positions,
+                              q_chunk=q_chunk, cos_sin=cos_sin)
+            k, v = cross_kv(blk.cross_attn, cfg, enc_out)
+            h = h + attention(blk.cross_attn, cfg,
+                              rms_norm(h, blk.ln_x, cfg.norm_eps), zero_pos,
+                              causal=False, q_chunk=q_chunk, cos_sin=zeros,
+                              kv=(k, v), kv_mask=kv_mask)
+            return h + mlp(blk.mlp, rms_norm(h, blk.ln2, cfg.norm_eps),
+                           cfg.act)
+        return run
+
     for blk in params.dec_blocks:
-        x = x + attention(blk.self_attn, cfg,
-                          rms_norm(x, blk.ln1, cfg.norm_eps), positions,
-                          q_chunk=q_chunk, cos_sin=cos_sin)
-        k, v = cross_kv(blk.cross_attn, cfg, enc_out)
-        x = x + attention(blk.cross_attn, cfg,
-                          rms_norm(x, blk.ln_x, cfg.norm_eps), zero_pos,
-                          causal=False, q_chunk=q_chunk, cos_sin=zeros,
-                          kv=(k, v), kv_mask=kv_mask)
-        x = x + mlp(blk.mlp, rms_norm(x, blk.ln2, cfg.norm_eps), cfg.act)
+        x = remat_call(body(blk), x, remat)
     if return_hidden:
         return x
     return logits_from_hidden(params, cfg, x)

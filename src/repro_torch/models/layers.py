@@ -34,7 +34,12 @@ port is held to:
 Parameters are NamedTuples of tensors with the reference's field names;
 weight matrices and norm scales may be stored in bf16 (every use in the
 reference casts them to bf16 first), biases stay float32 (the reference
-adds them in float32).  Attention activations keep the GQA layout
+adds them in float32).  Training passes the bf16 copy of its float32
+masters that the reference's train step makes (biases included), and
+differentiates through these functions: each in-place write here
+(``masked_fill_`` on fresh scores, the routing matrix's ``scatter_``,
+the combine's ``index_add_`` into fresh zeros) leaves autograd the
+reference's gradient.  Attention activations keep the GQA layout
 ``(B, S, G, R, hd)``.  The sharding hints of the reference have no
 counterpart on one card.
 """
@@ -45,16 +50,28 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 
 __all__ = ["rms_norm", "softcap", "rotary", "apply_rope", "mrope_positions",
            "AttnParams", "init_attn", "attention", "attention_decode",
            "MlpParams", "init_mlp", "mlp", "MoeParams", "init_moe", "moe",
-           "moe_capacity", "top_k", "normal_weight"]
+           "moe_capacity", "top_k", "normal_weight", "remat_call"]
 
 _NEG_INF = -2.0e38
 BF16 = torch.bfloat16
+
+
+def remat_call(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``fn(x)``; with ``remat`` and a graph to record (``x`` requires
+    grad), under ``torch.utils.checkpoint`` (non-reentrant), so only ``x``
+    is kept for the backward pass and ``fn`` runs again there (the
+    reference's ``jax.checkpoint`` on its scanned bodies).  Serving, whose
+    activations need no grad, calls ``fn`` as it is."""
+    if remat and x.requires_grad:
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +192,7 @@ def normal_weight(generator: torch.Generator, shape, device: torch.device,
 
 
 def init_attn(generator: torch.Generator, cfg: ModelConfig,
-              device: torch.device) -> AttnParams:
+              device: torch.device, dtype: torch.dtype = BF16) -> AttnParams:
     d = cfg.d_model
     hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
 
@@ -184,10 +201,10 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig,
                 if cfg.qkv_bias else None)
 
     return AttnParams(
-        wq=normal_weight(generator, (d, H * hd), device),
-        wk=normal_weight(generator, (d, G * hd), device),
-        wv=normal_weight(generator, (d, G * hd), device),
-        wo=normal_weight(generator, (H * hd, d), device),
+        wq=normal_weight(generator, (d, H * hd), device, dtype),
+        wk=normal_weight(generator, (d, G * hd), device, dtype),
+        wv=normal_weight(generator, (d, G * hd), device, dtype),
+        wo=normal_weight(generator, (H * hd, d), device, dtype),
         bq=bias(H * hd), bk=bias(G * hd), bv=bias(G * hd))
 
 
@@ -203,18 +220,43 @@ def _dot(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)`` of bf16 ``x (n, d)`` and ``w
+    (d, e)`` with the reference's gradient (cuBLAS has no derivative for
+    that overload).  The reference's transpose of a ``preferred_element_
+    type=float32`` product contracts the float32 cotangent with the other
+    bf16 operand in float32 and rounds the result to the operand's bf16;
+    so does this backward (TF32 is off: full float32 products)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w.float().T).to(BF16)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x.float().T, g).to(BF16)
+        return gx, gw
+
+
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 product with a float32 result (the reference's
     ``preferred_element_type=float32``, as its SSM projections take it):
     ``x (..., d) @ w (d, e)``, no rounding to bf16.  On the card a cuBLAS
     bf16 GEMM writes float32 (``torch.mm(..., out_dtype=float32)``, no
-    float32 copy of the weights).  On the CPU, whose ``matmul`` of bf16
-    tensors returns bf16, the bf16-rounded operands are upcast and
-    multiplied in float32; TF32 is off, so those products are exact."""
+    float32 copy of the weights; :class:`_MmF32` gives it the reference's
+    gradient).  On the CPU, whose ``matmul`` of bf16 tensors returns bf16,
+    the bf16-rounded operands are upcast and multiplied in float32; TF32
+    is off, so those products are exact, and autograd's gradient of that
+    form is the reference's too."""
     xb, wb = x.to(BF16), w.to(BF16)
     if xb.is_cuda:
-        y = torch.mm(xb.reshape(-1, xb.shape[-1]), wb,
-                     out_dtype=torch.float32)
+        y = _MmF32.apply(xb.reshape(-1, xb.shape[-1]), wb)
         return y.reshape(*xb.shape[:-1], wb.shape[-1])
     return torch.matmul(xb.float(), wb.float())
 
@@ -341,10 +383,10 @@ class MlpParams(NamedTuple):
 
 
 def init_mlp(generator: torch.Generator, d: int, f: int,
-             device: torch.device) -> MlpParams:
-    return MlpParams(w_gate=normal_weight(generator, (d, f), device),
-                     w_up=normal_weight(generator, (d, f), device),
-                     w_down=normal_weight(generator, (f, d), device))
+             device: torch.device, dtype: torch.dtype = BF16) -> MlpParams:
+    return MlpParams(w_gate=normal_weight(generator, (d, f), device, dtype),
+                     w_up=normal_weight(generator, (d, f), device, dtype),
+                     w_down=normal_weight(generator, (f, d), device, dtype))
 
 
 def mlp(p: MlpParams, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -366,15 +408,16 @@ class MoeParams(NamedTuple):
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig,
-             device: torch.device) -> MoeParams:
+             device: torch.device, dtype: torch.dtype = BF16) -> MoeParams:
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-    shared = (init_mlp(generator, d, f * cfg.n_shared_experts, device)
+    shared = (init_mlp(generator, d, f * cfg.n_shared_experts, device, dtype)
               if cfg.n_shared_experts else None)
-    return MoeParams(router=normal_weight(generator, (d, E), device),
-                     we_gate=normal_weight(generator, (E, d, f), device),
-                     we_up=normal_weight(generator, (E, d, f), device),
-                     we_down=normal_weight(generator, (E, f, d), device),
-                     shared=shared)
+
+    def w(*shape):
+        return normal_weight(generator, shape, device, dtype)
+
+    return MoeParams(router=w(d, E), we_gate=w(E, d, f), we_up=w(E, d, f),
+                     we_down=w(E, f, d), shared=shared)
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -16,8 +16,11 @@ vlm     the dense backbone, a patch projection written over the first
 
 The layers are a Python loop over a flat tuple of per-layer parameters
 (the reference scans over stacked ones, gemma2's as ``(L/2, 2)`` pairs,
-the hybrid's as ``(L / attn_every, attn_every)`` groups).  The
-encoder-decoder lives in :mod:`repro_torch.models.encdec`.
+the hybrid's as ``(L / attn_every, attn_every)`` groups).  Under
+autograd, ``forward(remat=True)`` recomputes in the backward pass what
+the reference's ``jax.checkpoint`` does: one scanned body at a time
+(:func:`layer_groups`).  The encoder-decoder lives in
+:mod:`repro_torch.models.encdec`.
 
 Randomness: ``init_params`` draws with a ``torch.Generator``, whose numbers
 are not ``jax.random``'s; ``params_from_numpy`` carries the reference's
@@ -36,12 +39,13 @@ from .config import ModelConfig
 from .layers import (BF16, AttnParams, MlpParams, MoeParams, _dot,
                      _mrope_tables, attention, init_attn, init_mlp,
                      init_moe, mlp, moe, mrope_positions, normal_weight,
-                     rms_norm, rotary, softcap)
+                     remat_call, rms_norm, rotary, softcap)
 from .ssm import SsmParams, init_ssm, ssd_forward
 
 __all__ = ["DenseBlock", "MoeBlock", "SsmBlock", "LmParams", "FAMILIES",
            "KV_FAMILIES", "check_supported", "check_kv_family",
            "init_params", "params_from_numpy", "layer_window", "shared_slot",
+           "layer_groups",
            "embed_tokens", "embed_batch", "logits_from_hidden",
            "block_apply", "ssm_block_apply", "forward"]
 
@@ -121,50 +125,58 @@ def layer_window(cfg: ModelConfig, layer: int) -> int:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceArg = None) -> LmParams:
+                device: DeviceArg = None,
+                dtype: torch.dtype = BF16) -> LmParams:
     """Random parameters (reference scale: ``N(0, 0.02)`` weights, zero
-    norm scales), weights stored in bf16 on ``device`` (the SSM blocks'
-    float32 leaves in float32: :func:`~repro_torch.models.ssm.init_ssm`).
-    ``ValueError`` for encdec, as the reference's."""
+    norm scales), weights and norm scales stored in ``dtype`` on
+    ``device``: bf16 for serving, ``torch.float32`` for the reference's
+    training masters (the SSM blocks' float32 leaves are float32 either
+    way: :func:`~repro_torch.models.ssm.init_ssm`).  ``ValueError`` for
+    encdec, as the reference's."""
     check_supported(cfg)
     dev = resolve_device(device)
     d = cfg.d_model
 
     def zeros():
-        return torch.zeros(d, dtype=BF16, device=dev)
+        return torch.zeros(d, dtype=dtype, device=dev)
 
     def dense(sandwich):
-        return DenseBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
+        return DenseBlock(ln1=zeros(),
+                          attn=init_attn(generator, cfg, dev, dtype),
                           post_attn_ln=zeros() if sandwich else None,
                           ln2=zeros(),
-                          mlp=init_mlp(generator, d, cfg.d_ff, dev),
+                          mlp=init_mlp(generator, d, cfg.d_ff, dev, dtype),
                           post_mlp_ln=zeros() if sandwich else None)
 
     def block():
         if cfg.family == "moe":
-            return MoeBlock(ln1=zeros(), attn=init_attn(generator, cfg, dev),
-                            ln2=zeros(), moe=init_moe(generator, cfg, dev))
+            return MoeBlock(ln1=zeros(),
+                            attn=init_attn(generator, cfg, dev, dtype),
+                            ln2=zeros(),
+                            moe=init_moe(generator, cfg, dev, dtype))
         if cfg.family in ("ssm", "hybrid"):
-            return SsmBlock(ln=zeros(), ssm=init_ssm(generator, cfg, dev))
+            return SsmBlock(ln=zeros(),
+                            ssm=init_ssm(generator, cfg, dev, dtype))
         return dense(cfg.local_global)
+
+    def w(*shape):
+        return normal_weight(generator, shape, dev, dtype)
 
     blocks = tuple(block() for _ in range(cfg.n_layers))
     shared_attn = dense(False) if cfg.family == "hybrid" else None
-    embed = normal_weight(generator, (cfg.padded_vocab, d), dev)
-    lm_head = (None if cfg.tie_embeddings else
-               normal_weight(generator, (cfg.padded_vocab, d), dev))
-    patch_proj = (normal_weight(generator, (d, d), dev)
-                  if cfg.family == "vlm" else None)
+    embed = w(cfg.padded_vocab, d)
+    lm_head = None if cfg.tie_embeddings else w(cfg.padded_vocab, d)
+    patch_proj = w(d, d) if cfg.family == "vlm" else None
     return LmParams(embed=embed, blocks=blocks, final_norm=zeros(),
                     lm_head=lm_head, patch_proj=patch_proj,
                     shared_attn=shared_attn)
 
 
-def _weight(a, dev) -> Optional[torch.Tensor]:
-    """A numpy weight stored in bf16 (the reference rounds it to bf16 at
-    every use)."""
+def _weight(a, dev, dtype: torch.dtype = BF16) -> Optional[torch.Tensor]:
+    """A numpy weight stored in ``dtype``: bf16 (the reference rounds it
+    to bf16 at every use), or float32 for training masters."""
     return (None if a is None else
-            torch.from_numpy(np.array(a, np.float32)).to(dev, BF16))
+            torch.from_numpy(np.array(a, np.float32)).to(dev, dtype))
 
 
 def _f32(a, dev) -> Optional[torch.Tensor]:
@@ -174,36 +186,42 @@ def _f32(a, dev) -> Optional[torch.Tensor]:
             torch.from_numpy(np.array(a, np.float32)).to(dev))
 
 
-def attn_from_numpy(at, dev) -> AttnParams:
+def attn_from_numpy(at, dev, dtype: torch.dtype = BF16) -> AttnParams:
     """One layer's ``AttnParams`` fields (numpy) -> the port's."""
-    return AttnParams(wq=_weight(at.wq, dev), wk=_weight(at.wk, dev),
-                      wv=_weight(at.wv, dev), wo=_weight(at.wo, dev),
+    return AttnParams(wq=_weight(at.wq, dev, dtype),
+                      wk=_weight(at.wk, dev, dtype),
+                      wv=_weight(at.wv, dev, dtype),
+                      wo=_weight(at.wo, dev, dtype),
                       bq=_f32(at.bq, dev), bk=_f32(at.bk, dev),
                       bv=_f32(at.bv, dev))
 
 
-def mlp_from_numpy(ml, dev) -> MlpParams:
-    return MlpParams(w_gate=_weight(ml.w_gate, dev),
-                     w_up=_weight(ml.w_up, dev),
-                     w_down=_weight(ml.w_down, dev))
+def mlp_from_numpy(ml, dev, dtype: torch.dtype = BF16) -> MlpParams:
+    return MlpParams(w_gate=_weight(ml.w_gate, dev, dtype),
+                     w_up=_weight(ml.w_up, dev, dtype),
+                     w_down=_weight(ml.w_down, dev, dtype))
 
 
-def _dense_from_numpy(blk, dev) -> DenseBlock:
+def _dense_from_numpy(blk, dev, dtype: torch.dtype = BF16) -> DenseBlock:
     """One (unstacked) ``DenseBlock``'s fields (numpy) -> the port's."""
     return DenseBlock(
-        ln1=_weight(blk.ln1, dev), attn=attn_from_numpy(blk.attn, dev),
-        post_attn_ln=_weight(getattr(blk, "post_attn_ln", None), dev),
-        ln2=_weight(blk.ln2, dev), mlp=mlp_from_numpy(blk.mlp, dev),
-        post_mlp_ln=_weight(getattr(blk, "post_mlp_ln", None), dev))
+        ln1=_weight(blk.ln1, dev, dtype),
+        attn=attn_from_numpy(blk.attn, dev, dtype),
+        post_attn_ln=_weight(getattr(blk, "post_attn_ln", None), dev, dtype),
+        ln2=_weight(blk.ln2, dev, dtype),
+        mlp=mlp_from_numpy(blk.mlp, dev, dtype),
+        post_mlp_ln=_weight(getattr(blk, "post_mlp_ln", None), dev, dtype))
 
 
-def _ssm_from_numpy(s, dev) -> SsmParams:
+def _ssm_from_numpy(s, dev, dtype: torch.dtype = BF16) -> SsmParams:
     """One layer's ``SsmParams`` fields (numpy): the projections, ``norm``
-    and ``out_proj`` in bf16, the float32 leaves in float32."""
+    and ``out_proj`` in ``dtype``, the float32 leaves in float32."""
     f32 = ("conv_x", "conv_B", "conv_C", "conv_bx", "conv_bB", "conv_bC",
            "a_log", "d_skip", "dt_bias")
-    return SsmParams(**{name: (_f32 if name in f32 else _weight)(
-        getattr(s, name), dev) for name in SsmParams._fields})
+    return SsmParams(**{
+        name: (_f32(getattr(s, name), dev) if name in f32
+               else _weight(getattr(s, name), dev, dtype))
+        for name in SsmParams._fields})
 
 
 def _take(tree, index):
@@ -216,8 +234,8 @@ def _take(tree, index):
     return tree[index]
 
 
-def params_from_numpy(params, cfg: ModelConfig,
-                      device: DeviceArg = None) -> LmParams:
+def params_from_numpy(params, cfg: ModelConfig, device: DeviceArg = None,
+                      dtype: torch.dtype = BF16) -> LmParams:
     """The reference's parameters as numpy arrays -> the port's.
 
     ``params`` has the reference's ``LmParams`` fields (``embed``,
@@ -228,8 +246,9 @@ def params_from_numpy(params, cfg: ModelConfig,
     is pair ``j``'s ``i``-th), the hybrid's along ``(L / attn_every,
     attn_every)`` groups (layer ``i`` is group ``i // attn_every``'s
     ``i % attn_every``-th; ``shared_attn`` one unstacked ``DenseBlock``).
-    Weights and norm scales are stored in bf16 (the reference rounds them
-    to bf16 at every use), biases and the SSM's float32 leaves in
+    Weights and norm scales are stored in ``dtype``: bf16 (the reference
+    rounds them to bf16 at every use), or ``torch.float32`` to load the
+    reference's training masters; biases and the SSM's float32 leaves in
     float32."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -247,28 +266,29 @@ def params_from_numpy(params, cfg: ModelConfig,
         if cfg.family == "moe":
             mo = blk.moe
             blocks.append(MoeBlock(
-                ln1=_weight(blk.ln1, dev), attn=attn_from_numpy(blk.attn, dev),
-                ln2=_weight(blk.ln2, dev),
+                ln1=_weight(blk.ln1, dev, dtype),
+                attn=attn_from_numpy(blk.attn, dev, dtype),
+                ln2=_weight(blk.ln2, dev, dtype),
                 moe=MoeParams(
-                    router=_weight(mo.router, dev),
-                    we_gate=_weight(mo.we_gate, dev),
-                    we_up=_weight(mo.we_up, dev),
-                    we_down=_weight(mo.we_down, dev),
+                    router=_weight(mo.router, dev, dtype),
+                    we_gate=_weight(mo.we_gate, dev, dtype),
+                    we_up=_weight(mo.we_up, dev, dtype),
+                    we_down=_weight(mo.we_down, dev, dtype),
                     shared=(None if mo.shared is None
-                            else mlp_from_numpy(mo.shared, dev)))))
+                            else mlp_from_numpy(mo.shared, dev, dtype)))))
         elif cfg.family in ("ssm", "hybrid"):
-            blocks.append(SsmBlock(ln=_weight(blk.ln, dev),
-                                   ssm=_ssm_from_numpy(blk.ssm, dev)))
+            blocks.append(SsmBlock(ln=_weight(blk.ln, dev, dtype),
+                                   ssm=_ssm_from_numpy(blk.ssm, dev, dtype)))
         else:
-            blocks.append(_dense_from_numpy(blk, dev))
+            blocks.append(_dense_from_numpy(blk, dev, dtype))
     shared = getattr(params, "shared_attn", None)
     return LmParams(
-        embed=_weight(params.embed, dev), blocks=tuple(blocks),
-        final_norm=_weight(params.final_norm, dev),
-        lm_head=_weight(params.lm_head, dev),
-        patch_proj=_weight(getattr(params, "patch_proj", None), dev),
-        shared_attn=None if shared is None else _dense_from_numpy(shared,
-                                                                  dev))
+        embed=_weight(params.embed, dev, dtype), blocks=tuple(blocks),
+        final_norm=_weight(params.final_norm, dev, dtype),
+        lm_head=_weight(params.lm_head, dev, dtype),
+        patch_proj=_weight(getattr(params, "patch_proj", None), dev, dtype),
+        shared_attn=(None if shared is None
+                     else _dense_from_numpy(shared, dev, dtype)))
 
 
 def embed_tokens(params: LmParams, cfg: ModelConfig,
@@ -329,14 +349,28 @@ def logits_from_hidden(params, cfg: ModelConfig,
     return softcap(logits, cfg.final_softcap)
 
 
+def layer_groups(cfg: ModelConfig):
+    """The layers of each body the reference scans and checkpoints: one
+    layer, gemma2's local/global pair (its ``(L/2, 2)`` scan), or the
+    hybrid's group (the shared block with its ``attn_every`` SSM
+    layers)."""
+    size = (2 if cfg.local_global else
+            cfg.attn_every if cfg.family == "hybrid" else 1)
+    return [range(i, min(i + size, cfg.n_layers))
+            for i in range(0, cfg.n_layers, size)]
+
+
 def forward(params: LmParams, cfg: ModelConfig, batch, *,
-            q_chunk: int = 512, ssm_chunk: int = 128,
+            q_chunk: int = 512, remat: bool = True, ssm_chunk: int = 128,
             return_hidden: bool = False) -> torch.Tensor:
     """Token logits ``(B, S, padded_vocab)`` for ``batch = {"tokens": (B,
     S)[, "patches": (B, P, d)]}``; ``return_hidden=True`` returns the final
     hidden states.  A config with ``mrope`` takes M-RoPE positions whether
     or not patches are given, as the reference's ``forward`` does.
-    ``ssm_chunk`` is the SSD chunk of the ssm and hybrid families."""
+    ``ssm_chunk`` is the SSD chunk of the ssm and hybrid families.
+    ``remat``: under autograd, each of :func:`layer_groups` keeps only its
+    input and recomputes the rest in the backward pass (the same values
+    and gradients, bit for bit)."""
     check_supported(cfg)
     x = embed_batch(params, cfg, batch)
     B, S, _ = x.shape
@@ -356,13 +390,21 @@ def forward(params: LmParams, cfg: ModelConfig, batch, *,
         return lambda p, xn: attention(p, cfg, xn, positions, window=window,
                                        q_chunk=q_chunk, cos_sin=cos_sin)
 
-    for i, blk in enumerate(params.blocks):
-        if shared_slot(cfg, i) is not None:
-            x = block_apply(params.shared_attn, cfg, x, attend(0))
-        if isinstance(blk, SsmBlock):
-            x = ssm_block_apply(blk, cfg, x, chunk=ssm_chunk)
-        else:
-            x = block_apply(blk, cfg, x, attend(layer_window(cfg, i)))
+    def body(layers):
+        def run(h):
+            for i in layers:
+                if shared_slot(cfg, i) is not None:
+                    h = block_apply(params.shared_attn, cfg, h, attend(0))
+                blk = params.blocks[i]
+                if isinstance(blk, SsmBlock):
+                    h = ssm_block_apply(blk, cfg, h, chunk=ssm_chunk)
+                else:
+                    h = block_apply(blk, cfg, h, attend(layer_window(cfg, i)))
+            return h
+        return run
+
+    for layers in layer_groups(cfg):
+        x = remat_call(body(layers), x, remat)
     if return_hidden:
         return x
     return logits_from_hidden(params, cfg, x)

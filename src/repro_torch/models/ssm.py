@@ -73,16 +73,16 @@ class SsmParams(NamedTuple):
 
 
 def init_ssm(generator: torch.Generator, cfg: ModelConfig,
-             device: torch.device) -> SsmParams:
+             device: torch.device, dtype: torch.dtype = BF16) -> SsmParams:
     """Random parameters at the reference's scale: ``N(0, 0.02)``
-    projections (bf16) and convolutions (float32), zero conv biases and
-    norm, ``a_log = log(linspace(1, 16, H))``, ``d_skip = 1``, ``dt_bias =
-    -2``."""
+    projections (``dtype``: bf16, or float32 masters for training) and
+    convolutions (float32), zero conv biases and norm, ``a_log =
+    log(linspace(1, 16, H))``, ``d_skip = 1``, ``dt_bias = -2``."""
     d, din, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     H, ck = cfg.ssm_heads, cfg.ssm_conv
     f32 = torch.float32
 
-    def w(*shape, dtype=BF16):
+    def w(*shape, dtype=dtype):
         return normal_weight(generator, shape, device, dtype)
 
     def full(n, value):
@@ -97,7 +97,7 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig,
         conv_bx=full(din, 0.0), conv_bB=full(N, 0.0), conv_bC=full(N, 0.0),
         a_log=torch.log(torch.linspace(1.0, 16.0, H, dtype=f32)).to(device),
         d_skip=full(H, 1.0), dt_bias=full(H, -2.0),
-        norm=torch.zeros(din, dtype=BF16, device=device),
+        norm=torch.zeros(din, dtype=dtype, device=device),
         out_proj=w(din, d))
 
 

@@ -18,6 +18,10 @@ from repro_torch.core import measures as tmeasures
 from repro_torch.core import metrics as tmetrics
 
 METHODS = ("single", "complete", "average")
+# the reference's registry as its package builds it, read while this file
+# is collected: tests/test_measures.py registers a test-only measure in
+# the same process later, and a worker may run it before this file
+REF_REGISTRY_ROWS = jmeasures.registry_rows()
 
 
 def _dist(seed: int, n: int, ties: bool = False) -> np.ndarray:
@@ -83,7 +87,7 @@ def test_adjusted_rand_index_degenerate_branch():
 
 
 def test_registry_rows_equal_reference():
-    assert tmeasures.registry_rows() == jmeasures.registry_rows()
+    assert tmeasures.registry_rows() == REF_REGISTRY_ROWS
 
 
 def test_measure_labels_equal_reference():

@@ -59,6 +59,10 @@ through ``serve_step`` on the card give the CPU route's logits within
 the LM tolerance ``2e-2`` and its greedy tokens, and the SSM states
 within ``1e-3`` of their scale; the SSM projections' bf16 product keeps
 its float32 sum on the card.
+
+Training on the card: the SSM projections' backward (``_MmF32``) within a
+bf16 ulp of the CPU form and a bf16 rounding of float64; one reduced train
+step a family against the CPU route, and the same step twice bit for bit.
 """
 
 import pytest
@@ -1605,3 +1609,96 @@ def test_dot_f32_keeps_float32_sums_on_card(gen):
         want = x.to(torch.bfloat16).double() @ w.to(torch.bfloat16).double()
         rel = float((got.double() - want).abs().max() / want.abs().max())
         assert rel <= 1e-5, rel
+
+
+def test_dot_f32_backward_on_card(gen):
+    """``_MmF32``'s gradient on the card: the float32 cotangent against the
+    bf16 operand in float32, rounded to bf16.  Against the CPU form's
+    autograd on the same bf16 operands: every element within one bf16 ulp
+    (the sums run in another order), nearly all equal; against float64:
+    within one bf16 rounding of the exact product.  Both bounds add 2^-16
+    of the element's terms' magnitudes: a float32 sum near 0 keeps the
+    rounding of its larger terms."""
+    from repro_torch.models import layers
+    x = torch.randn((2, 512, 1536), generator=gen, device="cuda")
+    w = 0.02 * torch.randn((1536, 3072), generator=gen, device="cuda")
+    ct = torch.randn((2, 512, 3072), generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.detach().to(dev).requires_grad_()
+        wd = w.detach().to(dev).requires_grad_()
+        out = layers._dot_f32(xd, wd)
+        assert out.dtype == torch.float32
+        out.backward(ct.to(dev))
+        grads[dev] = (xd.grad.cpu(), wd.grad.cpu())
+    xb, wb = x.bfloat16().double().cpu(), w.bfloat16().double().cpu()
+    c64 = ct.double().cpu()
+    x2 = xb.reshape(-1, 1536)
+    c2 = c64.reshape(-1, 3072)
+    # each gradient element: its float64 value and the sum of its terms'
+    # magnitudes (the float32 sums' rounding scales with the latter)
+    exact = ((c2 @ wb.T, c2.abs() @ wb.abs().T),
+             (x2.T @ c2, x2.abs().T @ c2.abs()))
+    for got, cpu, (want, terms) in zip(grads["cuda"], grads["cpu"], exact):
+        assert torch.equal(got, got.bfloat16().float())
+        got, cpu = got.reshape(want.shape).double(), cpu.reshape(
+            want.shape).double()
+        slack = terms * 2.0 ** -16
+        assert bool(((got - cpu).abs() <= torch.maximum(
+            got.abs(), cpu.abs()) * 2.0 ** -7 + slack).all())
+        assert float((got == cpu).float().mean()) >= 0.99
+        assert bool(((got - want).abs() <= want.abs() * 2.0 ** -8
+                     + slack).all())
+
+
+# one reduced config a family (gemma2 for its local/global layers)
+TRAIN_ARCHS = ("internlm2-1.8b", "gemma2-27b", "deepseek-moe-16b",
+               "qwen2-vl-72b", "mamba2-780m", "zamba2-2.7b",
+               "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_matches_cpu_route(gen, arch):
+    """One reduced ``make_train_step(q_chunk=16, microbatches=2)`` step
+    from the same float32 masters, on the card and on the CPU route: the
+    loss within 1e-3, each leaf's update at cosine >= 0.3 with the CPU's
+    and all of them within 0.1 in norm (the tolerances of
+    tests/test_torch_train.py against the reference: AdamW's first step
+    moves a weight by about ``lr`` times its gradient's sign, which
+    rounding noise sets where a gradient nearly vanishes).  The same step
+    run twice on the card gives the same loss and state bit for bit."""
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train import optim, step as tstep
+    cfg = get_reduced(arch)
+    extra = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+    stream = TokenStream(cfg.vocab_size, 32, 4, seed=1, extras=(
+        {extra: (cfg.n_frontend_tokens, cfg.d_model)} if extra else None))
+    batch = {k: torch.from_numpy(v) for k, v in stream.batch_at(0).items()}
+    init = tstep.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    p0 = _tree.tree_map(torch.clone, init.params)
+    fn = tstep.make_train_step(cfg, optim.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=3), q_chunk=16, microbatches=2)
+    runs = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        state = _tree.tree_map(lambda t: t.to(dev, copy=True), init)
+        state, m = fn(state, {k: v.to(dev) for k, v in batch.items()})
+        runs.setdefault(dev, []).append(
+            (float(m["loss"]), _tree.tree_map(lambda t: t.cpu(), state)))
+    (l_cpu, s_cpu), = runs["cpu"]
+    (l1, s1), (l2, s2) = runs["cuda"]
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(s1),
+                                                 _tree.leaves(s2)))
+    assert abs(l1 - l_cpu) <= 1e-3 * abs(l_cpu)
+    card, cpu = [], []
+    for a, b, p in zip(_tree.leaves(s1.params), _tree.leaves(s_cpu.params),
+                       _tree.leaves(p0)):
+        da, db = (a - p).flatten(), (b - p).flatten()
+        assert float(da @ db) >= 0.3 * float(da.norm() * db.norm())
+        card.append(da)
+        cpu.append(db)
+    card, cpu = torch.cat(card), torch.cat(cpu)
+    assert float((card - cpu).norm()) <= 0.1 * float(cpu.norm())

@@ -7,6 +7,8 @@ import importlib
 import pytest
 
 MODULES = (
+    "repro_torch._tree",
+    "repro_torch.checkpoint.ckpt",
     "repro_torch.core.baselines",
     "repro_torch.core.cluster",
     "repro_torch.core.corridor",
@@ -27,6 +29,7 @@ MODULES = (
     "repro_torch.obs",
     "repro_torch.serve.pqkv",
     "repro_torch.serve_index.config",
+    "repro_torch.train.step",
 )
 
 
