@@ -110,10 +110,10 @@ window 7), then the search paths beyond 1-NN on the same data:
   goes through ``serve_step`` one token at a time, then 31 greedy steps;
   prefill seconds, ms a step, tokens a second, weights and peak memory
   printed.  They run last, after every kernel's profiler window: after a
-  million or more eager launches a profiler session loses its first few
-  kernel records; so each family's decode step is profiled before any
-  of their prefills, on a fresh cache of the phase's shape, in two
-  sessions whose kernel counts must agree.  The last prefill step's
+  million or more eager launches a profiler session may lose its first
+  few kernel records; so each family's decode step is profiled in a
+  child process that has launched nothing else, on a fresh cache of the
+  phase's shape, in two sessions whose kernel counts must agree.  The last prefill step's
   logits are held against ``forward`` / ``forward_encdec`` over the
   prompt (correlation); layer 0's SSD state after the prefill against
   ``ssd_forward(return_state=True)`` on the input the decode gave it
@@ -146,6 +146,25 @@ window 7), then the search paths beyond 1-NN on the same data:
   resume to 6, the step-6 checkpoints equal bit for bit.  These run
   after every other phase and open no profiler session; no kernel of the
   port launches on them.
+
+- ``tune_path``, ``examples_lm_path`` and ``cell_path`` (last):
+  ``REPRO_TUNE=auto`` on the main path's quantizer at full width (encode,
+  the fused exact encode, ``cdist_sym``, ``cdist_asym``, ``dtw_band_cdist``
+  of 128 queries at w = 51 and one ``lb_refine`` wave of ``pruned_nn``):
+  every key's candidates with their ms and the winner printed, the table
+  written to ``chiprun_out/tune`` and pinned for a second run, codes,
+  distances and ids of both equal to the ``off`` run's bit for bit, the
+  tuner's launches counted apart; the two LM examples at the reference
+  example's arguments (``serve_pqkv``: row 11 launched, greedy tokens
+  against the CPU route's on the same seed; ``train_lm``: 200 steps
+  preempted half-way and restarted, the loss falls); and the cell layer:
+  the meta pass of every applicable (arch x shape) cell
+  (``launch/dryrun.py --all`` in ``CELL_JOBS`` processes, after every
+  other phase, so that nothing timed runs beside it) printed, then one
+  real step of mamba2-780m's ``train_4k`` (2 microbatches),
+  ``decode_32k`` and ``prefill_32k`` at a batch of 4, each timed after a
+  warm-up step, with ``max_memory_allocated`` beside its meta peak.
+  Their seconds are printed together (``new_phase_seconds``).
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
@@ -301,6 +320,8 @@ LM_SEQUENTIAL_PATHS = (
     ("lm_hybrid_path", "zamba2-2.7b", 4, 512, 32),
     ("lm_encdec_path", "seamless-m4t-large-v2", 4, 128, 32),
 )
+# the most the child process that profiles their decode steps may take
+SEQ_PROFILE_TIMEOUT_S = 300
 # layer 0's SSD state after the prefill against ssd_forward's, norm-wise:
 # on the input the decode gave layer 0 (the embedding; for the hybrid the
 # shared block run through attention_decode), which leaves only the chunked
@@ -328,6 +349,16 @@ TRAIN_UPDATE_RTOL = 0.1   # ... all weights' update, in norm
 RESUME_ARCH = "zamba2-2.7b"
 BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16, at 700 W
 # the slice-1 main path's kernels (each must launch there)
+TRAIN_LM_STEPS = 200      # examples/train_lm.py's default
+CELL_JOBS = 7             # processes of the meta pass (+1 for the batch cut)
+CELL_WAIT_S = 300         # the most cell_path waits for the meta pass
+# the one prefill cell the card takes a real step of: mamba2-780m's
+# prefill_32k at a batch of 4 of its 32 (the whole cell needs 119 GiB)
+CELL_PREFILL = ("mamba2-780m", "prefill_32k", 4)
+CELL_RUNS = (("mamba2-780m", "train_4k", None, ""),
+             ("mamba2-780m", "decode_32k", None, ""),
+             (CELL_PREFILL[0], CELL_PREFILL[1],
+              {"global_batch": CELL_PREFILL[2]}, f"b{CELL_PREFILL[2]}"))
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
 TPU_SITES = {
@@ -477,7 +508,12 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
+    return run_phases(torch, _build, smi)
 
+
+def run_phases(torch, _build, smi: str) -> int:
+    """Every phase in order (module docstring)."""
+    phase_s = {}
     ctx = main_path(torch, _build)
     waves = {}
     ctx["pruned_launches"] = pruned_nn(torch, _build, ctx, waves)
@@ -507,7 +543,7 @@ def main() -> int:
     profiler_phase()
     # last: after millions of eager launches a torch.profiler session
     # loses its first few kernel records, which would empty the kernel
-    # rows' five-launch windows above; their own steps are profiled first
+    # rows' windows above; their own steps are profiled in a child process
     seq_profiles = profile_sequential_steps(torch)
     for spec in LM_SEQUENTIAL_PATHS:
         lm_sequential_path(torch, _build, *spec, seq_profiles[spec[0]])
@@ -517,6 +553,15 @@ def main() -> int:
         train_full_path(torch, _build, *spec, block_check=False)
     train_reduced_path(torch)
     train_resume_path(torch)
+    for name, fn in (
+            ("tune_path", lambda: tune_path(torch, _build, ctx, waves)),
+            ("examples_lm_path",
+             lambda: examples_lm_path(torch, _build, kernels)),
+            ("cell_path", lambda: cell_path(torch))):
+        t0 = time.perf_counter()
+        fn()
+        phase_s[name] = time.perf_counter() - t0
+    emit({"phase": "new_phase_seconds", "seconds": phase_s})
     emit({"kernels": kernels})
 
     out = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -2173,11 +2218,12 @@ def _fig5_check(torch, suite: str, kept: list) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def _profile(torch, fn) -> dict:
+def _profile(torch, fn, names: bool = False) -> dict:
     """One call under ``torch.profiler``: its wall time, the device's busy
     time (kernel durations; one stream, so they do not overlap), the idle
-    share, and the five kernels with the most device time.  The window is
-    padded by ``PROFILE_PAD_S`` on both sides, outside the wall time."""
+    share, and the five kernels with the most device time (``names``:
+    also every kernel name's count).  The window is padded by
+    ``PROFILE_PAD_S`` on both sides, outside the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2203,13 +2249,16 @@ def _profile(torch, fn) -> dict:
                            and "LaunchKernel" in e.name)
     offsets = ([(k - c) / 1e3 for k, c in zip(kernel_starts, launch_starts)]
                if len(kernel_starts) == len(launch_starts) else [])
-    return {"wall_ms": wall_ms,
-            "launch_to_kernel_ms": min(offsets) if offsets else None,
-            "device_busy_ms": busy if by_name else None,
-            "idle_share": 1.0 - busy / wall_ms if by_name else None,
-            "kernels": sum(n for _, n in by_name.values()),
-            "top": [{"name": k[:80], "ms": ms, "count": n}
-                    for k, (ms, n) in top]}
+    record = {"wall_ms": wall_ms,
+              "launch_to_kernel_ms": min(offsets) if offsets else None,
+              "device_busy_ms": busy if by_name else None,
+              "idle_share": 1.0 - busy / wall_ms if by_name else None,
+              "kernels": sum(n for _, n in by_name.values()),
+              "top": [{"name": k[:80], "ms": ms, "count": n}
+                      for k, (ms, n) in top]}
+    if names:
+        record["by_name"] = {k: n for k, (_, n) in by_name.items()}
+    return record
 
 
 def _corr(torch, a, b) -> float:
@@ -2659,20 +2708,59 @@ def lm_family_path(torch, _build, phase, arch, B, S, n_gen, n_patches,
 
 def profile_sequential_steps(torch) -> dict:
     """One decode step of each ``LM_SEQUENTIAL_PATHS`` family under
-    ``torch.profiler``, before any of their prefills: after a million or
-    more eager launches a profiler session loses its first kernel records
-    (ROADMAP queue 3), and the three prefills launch 3.3 million.  The
-    step is the phase's last (position ``S + n_gen - 1``) on a fresh
-    cache of the phase's shape, so the same kernels at the same shapes
-    run on zero states and keys.  Profiled twice after a warm-up call:
-    the two sessions' kernel counts must agree."""
+    ``torch.profiler``, in a child process of its own
+    (``sequential_profiles_child``): after a million or more eager
+    launches a profiler session of this process may lose its first kernel
+    records (ROADMAP queue 3), and by now this process has launched
+    millions.  The step is the phase's last (position ``S + n_gen - 1``)
+    on a fresh cache of the phase's shape, so the same kernels at the same
+    shapes run on zero states and keys.  Profiled twice after a warm-up
+    call: the two sessions' kernel counts must agree; where they do not,
+    the kernel names whose counts differ are printed."""
+    out = ROOT / "chiprun_out" / "seq_profiles.json"
+    log = ROOT / "chiprun_out" / "seq_profiles.log"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    _free(torch)
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.sequential_profiles_child(sys.argv[1]))",
+             str(out)], cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT,
+            timeout=SEQ_PROFILE_TIMEOUT_S)
+    check(proc.returncode == 0 and out.exists(), "the decode-step profiles' "
+          f"child process failed: {log.read_text()[-3000:]}")
+    raw = json.loads(out.read_text())
+    result = {}
+    for phase, *_ in LM_SEQUENTIAL_PATHS:
+        runs = raw[phase]
+        counts = [r["kernels"] for r in runs]
+        names = [r.pop("by_name") for r in runs]
+        differ = {k: [n.get(k, 0) for n in names]
+                  for k in sorted(set(names[0]) | set(names[1]))
+                  if names[0].get(k, 0) != names[1].get(k, 0)}
+        check(counts[0] == counts[1] > 0, f"{phase}: a profiled decode "
+              f"step keeps every kernel record: {counts}, kernels whose "
+              f"counts differ: {differ}")
+        result[phase] = dict(runs[1], kernels_both_sessions=counts,
+                             taken="child process, fresh cache")
+    return result
+
+
+def sequential_profiles_child(out: str) -> int:
+    """``profile_sequential_steps``'s child: each family's decode step
+    once as a warm-up, then in two profiler sessions; the sessions'
+    records (with their kernel counts by name) written to ``out`` as
+    JSON."""
     import gc
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.registry import get_config
     from repro_torch.models import encdec, lm
     from repro_torch.serve.cache import init_cache
     from repro_torch.serve.decode import prefill_cache_encdec, serve_step
 
-    out = {}
+    result = {}
     for phase, arch, B, S, n_gen in LM_SEQUENTIAL_PATHS:
         cfg = get_config(arch)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2690,16 +2778,13 @@ def profile_sequential_steps(torch) -> dict:
             serve_step(params, cfg, cache, tok, S + n_gen - 1)
 
         step()
-        runs = [_profile(torch, step) for _ in range(2)]
-        counts = [r["kernels"] for r in runs]
-        check(counts[0] == counts[1] > 0, f"{phase}: a profiled decode "
-              f"step keeps every kernel record: {counts}")
-        out[phase] = dict(runs[1], kernels_both_sessions=counts,
-                          taken="before the prefills, fresh cache")
+        result[phase] = [_profile(torch, step, names=True)
+                         for _ in range(2)]
         del params, cache
         gc.collect()
         torch.cuda.empty_cache()
-    return out
+    Path(out).write_text(json.dumps(result))
+    return 0
 
 
 def _ssd_state_witness(torch, params, cfg, prompt, ssd_after, slot_like
@@ -3284,6 +3369,301 @@ def train_resume_path(torch) -> dict:
           f"step-6 checkpoint equals the uninterrupted run's: {record}")
     emit(record)
     return record
+
+
+# ---------------------------------------------------------------------------
+# The tuner's auto mode, the two LM examples and the cell layer
+# ---------------------------------------------------------------------------
+
+def start_cell_counts() -> list:
+    """Start the meta pass of every applicable cell (``launch/dryrun.py
+    --all``, ``CELL_JOBS`` processes) and of ``CELL_PREFILL``'s batch cut
+    into ``chiprun_out/dryrun``: CPU work only, on every core of the
+    host, so ``cell_path`` starts it after every timed phase."""
+    import os
+    out = ROOT / "chiprun_out" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    arch, shape, batch = CELL_PREFILL
+    commands = [
+        ["--all", "--jobs", str(CELL_JOBS)],
+        ["--arch", arch, "--shape", shape, "--tag", f"b{batch}",
+         "--extra", json.dumps({"global_batch": batch})]]
+    logs = ROOT / "chiprun_out" / "dryrun_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, args in enumerate(commands):
+        with open(logs / f"meta_{i}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                 str(out), *args], env=env, cwd=str(ROOT), stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True))
+        procs[-1].log = logs / f"meta_{i}.log"
+    return procs
+
+
+def stop(procs) -> None:
+    """Kill what is left of ``procs`` and their process groups (the meta
+    pass's pool workers)."""
+    import os
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+
+def tune_path(torch, _build, ctx, waves) -> dict:
+    """``REPRO_TUNE=auto`` on the main path's fitted quantizer at full
+    width (the 6144 training series and 768 queries, D = 512): ``encode``
+    (row 1 on the LB filter's refine pairs) and the fused exact encode
+    (row 5), ``cdist_sym`` (row 3), the query tables and ``cdist_asym``
+    (row 4), ``dtw_band_cdist`` (row 2) of the first ``EXACT_QUERIES``
+    queries at the exact search's band and ``lb_refine`` (row 6) on
+    ``pruned_nn``'s first mixed wave.  The same calls run three times: with
+    the tuner off, in ``auto`` mode writing ``chiprun_out/tune/tuning.json``
+    (every candidate's ms, or why it was left out, and the winner
+    printed), and with that table pinned; codes, distances and ids must
+    be equal bit for bit across the three.  The tuner's measurements count
+    in ``tune.LAUNCHES``, the tuned calls' own launches in this phase's
+    ``launches``; neither goes into the rows' path counts."""
+    import os
+    from repro_torch.core import dispatch, pq
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.lb_cascade.ops import lb_refine
+    cfg, cb, Xd, Qd = ctx["cfg"], ctx["cb"], ctx["Xd"], ctx["Qd"]
+    cfg_exact = dataclasses.replace(cfg, exact_encode=True)
+    wave = waves["pruned_nn"]["mixed"]
+    out = ROOT / "chiprun_out" / "tune"
+    shutil.rmtree(out, ignore_errors=True)
+    saved = {k: os.environ.get(k) for k in (tune.ENV, tune.OUT_ENV,
+                                            tune.GRID_ENV)}
+
+    def calls():
+        res = {"codes": pq.encode(Xd, cb, cfg),
+               "codes_fused": pq.encode(Xd, cb, cfg_exact),
+               "q_codes": pq.encode(Qd, cb, cfg)}
+        res["d_sym"] = pq.cdist_sym(res["q_codes"], res["codes"], cb.lut)
+        res["d_asym"] = pq.cdist_asym(Qd, res["codes"], cb, cfg)
+        res["d_cdist"] = dispatch.elastic_cdist(Qd[:EXACT_QUERIES], Xd,
+                                                ctx["w_exact"])
+        res["lb_d"], res["lb_flag"] = lb_refine(*wave)
+        for name in ("d_sym", "d_asym", "d_cdist"):
+            res[name + "_ids"] = torch.topk(res[name], 10, dim=1,
+                                            largest=False).indices
+        torch.cuda.synchronize()
+        return res
+
+    seconds, runs, resolved = {}, {}, {}
+    try:
+        os.environ.pop(tune.GRID_ENV, None)
+        for name, mode in (("off", "off"), ("auto", "auto"),
+                           ("pinned", str(out / "tuning.json"))):
+            os.environ[tune.ENV] = mode
+            os.environ[tune.OUT_ENV] = str(out)
+            tune.reset()
+            counts = resolved.setdefault(name, {})
+            t0 = time.perf_counter()
+            with _build.counted_apart(counts):
+                runs[name] = calls()
+            seconds[name] = time.perf_counter() - t0
+            if name == "auto":
+                report = [dict(r) for r in tune.REPORT]
+                measured = dict(tune.LAUNCHES)
+                table = json.loads((out / "tuning.json").read_text())
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tune.reset()
+    for line in report:
+        emit({"phase": "tune_key", **line})
+    differ = {run: [k for k in runs["off"]
+                    if not torch.equal(runs["off"][k], runs[run][k])]
+              for run in ("auto", "pinned")}
+    record = {"phase": "tune_path", "seconds": seconds,
+              "keys": len(table), "table": table,
+              "winners_vs_default": [
+                  {"key": r["key"], "winner": r["winner"],
+                   "winner_ms": r["winner_ms"],
+                   "default": r["candidates"][0]["params"],
+                   "default_ms": r["candidates"][0].get("ms")}
+                  for r in report],
+              "launches": {"measured": measured, "tuned_calls": resolved},
+              "differ": differ}
+    emit(record)
+    ops = {r["key"].split("|")[0] for r in report}
+    check(ops >= {"dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
+                  "prealign_encode", "lb_refine"},
+          f"tune_path: every row 1-6 key measured: {sorted(ops)}")
+    check(all(("ms" in c) != ("error" in c) or "ms" in c
+              for r in report for c in r["candidates"]),
+          "tune_path: every candidate timed or reported left out")
+    check(all(r["winner"] in [c["params"] for c in r["candidates"]
+                              if "ms" in c and "error" not in c]
+              for r in report),
+          "tune_path: every winner is an admitted candidate")
+    check(sorted(table) == sorted(r["key"] for r in report),
+          "tune_path: the table holds every measured key")
+    check(not differ["auto"] and not differ["pinned"],
+          f"tune_path: codes, distances and ids of the auto and pinned runs "
+          f"equal the off run's bit for bit: {differ}")
+    check(sum(measured.values()) > 0, "tune_path: the tuner launched")
+    return record
+
+
+def _first_parting(torch, a, b):
+    """``(row, step)`` of the first token where ``a`` and ``b`` (``(B,
+    gen)``) part, or ``None``."""
+    diff = (a != b).nonzero()
+    if not diff.numel():
+        return None
+    step = int(diff[:, 1].min())
+    row = int(diff[diff[:, 1] == step][0, 0])
+    return row, step
+
+
+def examples_lm_path(torch, _build, kernels) -> dict:
+    """The two LM examples on the card at the reference example's
+    arguments (``repro_torch.examples.serve_pqkv`` and ``.train_lm``).
+    ``serve_pqkv`` (reduced internlm2-1.8b, 4 x 32 tokens, 12 steps,
+    PQKVConfig(n_sub=4, codebook_size=16, recent_window=8)) must launch
+    row 11 on its PQ steps; its exact and PQ greedy tokens against the CPU
+    route's on the same seed: equal, or at the first step where they part
+    both routes' top-2 logit gaps there below twice ``LOGIT_ATOL`` (a
+    near-tie of two logits each within the ``lm_path`` tolerance; later
+    tokens follow other histories).  ``train_lm`` (``TRAIN_LM_STEPS``
+    steps, batch 8 x 128, 2 microbatches, checkpoints every 25 steps,
+    stopped half-way and restarted): the loss falls (the example asserts
+    it) and phase 2 starts from phase 1's last checkpoint.  Row 11's
+    launches here are added to its record in ``kernels``."""
+    import tempfile
+    from repro_torch.examples import serve_pqkv, train_lm
+    _free(torch)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    card = serve_pqkv.main([])
+    serve_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    cpu = serve_pqkv.main(["--device", "cpu"])
+    parts = {}
+    for key, gaps in (("tokens", "margins"), ("pq_tokens", "pq_margins")):
+        at = _first_parting(torch, card[key], cpu[key])
+        if at is None:
+            parts[key] = None
+            continue
+        row, step = at
+        gap = max(float(card[gaps][row, step]), float(cpu[gaps][row, step]))
+        parts[key] = {"row": row, "step": step, "top2_gap": gap}
+        check(gap < 2 * LOGIT_ATOL, f"examples_lm_path: serve_pqkv's {key} "
+              f"part from the CPU route's at a near-tie: {parts[key]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rows = train_lm.main(["--steps", str(TRAIN_LM_STEPS),
+                              "--ckpt-dir", tmp])
+        train_s = time.perf_counter() - t0
+    half = TRAIN_LM_STEPS // 2
+    steps = [r["step"] for r in rows]
+    record = {"phase": "examples_lm_path", "serve_s": serve_s,
+              "serve_launches": launches, "parting": parts,
+              "pq_agreement": float((card["pq_tokens"]
+                                     == card["tokens"]).float().mean()),
+              "train_s": train_s, "train_steps": TRAIN_LM_STEPS,
+              "loss_first": rows[0]["loss"],
+              "loss_half": rows[half - 1]["loss"],
+              "loss_after_restart": rows[half]["loss"],
+              "loss_last": rows[-1]["loss"]}
+    emit(record)
+    check(launches["pq_attn"] > 0, "examples_lm_path: serve_pqkv launched "
+          "row 11 on the card")
+    check(steps == list(range(1, TRAIN_LM_STEPS + 1)),
+          "examples_lm_path: phase 2 resumed from phase 1's checkpoint "
+          "(steps logged once each, in order)")
+    check(rows[-1]["loss"] < rows[0]["loss"], "examples_lm_path: loss fell")
+    for row in kernels:
+        if row["name"] in ("pq_attn", "pq_attn[window]"):
+            row["launches"] += launches[row["name"]]
+    return record
+
+
+def cell_path(torch) -> dict:
+    """The cell layer on the card.  The meta pass
+    (``start_cell_counts``) writes a record for every applicable (arch x
+    shape) cell; each is printed (fit, peak, FLOPs by type, roofline
+    terms).  Then one real step each of ``CELL_RUNS`` through
+    ``launch.dryrun.run_cell(run=True)``, timed after a warm-up step:
+    mamba2-780m's ``train_4k`` (cut to 2 microbatches of its 1 x 4096
+    rows), ``decode_32k`` and ``prefill_32k`` at ``CELL_PREFILL``'s batch
+    (no prefill cell fits the card whole: 100-119 GiB for the smallest),
+    with ``max_memory_allocated`` beside the meta peak."""
+    from repro_torch.launch import dryrun
+    out = ROOT / "chiprun_out" / "dryrun"
+    t0 = time.perf_counter()
+    procs = start_cell_counts()
+    try:
+        for p in procs:
+            p.wait(timeout=CELL_WAIT_S)
+            text = p.log.read_text()
+            check(p.returncode == 0, f"cell_path: the meta pass failed: "
+                  f"{text[-2000:]}")
+    finally:
+        stop(procs)
+    wait_s = time.perf_counter() - t0
+    cells = []
+    for path in sorted(out.glob("*.json")):
+        rec = json.loads(path.read_text())
+        ro = rec["roofline"]
+        cells.append({"cell": path.stem, "fit": rec["fit"],
+                      "peak_gib": rec["memory"]["peak_bytes"] / 2 ** 30,
+                      "flops_bf16": ro["flops_bf16"],
+                      "flops_f32": ro["flops_f32"],
+                      "floor_bytes": ro["hbm_bytes"],
+                      "eager_bytes": ro["hbm_eager_bytes"],
+                      "compute_s": ro["compute_s"],
+                      "memory_s": ro["memory_s"],
+                      "memory_eager_s": ro["memory_eager_s"],
+                      "bound": ro["bound"],
+                      "roofline_frac": ro["roofline_frac"],
+                      "count_s": rec["t_count_s"]})
+    emit({"phase": "cell_counts", "cells": cells, "wait_s": wait_s})
+    _free(torch)
+    runs = []
+    t0 = time.perf_counter()
+    for arch, shape, extra, tag in CELL_RUNS:
+        rec = dryrun.run_cell(arch, shape, str(out), extra=extra, tag=tag,
+                              run=True)
+        run = rec.get("run", {})
+        runs.append({"cell": dryrun.cell_id(arch, shape) + (
+            f"__{tag}" if tag else ""), "fit": rec["fit"],
+            "reduced": rec.get("reduced", []) + run.get("reduced", []),
+            **{k: run.get(k) for k in ("seconds", "max_memory_allocated",
+                                       "meta_peak_bytes", "meta_over_real",
+                                       "error", "skipped")}})
+        _free(torch)
+    record = {"phase": "cell_path", "cells": len(cells),
+              "fit": sorted(c["cell"] for c in cells if c["fit"]),
+              "runs": runs, "runs_s": time.perf_counter() - t0}
+    emit(record)
+    applicable = sum(1 for *_, ok, _ in _all_cells() if ok)
+    check(len(cells) == applicable + 1, f"cell_path: a record for every "
+          f"applicable cell and the batch cut ({len(cells)})")
+    from repro_torch.configs.registry import SHAPES
+    kinds = {SHAPES[r["cell"].split("__")[1]].kind for r in runs
+             if r["seconds"] is not None}
+    check(kinds == {"train", "prefill", "decode"}, f"cell_path: a real step "
+          f"of a train, a prefill and a decode cell: {runs}")
+    return record
+
+
+def _all_cells():
+    from repro_torch.configs.registry import all_cells
+    return list(all_cells())
 
 
 def small_sequential_reference(torch, arch) -> dict:

@@ -18,11 +18,13 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 kernel's launches (one per successful wrapper call on a CUDA tensor), so a
 run can show that its path went through the kernels.  Counting and the
 first load take a thread lock, since a server's threads launch kernels
-concurrently.
+concurrently.  Launches made inside :func:`counted_apart` (the tuner's
+measurements) count in the dict it is given, never in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -35,8 +37,9 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "count_launch", "build", "lib",
-           "check", "kernel_device", "ptr", "stream", "BUILD_DIR"]
+__all__ = ["LAUNCHES", "reset_launches", "count_launch", "counted_apart",
+           "build", "lib", "check", "kernel_device", "ptr", "stream",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -62,6 +65,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 _launch_lock = threading.Lock()
 _lib_lock = threading.Lock()
+_apart = threading.local()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -94,8 +98,23 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
+    counts = getattr(_apart, "counts", None)
     with _launch_lock:
-        LAUNCHES[name] += 1
+        if counts is None:
+            LAUNCHES[name] += 1
+        else:
+            counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def counted_apart(counts: Dict[str, int]):
+    """This thread's launches inside the block count in ``counts``."""
+    saved = getattr(_apart, "counts", None)
+    _apart.counts = counts
+    try:
+        yield counts
+    finally:
+        _apart.counts = saved
 
 
 def _nvcc() -> str:

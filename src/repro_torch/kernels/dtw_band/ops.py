@@ -14,7 +14,10 @@ block of at least 32 threads fits in the default 48 KB, i.e. up to
 ``w = 191``, beyond that in a device scratch buffer allocated here and
 capped at 1 GiB, with the grid cut to match (the kernels walk their pairs
 grid-stride).  So every ``(L, window)`` the reference takes is taken, and
-each form gives the same bits.
+each form gives the same bits.  The zipped and all-pairs forms' bucket
+(and the zipped register form's warps) come from the tuning table
+(:mod:`..tune`: ``dtw_band``, ``dtw_band_cdist``), the selectors' choice
+by default.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, tune
 from ...core import measures
 from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
@@ -33,7 +36,8 @@ from .ref import (dtw_band_adaptive_ref, dtw_band_cdist_ref,
 __all__ = ["dtw_band", "dtw_band_cdist", "dtw_band_adaptive",
            "launch_dtw_band_adaptive",
            "launch_dtw_band_full", "band_geometry", "band_width",
-           "cdist_bucket", "cdist_form", "reg_grid", "pairs_reg_geometry",
+           "cdist_bucket", "check_bucket", "cdist_form", "reg_grid",
+           "pairs_reg_geometry",
            "full_warp_geometry", "warp_cells", "adaptive_variant",
            "adaptive_warp_geometry", "adaptive_launch_name",
            "check_corridor"]
@@ -113,7 +117,28 @@ def reg_grid(N: int, M: int) -> Tuple[bool, int, int]:
     return swap, -(-rows // _THREADS), max(1, min(other, _GRID_Y))
 
 
-def pairs_reg_geometry(n: int, L: int, w: int, kid: int
+def check_bucket(bucket: int, w: int, kid: int, length: int) -> int:
+    """``bucket`` if the register form can take it for an effective band
+    ``w``, kernel measure ``kid`` and series length (one of the measure's
+    buckets, at least ``2w + 2`` slots, its staged row within 48 KB), else
+    ``ValueError`` (a tuning candidate the form cannot launch).
+
+    >>> check_bucket(128, 7, 0, 74)
+    128
+    """
+    bucket = int(bucket)
+    buckets = REG_BUCKETS + (DTW_REG_BUCKETS if int(kid) == _DTW else ())
+    staged = length * (2 if int(kid) == _WDTW else 1)
+    if (bucket not in buckets or 2 * int(w) + 2 > bucket
+            or (staged + 2 * bucket) * 4 > _SMEM_LIMIT):
+        raise ValueError(f"no register form with {bucket} slots for band "
+                         f"{w}, measure {kid}, length {length}")
+    return bucket
+
+
+def pairs_reg_geometry(n: int, L: int, w: int, kid: int,
+                       bucket: Optional[int] = None,
+                       warps: Optional[int] = None
                        ) -> Optional[Tuple[int, int, int]]:
     """``(bucket, warps, blocks)`` of ``dtw_band``'s register form for
     ``n`` zipped pairs of length ``L`` at effective band ``w`` under kernel
@@ -130,13 +155,23 @@ def pairs_reg_geometry(n: int, L: int, w: int, kid: int
     (128, 2, 1)
     >>> pairs_reg_geometry(9, 74, 16, 3) is None
     True
+
+    A ``bucket`` or ``warps`` given (the tuner's candidates) is taken as
+    is, or refused with ``ValueError`` where the form cannot launch it.
     """
-    bucket = cdist_bucket(w, kid, L)
     if bucket is None:
-        return None
+        bucket = cdist_bucket(w, kid, L)
+        if bucket is None:
+            return None
+    else:
+        check_bucket(bucket, w, kid, L)
     fixed = L * 4 if int(kid) == _WDTW else 0  # within 48 KB by the bucket
     per_warp = 32 * (PAIR_ROWS + bucket - 1) * 4
-    warps = max(1, min(_WARPS, (_SMEM_LIMIT - fixed) // per_warp))
+    if warps is None:
+        warps = max(1, min(_WARPS, (_SMEM_LIMIT - fixed) // per_warp))
+    elif not 1 <= int(warps) <= 32 or fixed + warps * per_warp > _SMEM_LIMIT:
+        raise ValueError(f"{warps} warps of {bucket}-slot rows exceed 48 KB")
+    warps = int(warps)
     return bucket, warps, max(1, min(-(-n // (32 * warps)), _INT_MAX))
 
 
@@ -315,19 +350,48 @@ def dtw_band(A: torch.Tensor, B: torch.Tensor, window: Optional[int] = None,
     w = effective_window(L, window)
     kid, param, wt = _measure_args(spec, L, dev)
     reg = pairs_reg_geometry(n, L, w, kid)
-    if reg is not None:
-        bucket, warps, blocks = reg
+    default = ({"bucket": reg[0], "warps": reg[1]} if reg is not None
+               else {"bucket": 0, "warps": 0})
+
+    def launch(params, dst):
+        _launch_pairs(A, B, dst, wt, w, kid, param, params["bucket"],
+                      params["warps"])
+
+    def runner(params):
+        fresh = torch.empty_like(out)
+        launch(params, fresh)
+        return (fresh,)
+
+    def check(params):
+        if params["bucket"]:
+            pairs_reg_geometry(n, L, w, kid, params["bucket"],
+                               params["warps"])
+
+    launch(tune.resolve("dtw_band", default, length=L, window=w,
+                        measure=spec.name, runner=runner, device=dev,
+                        check=check), out)
+    return out
+
+
+def _launch_pairs(A: torch.Tensor, B: torch.Tensor, out: torch.Tensor,
+                  wt: Optional[torch.Tensor], w: int, kid: int, param: float,
+                  bucket: int, warps: int) -> None:
+    """``dtw_band``'s launch alone: the register form with ``bucket``
+    slots and ``warps`` a block, or (``bucket = 0``) the shared-memory
+    row as :func:`band_geometry` lays it out."""
+    n, L = A.shape
+    if bucket:
+        bucket, warps, blocks = pairs_reg_geometry(n, L, w, kid, bucket,
+                                                   warps)
         threads, scratch = 32 * warps, None
     else:
-        bucket = 0
-        threads, blocks, scratch = band_geometry(n, w, dev)
+        threads, blocks, scratch = band_geometry(n, w, A.device)
     status = _build.lib().pq_dtw_band(
         A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt),
         _build.ptr(scratch), n, L, w, kid, param, bucket, threads, blocks,
-        _build.stream(dev))
+        _build.stream(A.device))
     _build.check(status, "dtw_band")
     _build.count_launch("dtw_band")
-    return out
 
 
 def _dtw_band_full(A: torch.Tensor, B: torch.Tensor,
@@ -389,8 +453,31 @@ def dtw_band_cdist(A: torch.Tensor, B: torch.Tensor,
         return out
     w = effective_window(L, window)
     kid, param, wt = _measure_args(spec, L, dev)
-    bucket = cdist_bucket(w, kid, L)
-    if bucket is not None:
+
+    def runner(params):
+        fresh = torch.empty_like(out)
+        _launch_cdist(A, B, fresh, wt, w, kid, param, params["bucket"])
+        return (fresh,)
+
+    bucket = tune.tuned("dtw_band_cdist", "bucket", length=L, window=w,
+                        measure=spec.name,
+                        default=cdist_bucket(w, kid, L) or 0,
+                        runner=runner, device=dev,
+                        check=lambda b: b and check_bucket(b, w, kid, L))
+    _launch_cdist(A, B, out, wt, w, kid, param, bucket)
+    return out
+
+
+def _launch_cdist(A: torch.Tensor, B: torch.Tensor, out: torch.Tensor,
+                  wt: Optional[torch.Tensor], w: int, kid: int, param: float,
+                  bucket: int) -> None:
+    """``dtw_band_cdist``'s launch alone: the register form with
+    ``bucket`` slots (:func:`check_bucket`), or (``bucket = 0``) the band
+    rows in shared memory or scratch (:func:`band_geometry`)."""
+    (N, L), M = A.shape, B.shape[0]
+    dev = A.device
+    if bucket:
+        check_bucket(bucket, w, kid, L)
         swap, blocks_x, blocks_y = reg_grid(N, M)
         status = _build.lib().pq_dtw_band_cdist_reg(
             A.data_ptr(), B.data_ptr(), out.data_ptr(), _build.ptr(wt), N, M,
@@ -404,7 +491,6 @@ def dtw_band_cdist(A: torch.Tensor, B: torch.Tensor,
             min(blocks, _INT_MAX), _build.stream(dev))
     _build.check(status, "dtw_band_cdist")
     _build.count_launch("dtw_band_cdist")
-    return out
 
 
 def check_corridor(corridor, n: int, L: int):

@@ -8,6 +8,8 @@ up to ``w = 255`` one warp per pair sweeps the band's anti-diagonals
 across its lanes (:func:`warp_geometry`: 4 warps a CTA, each staging its
 pair in shared memory); beyond, one thread per pair sweeps the band row
 by row, its rows laid out as :func:`..dtw_band.ops.band_geometry` says.
+The tuning table (:mod:`..tune`, ``lb_refine``'s ``warps``; 0 = a thread
+per pair) may pick another warp count or the thread form.
 The kernel sweeps the DTW cell only (the one measure with a Keogh
 cascade); other measures raise on the card.
 
@@ -28,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, tune
 from ...core import measures
 from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
@@ -57,7 +59,8 @@ def refine_variant(w: int) -> str:
     return "warp" if int(w) <= WARP_MAX_W else "thread"
 
 
-def warp_geometry(n_pairs: int, L: int, w: int) -> Tuple[int, int, int]:
+def warp_geometry(n_pairs: int, L: int, w: int,
+                  warps: Optional[int] = None) -> Tuple[int, int, int]:
     """``(warps, blocks, smem_bytes)`` of the warp form for ``n_pairs``
     pairs of length ``L`` at band ``w``: :data:`_WARPS` warps a CTA, each
     staging its pair's two rows with ``32 * C`` NaNs on each side
@@ -69,9 +72,18 @@ def warp_geometry(n_pairs: int, L: int, w: int) -> Tuple[int, int, int]:
     ((4, 128, 20480), (3, 3, 195072))
     >>> warp_geometry(3, 40000, 7)
     (1, 3, 0)
+
+    A ``warps`` given (a tuning candidate) is taken as is, or refused with
+    ``ValueError`` where its rows exceed 227 KB.
     """
     per_warp = 2 * (L + 2 * 32 * warp_cells(w)) * 4
-    warps = max(1, min(_WARPS, _SMEM_MAX // per_warp))
+    if warps is None:
+        warps = max(1, min(_WARPS, _SMEM_MAX // per_warp))
+    elif not 1 <= int(warps) <= 32 or (
+            per_warp <= _SMEM_MAX and warps * per_warp > _SMEM_MAX):
+        raise ValueError(f"{warps} warps' rows of length {L} exceed "
+                         f"shared memory")
+    warps = int(warps)
     smem = warps * per_warp if per_warp <= _SMEM_MAX else 0
     return warps, max(1, -(-n_pairs // warps)), smem
 
@@ -164,8 +176,39 @@ def launch_lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
     if n == 0:
         return
     w = effective_window(L, window)
-    if refine_variant(w) == "warp":
-        warps, blocks, smem = warp_geometry(n, L, w)
+
+    def runner(params):
+        fresh = torch.empty_like(d), torch.empty_like(flag)
+        _launch_static(A, B, upper, lower, thresh, w, *fresh,
+                       params["warps"])
+        return fresh
+
+    default = warp_geometry(n, L, w)[0] if refine_variant(w) == "warp" else 0
+    warps = tune.tuned("lb_refine", "warps", length=L, window=w,
+                       default=default, runner=runner, device=A.device,
+                       check=lambda k: _static_geometry(n, L, w, k))
+    _launch_static(A, B, upper, lower, thresh, w, d, flag, warps)
+
+
+def _static_geometry(n: int, L: int, w: int, warps: int):
+    """:func:`warp_geometry` at ``warps`` a CTA (``0``: the thread form,
+    no geometry); ``ValueError`` where the warp form cannot take it."""
+    if not warps:
+        return None
+    if refine_variant(w) != "warp":
+        raise ValueError(f"the warp form sweeps w <= {WARP_MAX_W}")
+    return warp_geometry(n, L, w, warps)
+
+
+def _launch_static(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
+                   lower: torch.Tensor, thresh: torch.Tensor, w: int,
+                   d: torch.Tensor, flag: torch.Tensor, warps: int) -> None:
+    """The static launch alone: the warp form at ``warps`` a CTA
+    (:func:`warp_geometry`; up to ``w = 255``), or (``warps = 0``) a
+    thread per pair."""
+    n, L = A.shape
+    if warps:
+        warps, blocks, smem = _static_geometry(n, L, w, warps)
         status = _build.lib().pq_lb_refine_warp(
             A.data_ptr(), B.data_ptr(), upper.data_ptr(), lower.data_ptr(),
             thresh.data_ptr(), d.data_ptr(), flag.data_ptr(), n, L, w, warps,

@@ -20,7 +20,9 @@ lookup, from :data:`LOOKUP_ROWS_MIN_NQ` queries on, 128-224 by the
 table's type), else the symmetric thread form (an output a thread,
 gathering from the LUT in L1/L2) or the lookup's table form (an output a
 thread, one query's whole table staged a block).  Both forms of a scan
-give the same bits and count under the same name.
+give the same bits and count under the same name.  Where the row-staged
+form is picked, its tile comes from the tuning table (:mod:`..tune`,
+``adc_sym`` / ``adc_lookup``'s ``ta``; the selector's tile by default).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, tune
 from .ref import (adc_lookup_quant_ref, adc_lookup_ref,
                   adc_sym_cdist_quant_ref, adc_sym_cdist_ref)
 
@@ -265,12 +267,44 @@ def _table(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
+def _type_tag(table: torch.Tensor) -> str:
+    """The tuning key's measure slot of an ADC scan: its table's type."""
+    return {torch.int8: "int8", torch.bfloat16: "bf16"}.get(table.dtype,
+                                                            "f32")
+
+
+def _tuned_ta(op: str, geo: ScanGeometry, K: int, table: torch.Tensor,
+              out: torch.Tensor, launch, fits) -> int:
+    """The row-staged form's tile from the tuning table (``op``'s ``ta``,
+    keyed by ``K`` and the table's type), the selector's as the default;
+    ``launch(ta, out)`` runs the scan at tile ``ta`` into ``out``,
+    ``fits(ta)`` raises ``ValueError`` where the call's shapes (``M``
+    too, which the key lacks) leave no room for tile ``ta``."""
+    def runner(params):
+        fresh = torch.empty_like(out)
+        launch(params["ta"], fresh)
+        return (fresh,)
+    return tune.tuned(op, "ta", length=K, window=None,
+                      measure=_type_tag(table), default=geo.ta,
+                      runner=runner, device=out.device, check=fits)
+
+
 def _launch_sym(name: str, ca: torch.Tensor, cb: torch.Tensor,
                 table: torch.Tensor, scale: Optional[torch.Tensor],
-                zero: Optional[torch.Tensor], out: torch.Tensor) -> None:
-    """Launch the symmetric scan in the form :func:`sym_geometry` picks."""
+                zero: Optional[torch.Tensor], out: torch.Tensor,
+                ta: Optional[int] = None) -> None:
+    """Launch the symmetric scan in the form :func:`sym_geometry` picks;
+    the row-staged form at tile ``ta`` if given, else at the tuned tile
+    (:mod:`..tune`, ``adc_sym``)."""
     (Na, M), Nb, K = ca.shape, cb.shape[0], table.shape[1]
-    geo = sym_geometry(Na, Nb, M, K, table.element_size())
+    geo = sym_geometry(Na, Nb, M, K, table.element_size(), ta)
+    if geo.form == "rows" and ta is None:
+        best = _tuned_ta("adc_sym", geo, K, table, out, lambda t, o:
+                         _launch_sym(name, ca, cb, table, scale, zero, o, t),
+                         lambda t: sym_geometry(Na, Nb, M, K,
+                                                table.element_size(), t))
+        if best != geo.ta:
+            geo = sym_geometry(Na, Nb, M, K, table.element_size(), best)
     lib, stream = _build.lib(), _build.stream(out.device)
     if geo.form == "rows":
         status = lib.pq_adc_sym_rows(
@@ -300,10 +334,20 @@ def launch_adc_sym(ca: torch.Tensor, cb: torch.Tensor, lut: torch.Tensor,
 
 def _launch_lookup(name: str, c: torch.Tensor, q: torch.Tensor,
                    scale: Optional[torch.Tensor],
-                   zero: Optional[torch.Tensor], out: torch.Tensor) -> None:
-    """Launch the lookup in the form :func:`lookup_geometry` picks."""
+                   zero: Optional[torch.Tensor], out: torch.Tensor,
+                   ta: Optional[int] = None) -> None:
+    """Launch the lookup in the form :func:`lookup_geometry` picks; the
+    row-staged form at tile ``ta`` if given, else (where the selector
+    picks that form) at the tuned tile (:mod:`..tune`, ``adc_lookup``)."""
     (Nq, M, K), N = q.shape, c.shape[0]
-    geo = lookup_geometry(Nq, N, M, K, q.element_size())
+    geo = lookup_geometry(Nq, N, M, K, q.element_size(), ta)
+    if geo.form == "rows" and ta is None:
+        best = _tuned_ta("adc_lookup", geo, K, q, out, lambda t, o:
+                         _launch_lookup(name, c, q, scale, zero, o, t),
+                         lambda t: lookup_geometry(Nq, N, M, K,
+                                                   q.element_size(), t))
+        if best != geo.ta:
+            geo = lookup_geometry(Nq, N, M, K, q.element_size(), best)
     lib, stream = _build.lib(), _build.stream(out.device)
     if geo.form == "rows":
         status = lib.pq_adc_lookup_rows(

@@ -1,7 +1,9 @@
 """Wrappers of the PQ attention CUDA kernel (``csrc/pq_attn.cu``).
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel or raises.  :func:`pq_attn` is the kernel's own interface (a
+the kernel or raises; meta tensors get the outputs' shapes (the op is
+registered with PyTorch's dispatcher as ``repro_torch::pq_attn``).
+:func:`pq_attn` is the kernel's own interface (a
 query table, codes, values, the range ``[start, valid_len)``: ``start > 0``
 is a sliding window's first position) and returns the running max and
 denominator beside the output, so a caller can merge another softmax piece
@@ -195,9 +197,20 @@ def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     ``[start, valid_len)``: ``qlut (B, H, M, K)``, ``codes (B, S, G, M)``,
     ``v (B, S, G, Dv)`` -> ``(out (B, H, Dv), m (B, H), l (B, H))``
     float32, ``m`` the largest score and ``l = sum exp(score - m)``.  An
-    empty range (``start >= valid_len``) gives ``valid_len = 0``'s result."""
+    empty range (``start >= valid_len``) gives ``valid_len = 0``'s result.
+    One call is one op of PyTorch's dispatcher (``repro_torch::pq_attn``),
+    so a ``TorchDispatchMode`` sees it whole and meta tensors get its
+    outputs' shapes."""
     valid_len, start = int(valid_len), int(start)
     _check(qlut, codes, v, valid_len, start)
+    return tuple(torch.ops.repro_torch.pq_attn.default(
+        qlut, codes, v, valid_len, float(scale), start))
+
+
+def _pq_attn_op(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
+                valid_len: int, scale: float, start: int):
+    """:func:`pq_attn` on checked arguments: the plain version on the
+    CPU, the kernel on the card."""
     dev = _build.kernel_device(qlut, codes, v)
     if dev is None:
         return pq_attn_lut_ref(qlut, codes, v, valid_len, scale, start)
@@ -223,12 +236,28 @@ def pq_attn(qlut: torch.Tensor, codes: torch.Tensor, v: torch.Tensor,
     if smem > _SMEM_MAX:
         raise ValueError(f"pq_attn needs {smem} bytes of shared memory per "
                          f"block, over the card's {_SMEM_MAX}")
-    out = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
-    m = torch.empty((B, H), dtype=torch.float32, device=dev)
-    l = torch.empty((B, H), dtype=torch.float32, device=dev)
+    out, m, l = _pq_attn_shapes(qlut, codes, v, valid_len, scale, start)
     if B * G:
         launch_pq_attn(qlut, codes, v, valid_len, scale, out, m, l, start)
     return out, m, l
+
+
+def _pq_attn_shapes(qlut, codes, v, valid_len, scale, start):
+    """The outputs, unwritten (on meta tensors, all the op does)."""
+    B, H, Dv = qlut.shape[0], qlut.shape[1], v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qlut.device)
+    return (torch.empty((B, H, Dv), **f32), torch.empty((B, H), **f32),
+            torch.empty((B, H), **f32))
+
+
+# a plain registration (no autograd or schema-inference wrappers): the
+# decode path calls it once a layer a step
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("pq_attn(Tensor qlut, Tensor codes, Tensor v, int valid_len, "
+            "float scale, int start) -> (Tensor, Tensor, Tensor)")
+for _key, _impl in (("CPU", _pq_attn_op), ("CUDA", _pq_attn_op),
+                    ("Meta", _pq_attn_shapes)):
+    _LIB.impl("pq_attn", _impl, _key)
 
 
 def pq_attn_decode(q: torch.Tensor, k_codes: torch.Tensor,

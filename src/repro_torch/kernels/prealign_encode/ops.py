@@ -9,7 +9,9 @@ each thread sweeps its centroids with the band row in registers, against
 the codebook transposed to ``(M, S, K)`` (a copy of ``M * K * S`` floats
 made here, per call); else the band rows live in shared memory too, so
 the block shrinks (down to one warp) as the band widens.  A geometry that
-does not fit is refused with a ``ValueError``.
+does not fit is refused with a ``ValueError``.  The bucket (0 = the
+shared-memory form) comes from the tuning table (:mod:`..tune`,
+``prealign_encode``), :func:`cdist_bucket`'s by default.
 """
 
 from __future__ import annotations
@@ -18,12 +20,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, tune
 from ...core import measures
 from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
 from ...core.modwt import linspace01
-from ..dtw_band.ops import cdist_bucket
+from ..dtw_band.ops import cdist_bucket, check_bucket
 from .ref import check_geometry, prealign_encode_ref
 
 __all__ = ["prealign_encode", "block_geometry", "encode_geometry"]
@@ -54,7 +56,8 @@ def block_geometry(D: int, M: int, S: int, w: int) -> int:
 
 
 def encode_geometry(D: int, M: int, K: int, S: int, w: int,
-                    kid: int) -> Tuple[int, int]:
+                    kid: int, bucket: Optional[int] = None
+                    ) -> Tuple[int, int]:
     """``(bucket, threads)`` of the launch for an effective band ``w`` and
     kernel measure id ``kid``: the register form with ``bucket`` slots
     exactly where :func:`cdist_bucket` gives one, a block of one thread
@@ -65,9 +68,15 @@ def encode_geometry(D: int, M: int, K: int, S: int, w: int,
     (16, 256)
     >>> encode_geometry(512, 4, 40, 138, 64, 0)
     (0, 256)
+
+    A ``bucket`` given (a tuning candidate; 0 = the shared-memory form) is
+    taken as is, or refused with ``ValueError``.
     """
-    bucket = cdist_bucket(w, kid, S)
     if bucket is None:
+        bucket = cdist_bucket(w, kid, S)
+    elif bucket:
+        check_bucket(bucket, w, kid, S)
+    if not bucket:
         return 0, block_geometry(D, M, S, w)
     threads = min(_THREADS, 32 * -(-K // 32))
     nbytes = 4 * (3 * D + M * (S + 2 * bucket) + S + 4 * (threads // 32)
@@ -101,12 +110,26 @@ def prealign_encode(X: torch.Tensor, centroids: torch.Tensor, level: int,
         return codes
     w = effective_window(S, window)
     kid = measures.kernel_measure_id(spec)
-    bucket, threads = encode_geometry(D, M, K, S, w, kid)
-    if bucket:
-        centroids = centroids.transpose(1, 2).contiguous()
     wt = measures.wdtw_weights(spec, S, dev) if spec.uses_position else None
-    _launch(X, centroids, lin, wt, codes, level, tail, w, kid,
-            measures.kernel_param(spec), bucket, threads)
+
+    def launch(bucket, dst):
+        bucket, threads = encode_geometry(D, M, K, S, w, kid, bucket)
+        cents = (centroids.transpose(1, 2).contiguous() if bucket
+                 else centroids)
+        _launch(X, cents, lin, wt, dst, level, tail, w, kid,
+                measures.kernel_param(spec), bucket, threads)
+
+    def runner(params):
+        fresh = torch.empty_like(codes)
+        launch(params["bucket"], fresh)
+        return (fresh,)
+
+    launch(tune.tuned("prealign_encode", "bucket", length=S, window=w,
+                      measure=spec.name,
+                      default=encode_geometry(D, M, K, S, w, kid)[0],
+                      runner=runner, device=dev,
+                      check=lambda b: encode_geometry(D, M, K, S, w, kid,
+                                                      b)), codes)
     return codes
 
 

@@ -19,6 +19,9 @@ naming the family.
         --reduced --device cpu --pqkv
 
 Without ``--device`` it runs on the card (and raises if there is none).
+A ``--reduced`` config draws its weights, prompts and codebook samples
+from a CPU generator, so that one ``--seed`` serves the same model on the
+card and on the CPU; a full config draws them on its device.
 """
 
 from __future__ import annotations
@@ -44,12 +47,31 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
 
 
+def margin(logits: torch.Tensor) -> torch.Tensor:
+    """``(B, 1)``: the last position's largest logit less the second (how
+    near the greedy pick is to a tie)."""
+    top = torch.topk(logits[:, -1, :].float(), 2, dim=-1).values
+    return (top[:, 0] - top[:, 1])[:, None]
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
+def random_prompt(cfg, batch: int, length: int,
+                  gen: torch.Generator) -> torch.Tensor:
+    """``(batch, length)`` int32 token ids drawn from ``gen`` on its
+    device."""
+    return torch.randint(0, cfg.vocab_size, (batch, length), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+
 def main(argv=None):
+    """Serve one batch (module docstring); returns, on the host,
+    ``{"tokens": (B, gen)`` exact greedy ids, ``"pq_tokens"``: the PQ-KV
+    decode's (or None), ``"margins"``, ``"pq_margins"``: each step's
+    top-2 logit gap (:func:`margin`)``}``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -87,15 +109,19 @@ def main(argv=None):
                          recent_window=args.pq_window,
                          quantize_v=args.pq_quantize_v)
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # a reduced config draws everything on the CPU, so one seed serves the
+    # same model, prompts and codebooks on the card and on the CPU; a full
+    # one draws on the device (billions of weights)
+    gen = torch.Generator(device="cpu" if args.reduced else dev
+                          ).manual_seed(args.seed)
     init = init_params_encdec if cfg.family == "encdec" else init_params
     params = init(cfg, gen, device=dev)
     cache = init_cache(cfg, args.batch, max_len, device=dev)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=dev, dtype=torch.int32)
+    prompt = random_prompt(cfg, args.batch, args.prompt_len, gen).to(dev)
     if cfg.family == "encdec":
         frames = torch.randn((args.batch, cfg.n_frontend_tokens,
-                              cfg.d_model), generator=gen, device=dev)
+                              cfg.d_model), generator=gen,
+                             device=gen.device).to(dev)
         cache = prefill_cache_encdec(params, cfg, cache, frames)
 
     # ---- prefill: one batched cache-filling pass where supported ----
@@ -127,6 +153,7 @@ def main(argv=None):
     # ---- decode ----
     tok = greedy(logits)
     out_exact, out_pq = [tok], [tok]
+    gap_exact, gap_pq = [margin(logits)], [margin(logits)]
     pq_tok = tok
     t0 = time.perf_counter()
     for g in range(args.gen - 1):
@@ -138,11 +165,13 @@ def main(argv=None):
             tok = greedy(logits)
             sp.fence(tok)
         out_exact.append(tok)
+        gap_exact.append(margin(logits))
         if pqc is not None:
             pq_logits, pq_cache = pq_serve_step(params, cfg, pq_cache,
                                                 pq_tok, pos, pqc=pqc)
             pq_tok = greedy(pq_logits)
             out_pq.append(pq_tok)
+            gap_pq.append(margin(pq_logits))
     _sync(dev)
     t_dec = time.perf_counter() - t0
     toks = torch.cat(out_exact, dim=1).cpu()
@@ -156,11 +185,16 @@ def main(argv=None):
               f"{h.percentile(50) * 1e3:.1f}ms / "
               f"{h.percentile(99) * 1e3:.1f}ms over {h.count} steps")
     print(f"[serve] sample output ids: {toks[0][:12].tolist()}")
+    pq_toks = pq_gaps = None
     if pqc is not None:
         pq_toks = torch.cat(out_pq, dim=1).cpu()
+        pq_gaps = torch.cat(gap_pq, dim=1).cpu()
         agree = float((pq_toks == toks).float().mean())
         print(f"[serve] PQ-KV greedy agreement with exact decode: "
               f"{agree:.1%}")
+    return {"tokens": toks, "pq_tokens": pq_toks,
+            "margins": torch.cat(gap_exact, dim=1).cpu(),
+            "pq_margins": pq_gaps}
 
 
 if __name__ == "__main__":

@@ -253,9 +253,10 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     gradient).  On the CPU, whose ``matmul`` of bf16 tensors returns bf16,
     the bf16-rounded operands are upcast and multiplied in float32; TF32
     is off, so those products are exact, and autograd's gradient of that
-    form is the reference's too."""
+    form is the reference's too.  Meta tensors take the card's form, so a
+    cost pass on them counts the card's bf16 product."""
     xb, wb = x.to(BF16), w.to(BF16)
-    if xb.is_cuda:
+    if xb.is_cuda or xb.is_meta:
         y = _MmF32.apply(xb.reshape(-1, xb.shape[-1]), wb)
         return y.reshape(*xb.shape[:-1], wb.shape[-1])
     return torch.matmul(xb.float(), wb.float())

@@ -382,12 +382,13 @@ def pq_attention_decode(q: torch.Tensor, layer_cache: PQKVCache, pos: int,
     (``cache.layer(i)``); ``window > 0`` restricts the tail and the ring
     to the last ``window`` positions (gemma2's local layers).  Returns
     ``(B, G, R, hd)`` bf16.  ``route``: ``"plain"`` or ``"kernel"``
-    (module docstring); by default the kernel for CUDA tensors with
-    ``mode="softmax"`` and exact values, else the plain route."""
+    (module docstring); by default the kernel for tensors off the CPU
+    with ``mode="softmax"`` and exact values, else the plain route."""
     lc = layer_cache
     coded_v = lc.v is None
     if route is None:
-        route = ("kernel" if q.is_cuda and pqc.mode == "softmax"
+        route = ("kernel" if q.device.type != "cpu"
+                 and pqc.mode == "softmax"
                  and not coded_v else "plain")
     B, S, G, M = lc.k_codes.shape
     R, hd = q.shape[2], q.shape[3]

@@ -399,6 +399,10 @@ def test_tune_off_and_pinned(tmp_path, monkeypatch):
     got = tdispatch.elastic_pairwise(_t(A), _t(B), 6, band="adaptive")
     lo, hi = tcorr.clip_to_width(*tcorr.build_corridor(_t(A), _t(B), 6), 4)
     assert torch.equal(got, dtw_band_adaptive(_t(A), _t(B), (lo, hi), 4, 6))
+    # auto mode measures launch geometries only: the width is part of the
+    # result, has no runner, and stays the default
     monkeypatch.setenv(ttune.ENV, "auto")
-    with pytest.raises(NotImplementedError, match="auto"):
-        ttune.tuned("adaptive_width", "width", length=64, window=6)
+    monkeypatch.setenv(ttune.OUT_ENV, str(tmp_path / "auto"))
+    ttune.reset()
+    assert ttune.adaptive_width(64, 6, measure="dtw", backend="torch") == 8
+    assert not (tmp_path / "auto").exists()

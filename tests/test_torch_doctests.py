@@ -23,7 +23,9 @@ MODULES = (
     "repro_torch.kernels.lb_cascade.ops",
     "repro_torch.kernels.pq_adc.ops",
     "repro_torch.kernels.pq_attn.ops",
+    "repro_torch.kernels.prealign_encode.ops",
     "repro_torch.kernels.tune",
+    "repro_torch.launch.specs",
     "repro_torch.models.encdec",
     "repro_torch.models.ssm",
     "repro_torch.obs",
