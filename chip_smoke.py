@@ -164,7 +164,23 @@ window 7), then the search paths beyond 1-NN on the same data:
   real step of mamba2-780m's ``train_4k`` (2 microbatches),
   ``decode_32k`` and ``prefill_32k`` at a batch of 4, each timed after a
   warm-up step, with ``max_memory_allocated`` beside its meta peak.
-  Their seconds are printed together (``new_phase_seconds``).
+- ``static_gate``, ``sanitizer_path`` and ``routing_gate`` (last): the
+  port's static analysis (``repro_torch.analysis``) clean on this
+  checkout against its baseline; every dispatch op
+  (``check_sanitizers.device_ops``, 15 legs) on tiny CUDA inputs under
+  ``torch.cuda.set_sync_debug_mode("error")``, a seeded ``.item()``
+  among them tripping under its own name and the four ADC ops at their
+  range check's read-back (``KNOWN_READS``, ROADMAP queue 3) and nowhere
+  else; then an msm index on the index path's quantizers (fused exact
+  encode, a two-level coarse quantizer of one DBA round,
+  the 6144 series inserted, 768 queries searched, ``search_sharded``,
+  flush and compaction, obs on: ``routing_leg``), and the routing gate
+  (``check_routing``) on the whole run's obs snapshot, with and without
+  the sanitizer's dispatches: every op of ``EXPECTED_OPS`` through route
+  ``cuda``, a non-DTW measure for each of ``MEASURED_OPS``, every stage
+  of ``EXPECTED_STAGES`` recorded.
+  Their seconds are printed together (``new_phase_seconds``), with the
+  card's name and power limit.
 
 Then it holds every kernel against its plain PyTorch version on the paths'
 own tensors and times both.  ``lb_refine`` is checked twice over: on every
@@ -561,7 +577,20 @@ def run_phases(torch, _build, smi: str) -> int:
         t0 = time.perf_counter()
         fn()
         phase_s[name] = time.perf_counter() - t0
-    emit({"phase": "new_phase_seconds", "seconds": phase_s})
+    # the port's gates: the static analysis, every dispatch op under the
+    # sync debug mode, and last the routing gate over the whole run
+    gates = {}
+    for name, fn in (
+            ("static_gate", static_gate),
+            ("sanitizer_path",
+             lambda: gates.update(sanitized=sanitizer_path(torch, _build))),
+            ("routing_gate",
+             lambda: routing_gate(torch, _build, ctx, gates["sanitized"]))):
+        t0 = time.perf_counter()
+        fn()
+        phase_s[name] = time.perf_counter() - t0
+    emit({"phase": "new_phase_seconds", "nvidia_smi": nvidia_smi_line(),
+          "seconds": phase_s})
     emit({"kernels": kernels})
 
     out = ROOT / "chiprun_out" / "chip_smoke.jsonl"
@@ -3664,6 +3693,193 @@ def cell_path(torch) -> dict:
 def _all_cells():
     from repro_torch.configs.registry import all_cells
     return list(all_cells())
+
+
+# ---------------------------------------------------------------------------
+# The port's gates: static analysis, sync sanitizer, routing
+# ---------------------------------------------------------------------------
+
+ROUTING_MEASURE = "msm:c=0.5"   # the routing leg's non-DTW measure
+ROUTING_TOP_LISTS, ROUTING_PROBE_TOP = 8, 2
+# one DBA round for the two-level table (the index's default is 8): the
+# table only has to exist for the two-level stage to dispatch
+ROUTING_COARSE_ITERS = 1
+
+
+def static_gate() -> dict:
+    """``repro_torch.analysis`` over this checkout against its baseline
+    (``python -m repro_torch.analysis.check_static``, in-process): no new
+    finding, no stale or unjustified baseline entry."""
+    from repro_torch.analysis import analyze, engine
+    report = analyze(ROOT, baseline_path=ROOT / engine.BASELINE)
+    g = report.graph
+    record = {"phase": "static_gate", "modules": len(g.modules),
+              "functions": len(g.functions), "hot_roots": len(g.hot_roots()),
+              "hot_reachable": len(g.hot_reachable()),
+              "baselined": len(report.baselined),
+              "findings": [f.render(ROOT) for f in report.findings],
+              "stale": report.stale_baseline,
+              "unjustified": report.unjustified_baseline}
+    emit(record)
+    check(report.clean, f"static_gate: {record}")
+    return record
+
+
+def _dispatch_counts(snap: dict) -> dict:
+    return {tuple(sorted(c["labels"].items())): c["value"]
+            for c in snap["counters"] if c["name"] == "dispatch_total"}
+
+
+def sanitizer_path(torch, _build) -> dict:
+    """Every dispatch op (``check_sanitizers.device_ops``: the routing
+    gate's 11 and the 4 measured ones under a non-DTW measure) on tiny
+    device-resident inputs, warmed up and then run again under
+    ``torch.cuda.set_sync_debug_mode("error")``: none may wait for the
+    card but the ops of ``check_sanitizers.KNOWN_READS`` (ROADMAP queue
+    3), which must trip at their own call and are reported as failing.
+    A seeded thunk that calls ``.item()`` sits among them and must
+    trip under its own name; the mode must be back at 0 after.  Returns
+    the dispatch counts the phase added (the routing gate takes them out
+    again for its check of the other paths)."""
+    from repro_torch import obs
+    from repro_torch.analysis import check_sanitizers
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    ops = check_sanitizers.device_ops()
+    ops.insert(len(ops) // 2, ("seeded_item", lambda: x.sum().item()))
+    before = _dispatch_counts(obs.snapshot())
+    _build.reset_launches()
+    results = check_sanitizers.run(ops)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    after = _dispatch_counts(obs.snapshot())
+    trips = {n: e for n, e in results if e is not None}
+    known = [n for n, e in trips.items() if check_sanitizers.known(n, e)]
+    emit({"phase": "sanitizer_path", "mode": "error",
+          "clean": [n for n, e in results if e is None],
+          "trips": trips, "known_reads": known, "launches": launches})
+    if known:
+        print(f"sanitizer_path: FAIL for {len(known)} op(s) that read the "
+              f"card back where the reference's do not (ROADMAP queue 3, "
+              f"check_sanitizers.KNOWN_READS): {', '.join(known)}",
+              file=sys.stderr, flush=True)
+    check(set(trips) - set(known) == {"seeded_item"},
+          f"sanitizer_path: no trip but the seeded .item() and the known "
+          f"reads, each at its own call: {trips}")
+    check(sorted(known) == sorted(check_sanitizers.KNOWN_READS),
+          f"sanitizer_path: every known read trips at its call (a read "
+          f"that is gone leaves KNOWN_READS and ROADMAP queue 3): {trips}")
+    check(".item()" in trips["seeded_item"],
+          f"sanitizer_path: the seeded trip names its call: {trips}")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "sanitizer_path: the sync debug mode is reset")
+    for k in MAIN_PATH_KERNELS + ("lb_refine", "dtw_band_adaptive",
+                                  "lb_refine_adaptive", "adc_sym_quant",
+                                  "adc_lookup_quant"):
+        check(launches.get(k, 0) > 0, f"sanitizer_path launched {k}")
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def routing_leg(torch, _build, ctx) -> dict:
+    """The smallest leg that dispatches the measured ops under a non-DTW
+    measure on the card at real shapes (no earlier path does: the sweeps
+    of ``measure_sweep`` call the kernels directly): an msm index on the
+    index path's quantizers (the codebook's LUT rebuilt under msm) with
+    the fused exact encode and a two-level coarse quantizer (one DBA
+    round over the 64 coarse centroids), the 6144
+    series inserted, the 768 queries searched, ``search_sharded`` on 256
+    of them, then a flush, a compaction and a search again, with obs on.
+    The two-level coarse stage with every top probed must equal the flat
+    coarse matrix."""
+    from repro_torch import obs
+    from repro_torch.core import dispatch, pq
+    from repro_torch.index import IndexConfig, StreamingIndex
+    from repro_torch.index.planner import search_sharded
+
+    X, Qd, D = ctx["X"], ctx["Qd"], ctx["D"]
+    st = ctx["index_state"]
+    pcfg = dataclasses.replace(
+        pq.PQConfig(), metric="msm", measure_params=(("c", 0.5),),
+        exact_encode=True)
+    cfg = IndexConfig(pcfg, n_lists=INDEX_LISTS, hot_capacity=HOT_CAPACITY,
+                      n_top_lists=ROUTING_TOP_LISTS,
+                      n_probe_top=ROUTING_PROBE_TOP,
+                      coarse_iters=ROUTING_COARSE_ITERS)
+    check(pq.uses_fused_prealign(pcfg), "routing leg: the fused encode")
+    seconds = {}
+    _build.reset_launches()
+    dispatch.reset_stats()
+    with obs.override(True):
+        cb, seconds["codebook"] = _timed(
+            torch, lambda: pq.codebook_from_centroids(st["cb"].centroids,
+                                                      pcfg, D))
+        idx, seconds["index"] = _timed(torch, lambda: StreamingIndex(
+            cfg, st["coarse"], cb, D, device=Qd.device))
+        _, seconds["insert"] = _timed(torch, lambda: idx.insert(X))
+        (d, i), seconds["search"] = _timed(torch, lambda: idx.search(
+            Qd, n_probe=N_PROBE, topk=TOPK))
+        Qs = Qd[:SHARDED_QUERIES]
+        want = idx.search(Qs, n_probe=N_PROBE, topk=TOPK)
+        sharded, seconds["sharded"] = _timed(torch, lambda: search_sharded(
+            idx, Qs, n_probe=N_PROBE, topk=TOPK, partition="queries"))
+        _, seconds["flush_compact"] = _timed(
+            torch, lambda: (idx.flush(), idx.compact()))
+        (cd, ci), seconds["search_compacted"] = _timed(
+            torch, lambda: idx.search(Qd, n_probe=N_PROBE, topk=TOPK))
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    stats = {f"{op}:{route}": n for (op, route), n in dispatch.stats.items()}
+    N, Nq = X.shape[0], Qd.shape[0]
+    for dd, ii, what in ((d, i, "search"), (cd, ci, "compacted search")):
+        check(tuple(dd.shape) == (Nq, TOPK) and bool(torch.isfinite(dd).all())
+              and bool(((ii >= 0) & (ii < N)).all()),
+              f"routing leg {what}: finite distances, ids in range")
+    ties = _same_up_to_ties(torch, sharded, want,
+                            "routing leg: search_sharded")
+    tl, w = idx.two_level, cfg.coarse_window(D)
+    two = dispatch.two_level_coarse(
+        Qs, tl.top, idx.coarse, tl.child_idx, tl.child_valid, w,
+        n_probe_top=ROUTING_TOP_LISTS, measure=ROUTING_MEASURE)
+    flat = dispatch.elastic_cdist(Qs, idx.coarse, w, measure=ROUTING_MEASURE)
+    _, two_rel, ok = _errors(torch, two, flat)
+    check(ok, "routing leg: the two-level coarse stage with every top "
+          "probed equals the flat coarse matrix")
+    for key in ("prealign_encode[msm]:cuda", "elastic_cdist[msm]:cuda",
+                "elastic_pairwise[msm]:cuda", "two_level_coarse[msm]:cuda"):
+        check(stats.get(key, 0) > 0, f"routing leg dispatched {key}")
+    record = {"phase": "routing_leg", "measure": ROUTING_MEASURE,
+              "n_lists": INDEX_LISTS, "n_top_lists": ROUTING_TOP_LISTS,
+              "coarse_iters": ROUTING_COARSE_ITERS,
+              "n_probe_top": ROUTING_PROBE_TOP, "n_probe": N_PROBE,
+              "topk": TOPK, "inserted": N, "queries": Nq,
+              "segments": idx.n_segments, "sharded_tie_reorders": ties,
+              "two_level_max_rel_err": two_rel, "seconds": seconds,
+              "dispatch": stats, "launches": launches}
+    emit(record)
+    return record
+
+
+def routing_gate(torch, _build, ctx, sanitized: dict) -> dict:
+    """Last: the routing leg, then ``check_routing.check`` on the whole
+    run's obs snapshot (route ``"cuda"`` for the 11 ops, a non-DTW
+    measure for the 4 measured ones, every instrumented stage recorded
+    with obs on), and again with the sanitizer's tiny dispatches taken
+    out, so the paths themselves pass."""
+    from repro_torch import obs
+    from repro_torch.analysis import check_routing
+    routing_leg(torch, _build, ctx)
+    snap = obs.snapshot()
+    rc, lines = check_routing.check(snap, "cuda", stages=True)
+    paths = dict(snap, counters=[
+        dict(c, value=c["value"] - sanitized.get(
+            tuple(sorted(c["labels"].items())), 0))
+        if c["name"] == "dispatch_total" else c for c in snap["counters"]])
+    rc_paths, lines_paths = check_routing.check(paths, "cuda", stages=True)
+    emit({"phase": "routing_gate", "route": "cuda", "rc": rc,
+          "report": lines, "rc_without_sanitizer": rc_paths,
+          "report_without_sanitizer": lines_paths[-2:]})
+    check(rc == 0, "routing_gate: " + " | ".join(lines[-2:]))
+    check(rc_paths == 0, "routing_gate without the sanitizer's dispatches: "
+          + " | ".join(lines_paths[-2:]))
+    return {"rc": rc}
 
 
 def small_sequential_reference(torch, arch) -> dict:

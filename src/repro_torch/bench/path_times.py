@@ -74,9 +74,11 @@ def main(argv=None) -> int:
     Xd = torch.from_numpy(X).cuda()
 
     def timed(fn):
+        # repro: ignore[RS101] benchmark timing: the clock is read once the card is done
         torch.cuda.synchronize()
         start = time.perf_counter()
         fn()
+        # repro: ignore[RS101] benchmark timing: the clock is read once the card is done
         torch.cuda.synchronize()
         return time.perf_counter() - start
 

@@ -81,14 +81,13 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     """``jnp.linspace(0, 1, n, dtype=float32)`` to the bit, as XLA computes
     it: point ``s`` is ``float32(s) * float32(1 / (n - 1))`` (the compiler
     turns the division by a constant into a product with its float32
-    reciprocal) and the last point is exactly 1."""
-    if n == 1:
-        grid = np.zeros(1, np.float32)
-    else:
-        recip = np.float32(1.0) / np.float32(n - 1)
-        grid = np.arange(n, dtype=np.float32) * recip
-        grid[-1] = np.float32(1.0)
-    return torch.from_numpy(grid).to(device)
+    reciprocal) and the last point is exactly 1.  Made where it is used,
+    so a call on the card uploads nothing."""
+    grid = torch.arange(n, dtype=torch.float32, device=device)
+    if n > 1:
+        grid = grid * float(np.float32(1.0) / np.float32(n - 1))
+        grid[-1:].fill_(1.0)
+    return grid
 
 
 def extract_segments(X: torch.Tensor, bounds: torch.Tensor, out_len: int,

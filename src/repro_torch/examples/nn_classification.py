@@ -39,6 +39,7 @@ def main(argv=None):
 
     def sync():
         if dev.type == "cuda":
+            # repro: ignore[RS101] the example's timing, off the hot path
             torch.cuda.synchronize(dev)
 
     Xtr, ytr = trace_like(n_per_class=15, length=128, seed=0)

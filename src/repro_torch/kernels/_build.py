@@ -190,6 +190,7 @@ def _compile_and_link(lib_path: Path) -> None:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built at first use; one thread loads it
     while the others wait)."""
+    # repro: ignore[RS104] the library handle, set once under _lib_lock
     global _lib
     if _lib is not None:
         return _lib

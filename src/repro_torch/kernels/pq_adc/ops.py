@@ -443,7 +443,8 @@ def quantize_lut(lut: torch.Tensor, dtype: str = "int8"):
     lo = flat.amin(dim=1, keepdim=True)
     hi = flat.amax(dim=1, keepdim=True)
     zero = (hi + lo) * 0.5
-    scale = torch.clamp(hi - lo, min=1e-12) * _INV_254.to(lut.device)
+    # a CPU scalar: a CUDA product reads it on the host, no upload
+    scale = torch.clamp(hi - lo, min=1e-12) * _INV_254
     q = torch.clamp(torch.round((flat - zero) / scale), -127, 127)
     return q.to(torch.int8).reshape(lut.shape), scale, zero
 

@@ -1,3 +1,4 @@
+# repro: ignore[RS202] serving-side attention kernel, consumed directly
 """Wrappers of the PQ attention CUDA kernel (``csrc/pq_attn.cu``).
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches

@@ -158,8 +158,10 @@ def _load(path: str) -> Dict[str, Dict[str, int]]:
         if path not in _pinned:
             try:
                 with open(path, encoding="utf-8") as f:
+                    # repro: ignore[RS104] the tuner's tables, under _lock
                     _pinned[path] = json.load(f)
             except (OSError, ValueError):
+                # repro: ignore[RS104] the tuner's tables, under _lock
                 _pinned[path] = {}
         return _pinned[path]
 
@@ -181,6 +183,7 @@ def _persist(path: str, key: str, entry: Dict[str, int]) -> None:
         except BaseException:
             os.unlink(tmp)
             raise
+        # repro: ignore[RS104] the tuner's tables, under _lock
         _pinned[path] = table
 
 
@@ -221,6 +224,7 @@ def _time(runner: Runner, params: Dict[str, int]
         start.record()
         out = runner(params)
         stop.record()
+        # repro: ignore[RS101] REPRO_TUNE=auto's timing, once a geometry
         stop.synchronize()
         best = min(best, start.elapsed_time(stop))
     return best, out
@@ -271,6 +275,7 @@ def _measure(key: str, op: str, defaults: Dict[str, int],
             lines.append(line)
             if ms < best_ms:
                 best, best_ms = cand, ms
+    # repro: ignore[RS104] the tuner's tables, under _lock
     REPORT.append({"key": key, "candidates": lines, "winner": best,
                    "winner_ms": best_ms})
     return best
@@ -299,11 +304,13 @@ def resolve(op: str, defaults: Dict[str, int], *, length: int,
     with _lock:
         stored = _memo.get(key, _load(_out_path()).get(key))
         if stored is not None and _admits(check, dict(defaults, **stored)):
+            # repro: ignore[RS104] the tuner's tables, under _lock
             _memo[key] = stored
             return dict(defaults, **stored)
         if runner is None or not _can_measure(device):
             return defaults
         best = _measure(key, op, defaults, runner)
+        # repro: ignore[RS104] the tuner's tables, under _lock
         _memo[key] = best
         _persist(_out_path(), key, best)
         return best

@@ -56,6 +56,7 @@ def margin(logits: torch.Tensor) -> torch.Tensor:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
+        # repro: ignore[RS101] the CLI's timing, off the servable step
         torch.cuda.synchronize(device)
 
 

@@ -485,6 +485,7 @@ def moe(p: MoeParams, cfg: ModelConfig, x: torch.Tensor,
         routed.scatter_add_(0, top_i.reshape(-1),
                             torch.ones_like(top_i.reshape(-1)))
         kept = (w_ec > 0).sum(dim=1)
+        # repro: ignore[RS101] routing statistics, only when asked for
         stats.update(routed=routed, dropped=int((routed - kept).sum()),
                      top_i=top_i, tok_ec=tok_ec)
     xg = xf[tok_ec.reshape(-1)].reshape(E, C, d).to(BF16).float()

@@ -100,9 +100,12 @@ class IndexServer:
     replication/backup hooks; it must not mutate the index.
     """
 
-    # Threading contract: _index, _version and _view belong to the writer
-    # thread and are (re)bound only in _writer_loop, _apply and _publish;
-    # readers see them through the immutable published IndexView.
+    # Threading contract, enforced statically (RS301 in
+    # repro_torch.analysis): these fields are owned by the writer thread
+    # and may only be (re)bound from the methods below; readers see them
+    # through the immutable published IndexView, never directly.
+    _WRITER_ONLY = frozenset({"_index", "_version", "_view"})
+    _WRITER_METHODS = frozenset({"_writer_loop", "_apply", "_publish"})
 
     def __init__(self, index: StreamingIndex,
                  cfg: Optional[ServeConfig] = None,

@@ -68,6 +68,8 @@ step a family against the CPU route, and the same step twice bit for bit.
 import pytest
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import check_routing, check_sanitizers
 from repro_torch.core import corridor as tcorr
 from repro_torch.core import lb as tlb
 from repro_torch.core import lb_search
@@ -113,6 +115,39 @@ def gen():
 
 def _randn(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda")
+
+
+def test_sanitizer_trips_only_at_the_known_reads(gen):
+    # every op is clean but those of KNOWN_READS (ROADMAP queue 3), and
+    # each of those trips at its own call
+    ops = check_sanitizers.device_ops()
+    results = check_sanitizers.run(ops)
+    assert [n for n, _ in results] == [n for n, _ in ops]
+    trips = {n: e for n, e in results if e is not None}
+    assert set(trips) == set(check_sanitizers.KNOWN_READS), trips
+    assert all(check_sanitizers.known(n, e) for n, e in trips.items()), trips
+
+
+def test_sanitizer_names_a_seeded_item(gen):
+    x = _randn(gen, 8)
+    ops = check_sanitizers.device_ops()[:2]
+    ops.insert(1, ("seeded_item", lambda: x.sum().item()))
+    results = dict(check_sanitizers.run(ops))
+    assert [n for n, e in results.items() if e is not None] == \
+        ["seeded_item"]
+    assert ".item()" in results["seeded_item"]
+    assert torch.cuda.get_sync_debug_mode() == 0     # reset
+
+
+def test_routing_gate_on_one_dispatch_of_each_op(gen, monkeypatch):
+    reg = obs.Registry()
+    monkeypatch.setattr(obs.registry, "REGISTRY", reg)
+    for _, thunk in check_sanitizers.device_ops():
+        thunk()
+    snap = obs.snapshot(reg)
+    rc, lines = check_routing.check(snap, "cuda", stages=False)
+    assert rc == 0, lines
+    assert check_routing.check(snap, "torch", stages=False)[0] == 1
 
 
 @pytest.mark.parametrize("measure", MEASURES)
