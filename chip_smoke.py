@@ -164,14 +164,31 @@ window 7), then the search paths beyond 1-NN on the same data:
   real step of mamba2-780m's ``train_4k`` (2 microbatches),
   ``decode_32k`` and ``prefill_32k`` at a batch of 4, each timed after a
   warm-up step, with ``max_memory_allocated`` beside its meta peak.
+- ``mesh_path`` (after ``cell_path``): the multi-device rules on one card.
+  A child process builds a ``(1, 1)`` ``DeviceMesh`` on an NCCL group of
+  one and runs internlm2-1.8b at full width and depth twice, without a
+  mesh and laid out as ``DTensor`` s by the partition rules: one train
+  step at 8 x 1024, then 4 exact and 4 PQ-KV decode steps after a 4 x
+  1024 prefill (row 11 inside ``local_map``, 24 x 4 launches, in this
+  phase's record and added to row 11's record); each equal bit for bit.
+  Then row 11 on one layer's cache split four ways along its sequence,
+  each shard in a thread, equal to the one-device call within one bf16
+  ulp (``split_pq_decode``).  Beside it the per-device dry runs (``launch/dryrun.py --mesh
+  single`` and ``multi``, a process a record) of ``MESH_CELLS`` (16
+  records: per-device peak, FLOPs,
+  collective bytes by kind, roofline terms), every one ``ok``, a train
+  cell's per-device bf16 FLOPs times its devices within
+  ``MESH_FLOPS_RATIO`` of the card's count.
 - ``static_gate``, ``sanitizer_path`` and ``routing_gate`` (last): the
   port's static analysis (``repro_torch.analysis``) clean on this
   checkout against its baseline; every dispatch op
-  (``check_sanitizers.device_ops``, 15 legs) on tiny CUDA inputs under
+  (``check_sanitizers.device_ops``, 15 legs, and the two 1-NN entry
+  points over encoded codes) on tiny CUDA inputs under
   ``torch.cuda.set_sync_debug_mode("error")``, a seeded ``.item()``
-  among them tripping under its own name and the four ADC ops at their
-  range check's read-back (``KNOWN_READS``, ROADMAP queue 3) and nowhere
-  else; then an msm index on the index path's quantizers (fused exact
+  among them tripping under its own name and nothing else
+  (``KNOWN_READS``, ROADMAP queue 3, is empty: the ADC wrappers read
+  nothing back since their range check moved to where codes enter the
+  program); then an msm index on the index path's quantizers (fused exact
   encode, a two-level coarse quantizer of one DBA round,
   the 6144 series inserted, 768 queries searched, ``search_sharded``,
   flush and compaction, obs on: ``routing_leg``), and the routing gate
@@ -375,6 +392,26 @@ CELL_RUNS = (("mamba2-780m", "train_4k", None, ""),
              ("mamba2-780m", "decode_32k", None, ""),
              (CELL_PREFILL[0], CELL_PREFILL[1],
               {"global_batch": CELL_PREFILL[2]}, f"b{CELL_PREFILL[2]}"))
+# mesh_path: the host mesh on the card (internlm2-1.8b at full width and
+# depth) and the per-device dry runs of one cell of each family and kind
+MESH_ARCH = "internlm2-1.8b"
+MESH_TRAIN = (8, 1024)            # batch x sequence of the train step
+MESH_DECODE = (4, 1024, 4)        # batch, prompt, decode steps a route
+MESH_CHILD_TIMEOUT_S = 420
+# row 11 on a cache split along its sequence (split_pq_decode): shards,
+# decode positions (of MESH_DECODE's 1028), and the bound: the merge
+# reorders the tail's float32 softmax sums before the one rounding to
+# bf16, so an element moves by at most one bf16 ulp (2**-7 relative)
+MESH_SPLIT = 4
+MESH_SPLIT_POS = (1024, 300)
+MESH_SPLIT_TOL = {"rtol": 2 ** -7, "atol": 2 ** -12}
+MESH_CELLS = (("internlm2-1.8b", "train_4k"), ("internlm2-1.8b", "decode_32k"),
+              ("qwen2-72b", "train_4k"), ("qwen2-72b", "prefill_32k"),
+              ("deepseek-moe-16b", "train_4k"), ("mamba2-780m", "train_4k"),
+              ("mamba2-780m", "long_500k"),
+              ("seamless-m4t-large-v2", "decode_32k"))
+MESH_CELL_WAIT_S = 420
+MESH_FLOPS_RATIO = 1.10   # a train cell: per-device bf16 FLOPs x devices
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
                      "prealign_encode")
 TPU_SITES = {
@@ -573,7 +610,8 @@ def run_phases(torch, _build, smi: str) -> int:
             ("tune_path", lambda: tune_path(torch, _build, ctx, waves)),
             ("examples_lm_path",
              lambda: examples_lm_path(torch, _build, kernels)),
-            ("cell_path", lambda: cell_path(torch))):
+            ("cell_path", lambda: cell_path(torch)),
+            ("mesh_path", lambda: mesh_path(torch, _build, kernels))):
         t0 = time.perf_counter()
         fn()
         phase_s[name] = time.perf_counter() - t0
@@ -3696,6 +3734,320 @@ def _all_cells():
 
 
 # ---------------------------------------------------------------------------
+# The multi-device rules on one card: the host mesh and the per-device
+# dry runs
+# ---------------------------------------------------------------------------
+
+def start_mesh_counts() -> list:
+    """Start the per-device dry runs of ``MESH_CELLS`` (``launch/dryrun.py
+    --mesh single`` and ``--mesh multi``, one process a record, 16 on the
+    host's cores) into ``chiprun_out/dryrun_mesh``: CPU work only."""
+    import os
+    out = ROOT / "chiprun_out" / "dryrun_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    logs = ROOT / "chiprun_out" / "dryrun_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in MESH_CELLS:
+        for mesh in ("single", "multi"):
+            log = logs / f"mesh_{arch}_{shape}_{mesh}.log"
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--out", str(out), "--arch", arch, "--shape", shape,
+                     "--mesh", mesh], env=env, cwd=str(ROOT), stdout=f,
+                    stderr=subprocess.STDOUT, start_new_session=True))
+            procs[-1].log = log
+    return procs
+
+
+def mesh_path(torch, _build, kernels) -> dict:
+    """The partition rules and the mesh forms of the model on the card.
+
+    The per-device dry runs of ``MESH_CELLS`` start in background processes
+    (``start_mesh_counts``, one a record), and meanwhile a child process
+    (``mesh_child``: this process never holds a process group) builds a
+    real ``(1, 1)`` ``DeviceMesh`` over ``("data", "model")`` on an NCCL
+    group of one and runs ``MESH_ARCH`` at full width and depth from
+    seeded weights twice, without a mesh and laid out as ``DTensor`` s by
+    the partition rules: one train step (``launch/train``'s step:
+    ``state_specs``, ``make_train_step``, ``mesh_context``), then
+    ``MESH_DECODE`` exact and PQ-KV decode steps from one prefilled cache,
+    the PQ steps' row 11 launched inside the ``local_map`` of
+    ``models/spmd.py``.  Each mesh run equals its meshless run bit for
+    bit: the loss, every updated master, every logit.  One model state is
+    on the card at a time; the meshless results wait on the host.  Then
+    row 11 on one layer's cache split four ways along its sequence
+    (``split_pq_decode``: the mesh's split branch, each shard in a thread)
+    must equal the one-device call.  Row 11's launches of the mesh steps
+    are this record's and are added to row 11's record in ``kernels``;
+    the ``main_path`` line keeps the main path's own counts.  Then every
+    dry-run record is printed (per-device peak, FLOPs by type, collective
+    bytes by kind, the roofline's terms, the gathers the port forces) and
+    must be ``ok``; a train cell's per-device bf16 FLOPs times its
+    devices lie within ``MESH_FLOPS_RATIO`` of one card's count
+    (``cell_path``'s records)."""
+    out = ROOT / "chiprun_out" / "mesh_child.json"
+    log = ROOT / "chiprun_out" / "mesh_child.log"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = start_mesh_counts()
+    try:
+        _free(torch)
+        with open(log, "w") as f:
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.mesh_child(sys.argv[1]))", str(out)],
+                cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT,
+                timeout=MESH_CHILD_TIMEOUT_S)
+        check(proc.returncode == 0 and out.exists(), "mesh_path: the host "
+              f"mesh's child process failed: {log.read_text()[-3000:]}")
+        child = json.loads(out.read_text())
+        child_s = time.perf_counter() - t0
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_CELL_WAIT_S
+                               - (time.perf_counter() - t0)))
+            check(p.returncode == 0, f"mesh_path: a per-device dry run "
+                  f"failed: {p.log.read_text()[-2000:]}")
+    finally:
+        stop(procs)
+    records = _mesh_records()
+    record = {"phase": "mesh_path", "host_mesh": child,
+              "child_s": child_s, "wait_s": time.perf_counter() - t0,
+              "cells": records, "nvidia_smi": nvidia_smi_line()}
+    emit(record)
+    for what in ("train", "exact", "pq"):
+        check(child[what]["equal"], f"mesh_path: the host mesh's {what} "
+              f"run equals the meshless run bit for bit: {child[what]}")
+    n = child["launches"].get("pq_attn", 0)
+    check(n == child["pq_attn_expected"] > 0, f"mesh_path: row 11 launched "
+          f"inside local_map once a layer a PQ step: {child['launches']}")
+    check(all(r["within"] and r["launches"] == MESH_SPLIT
+              for r in child["split"]), f"mesh_path: row 11 over a "
+          f"sequence split {MESH_SPLIT} ways equals the one-device call "
+          f"within {MESH_SPLIT_TOL}: {child['split']}")
+    check(len(records) == 2 * len(MESH_CELLS) and all(
+        r["ok"] for r in records), f"mesh_path: every per-device record ok: "
+        f"{[(r['cell'], r.get('error')) for r in records if not r['ok']]}")
+    for r in records:
+        if r.get("card_ratio") is not None:
+            check(r["card_ratio"] <= MESH_FLOPS_RATIO, f"mesh_path: "
+                  f"{r['cell']}: per-device bf16 FLOPs x devices within "
+                  f"{MESH_FLOPS_RATIO}x of the card's: {r['card_ratio']}")
+    for row in kernels:
+        if row["name"] == "pq_attn":
+            row["launches"] += n
+    return record
+
+
+def _mesh_records() -> list:
+    """The per-device records, each beside its cell's one-card count."""
+    card_dir = ROOT / "chiprun_out" / "dryrun"
+    rows = []
+    for path in sorted((ROOT / "chiprun_out" / "dryrun_mesh").glob("*.json")):
+        r = json.loads(path.read_text())
+        row = {"cell": path.stem, "ok": r["ok"], "chips": r["chips"]}
+        if not r["ok"]:
+            rows.append(dict(row, error=r.get("error")))
+            continue
+        ro, m = r["roofline"], r["memory"]
+        card = card_dir / f"{r['arch']}__{r['shape']}__card.json"
+        ratio = None
+        if card.exists() and r["shape"].startswith("train"):
+            c = json.loads(card.read_text())["roofline"]
+            ratio = ro["flops_bf16"] * r["chips"] / c["flops_bf16"]
+        rows.append(dict(
+            row, peak_gib=m["peak_bytes"] / 2 ** 30,
+            flops_bf16=ro["flops_bf16"], flops_f32=ro["flops_f32"],
+            collectives=r["collectives"], compute_s=ro["compute_s"],
+            memory_s=ro["memory_s"], collective_s=ro["collective_s"],
+            bound=ro["bound"], card_ratio=ratio,
+            forced=[(f["tensor"], f["bytes"]) for f in r["forced"][:4]],
+            count_s=r["t_count_s"]))
+    return rows
+
+
+def mesh_child(out: str) -> int:
+    """``mesh_path``'s child: an NCCL group of one, the ``(1, 1)`` host
+    mesh, and ``MESH_ARCH``'s train step and decode steps without and on
+    the mesh; the comparisons and row 11's launches on the mesh written to
+    ``out`` as JSON."""
+    import gc
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch.cells import mesh_context, state_specs
+    from repro_torch.launch.mesh import device_mesh, make_host_mesh
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.pqkv import (PQKVConfig, compress_cache,
+                                        pq_serve_step)
+    from repro_torch.serve.prefill import prefill
+    from repro_torch.sharding import partition as P
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    store = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/pg",
+                            rank=0, world_size=1)
+    result = {}
+    try:
+        mesh = device_mesh(make_host_mesh(), "cuda")
+        cfg = get_config(MESH_ARCH)
+        dev = torch.device("cuda")
+
+        # -- one train step: meshless, then on the mesh ------------------
+        B, S = MESH_TRAIN
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+            cfg.vocab_size, S, B).batch_at(0).items()}
+        step = make_train_step(cfg, AdamWConfig(), q_chunk=512)
+
+        def train(on_mesh):
+            state = init_train_state(
+                torch.Generator(device=dev).manual_seed(0), cfg, dev)
+            b = batch
+            if on_mesh:
+                state = P.distribute(state, state_specs(state, mesh), mesh)
+                b = P.distribute(batch, P.batch_specs(batch, mesh), mesh)
+            t0 = time.perf_counter()
+            with mesh_context(mesh if on_mesh else None):
+                state, metrics = step(state, b)
+                loss = float(P.full(metrics["loss"]))
+            # repro: ignore[RS101] the step's time, read once the card is done
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            return state, loss, secs
+
+        state, loss_plain, s_plain = train(False)
+        host = [t.detach().cpu() for t in _tree.leaves(state.params)]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, loss_mesh, s_mesh = train(True)
+        differ = [i for i, (t, h) in enumerate(zip(
+            _tree.leaves(state.params), host))
+            if not torch.equal(P.full(t).cpu(), h)]
+        result["train"] = {"batch": [B, S], "loss": [loss_plain, loss_mesh],
+                           "seconds": [s_plain, s_mesh],
+                           "leaves": len(host), "leaves_differ": len(differ),
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2 ** 30,
+                           "equal": loss_plain == loss_mesh and not differ}
+        del state, host
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- decode: exact and PQ-KV, meshless then on the mesh ----------
+        B, prompt, n = MESH_DECODE
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = init_params(cfg, gen, dev)
+        cache = init_cache(cfg, B, prompt + n, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, prompt + n), device=dev,
+                             generator=gen, dtype=torch.int32)
+        with torch.no_grad():
+            _, cache = prefill(params, cfg, cache,
+                               {"tokens": toks[:, :prompt]})
+            pqc = PQKVConfig()
+            pq = compress_cache({"k": cache["k"], "v": cache["v"].clone()},
+                                cfg, pqc, pos=prompt, generator=torch.
+                                Generator(device=dev).manual_seed(2))
+        m_params = P.distribute(params, P.param_specs(params, mesh,
+                                                      fsdp=False), mesh)
+
+        def decode(on_mesh, pq_cache=None):
+            c = _tree.tree_map(lambda t: t.clone(),
+                               cache if pq_cache is None else pq_cache)
+            p_ = params
+            if on_mesh:
+                p_ = m_params
+                c = P.distribute(c, P.cache_specs(c, mesh), mesh)
+            logits = []
+            with torch.no_grad(), mesh_context(mesh if on_mesh else None):
+                for i in range(n):
+                    tok = toks[:, prompt + i:prompt + i + 1]
+                    if on_mesh:
+                        tok = P.distribute({"token": tok}, P.batch_specs(
+                            {"token": tok}, mesh), mesh)["token"]
+                    if pq_cache is None:
+                        out, c = serve_step(p_, cfg, c, tok, prompt + i)
+                    else:
+                        out, c = pq_serve_step(p_, cfg, c, tok, prompt + i,
+                                               pqc=pqc)
+                    logits.append(P.full(out).cpu())
+            return torch.stack(logits)
+
+        for what, pq_cache in (("exact", None), ("pq", pq)):
+            plain = decode(False, pq_cache)
+            _build.reset_launches()
+            on_mesh = decode(True, pq_cache)
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            result[what] = {"batch": B, "prompt": prompt, "steps": n,
+                            "max_abs_diff": float(
+                                (on_mesh - plain).abs().max()),
+                            "equal": torch.equal(on_mesh, plain)}
+            if pq_cache is not None:
+                result["launches"] = launches
+                result["pq_attn_expected"] = cfg.n_layers * n
+        result["split"] = split_pq_decode(torch, pq.layer(0), pqc, cfg)
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+def split_pq_decode(torch, lc, pqc, cfg) -> list:
+    """Row 11 on a sequence split over ``MESH_SPLIT`` ranks, as a
+    ``model`` axis of that size splits it: one layer's compressed cache
+    cut into shards along its positions, each shard's decode attention
+    (``pq_attention_decode``'s ``s0`` / ``reduce``, the kernel on the
+    shard's part of the tail, the log-sum-exp merge) run in a thread of
+    its own by ``partition.shard_threads``, against the one-device call
+    on the whole cache, at ``MESH_SPLIT_POS`` (the later leaves the last
+    shards without a tail position).  Returns each position's worst
+    error and its bound (``MESH_SPLIT_TOL``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.pqkv import pq_attention_decode
+    from repro_torch.sharding.partition import shard_threads
+    B, S, G = lc.k_codes.shape[:3]
+    R, hd = cfg.n_heads // G, cfg.head_dim_
+    Sl = S // MESH_SPLIT
+    dev = lc.k_codes.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((B, G, R, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    rows = []
+    for pos in MESH_SPLIT_POS:
+        want = pq_attention_decode(q, lc, pos, pqc=pqc).float()
+
+        def shard(rank, reduce, pos=pos):
+            part = lc._replace(k_codes=lc.k_codes[:, rank * Sl:
+                                                  (rank + 1) * Sl],
+                               v=lc.v[:, rank * Sl:(rank + 1) * Sl])
+            return pq_attention_decode(q, part, pos, pqc=pqc,
+                                       s0=rank * Sl, reduce=reduce)
+
+        before = _build.LAUNCHES["pq_attn"]
+        got = shard_threads(shard, MESH_SPLIT)
+        err = max(float((g.float() - want).abs().max()) for g in got)
+        bound = max(float((MESH_SPLIT_TOL["atol"] + MESH_SPLIT_TOL["rtol"]
+                           * want.abs() - (g.float() - want).abs()).min())
+                    for g in got)
+        rows.append({"pos": pos, "shards": MESH_SPLIT, "max_abs_err": err,
+                     "launches": _build.LAUNCHES["pq_attn"] - before,
+                     "within": bound >= 0.0})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # The port's gates: static analysis, sync sanitizer, routing
 # ---------------------------------------------------------------------------
 
@@ -3732,11 +4084,14 @@ def _dispatch_counts(snap: dict) -> dict:
 
 def sanitizer_path(torch, _build) -> dict:
     """Every dispatch op (``check_sanitizers.device_ops``: the routing
-    gate's 11 and the 4 measured ones under a non-DTW measure) on tiny
+    gate's 11, the 4 measured ones under a non-DTW measure, and
+    ``knn_classify_sym`` / ``knn_classify_asym`` over encoded codes) on tiny
     device-resident inputs, warmed up and then run again under
     ``torch.cuda.set_sync_debug_mode("error")``: none may wait for the
     card but the ops of ``check_sanitizers.KNOWN_READS`` (ROADMAP queue
-    3), which must trip at their own call and are reported as failing.
+    3; none is listed since the ADC range check moved to where codes
+    enter the program), which would trip at their own call and be
+    reported as failing.
     A seeded thunk that calls ``.item()`` sits among them and must
     trip under its own name; the mode must be back at 0 after.  Returns
     the dispatch counts the phase added (the routing gate takes them out

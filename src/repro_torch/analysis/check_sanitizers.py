@@ -19,10 +19,11 @@ The reference's second leg, ``jax.checking_leaks`` around a fresh trace,
 has no counterpart: the port runs eagerly and has no tracers to leak
 (RS104 still guards module state statically).
 
-Exit 0 clean, 1 on any trip, 2 without a card.  The ops of
-:data:`KNOWN_READS` trip today and make the gate fail: each reads the card
-back at a call the reference's op does not make, listed in ROADMAP queue 3
-until it is moved off the scan.  ``chip_smoke.py`` runs :func:`run`
+Exit 0 clean, 1 on any trip, 2 without a card.  An op listed in
+:data:`KNOWN_READS` would trip at a read the reference's op does not make,
+held in ROADMAP queue 3 until it moves off the scan; the list is empty
+(the ADC range check, its last entry, now checks codes where they enter
+the program, not per launch).  ``chip_smoke.py`` runs :func:`run`
 in-process as its ``sanitizer_path`` phase, with a seeded ``.item()``
 that must trip, and holds the trips to exactly that one and
 :data:`KNOWN_READS`, each at its own call.
@@ -34,26 +35,23 @@ import re
 import sys
 import traceback
 from pathlib import Path
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["KNOWN_READS", "device_ops", "known", "run", "main"]
 
 Thunk = Callable[[], object]
 
-# op -> (file, function) of the read-back it makes where the reference's
-# op makes none (ROADMAP queue 3): the range check of the ADC wrappers
-# reads the codes' extremes back to raise a ValueError naming the tensor.
-_ADC_RANGE = ("kernels/pq_adc/ops.py", "_check_range")
-KNOWN_READS = {"adc_cdist": _ADC_RANGE, "adc_cdist_quant": _ADC_RANGE,
-               "adc_lookup": _ADC_RANGE, "adc_lookup_quant": _ADC_RANGE}
+# op -> (file, function) of a read-back it makes where the reference's op
+# makes none (ROADMAP queue 3); none is left
+KNOWN_READS: Dict[str, Tuple[str, str]] = {}
 
 
 def device_ops(device: str = "cuda") -> List[Tuple[str, Thunk]]:
     """``(name, thunk)`` per dispatch op (the reference's seven and the
     adaptive and quantised modes: every name of the routing gate's
     ``EXPECTED_OPS``), then each of its ``MEASURED_OPS`` under a
-    non-DTW measure (``op[measure]``), on tiny inputs made here, before
-    any guard."""
+    non-DTW measure (``op[measure]``), then the two 1-NN entry points
+    over encoded codes, on tiny inputs made here, before any guard."""
     import torch
 
     from ..core import dispatch
@@ -101,6 +99,30 @@ def device_ops(device: str = "cuda") -> List[Tuple[str, Thunk]]:
         ("two_level_coarse[msm]", lambda: dispatch.two_level_coarse(
             A, top, coarse, child_idx, child_valid, n_probe_top=1,
             measure="msm:c=0.5")),
+        *_entry_points(device),
+    ]
+
+
+def _entry_points(device: str) -> List[Tuple[str, Thunk]]:
+    """The 1-NN entry points over codes the program made (``pq.encode``,
+    before any guard): the public ``pq`` distances they call check a
+    caller's codes, and codes the program made pass without a read."""
+    import torch
+
+    from ..core import knn, pq
+
+    cfg = pq.PQConfig(n_sub=2, codebook_size=2, use_prealign=False,
+                      kmeans_iters=1, dba_iters=1)
+    X = torch.arange(32, dtype=torch.float32, device=device).reshape(4, 8)
+    X = X / 10.0
+    cb = pq.fit(X, cfg, torch.Generator().manual_seed(0), device=device)
+    codes = pq.encode(X, cb, cfg, device=device)
+    labels = torch.arange(4, device=device)
+    return [
+        ("knn_classify_sym", lambda: knn.knn_classify_sym(
+            codes, labels, X, cb, cfg, device=device)),
+        ("knn_classify_asym", lambda: knn.knn_classify_asym(
+            codes, labels, X, cb, cfg, device=device)),
     ]
 
 
@@ -115,12 +137,14 @@ def _culprit(exc: BaseException) -> str:
     return f"{f.filename}:{f.lineno} in {f.name}: {(f.line or '').strip()}"
 
 
-def known(name: str, culprit: Optional[str]) -> bool:
-    """Whether op ``name`` tripped at the read :data:`KNOWN_READS` lists
-    for it (a trip anywhere else is new)."""
-    if culprit is None or name not in KNOWN_READS:
+def known(name: str, culprit: Optional[str],
+          reads: Optional[Dict[str, Tuple[str, str]]] = None) -> bool:
+    """Whether op ``name`` tripped at the read ``reads`` (by default
+    :data:`KNOWN_READS`) lists for it (a trip anywhere else is new)."""
+    reads = KNOWN_READS if reads is None else reads
+    if culprit is None or name not in reads:
         return False
-    path, func = KNOWN_READS[name]
+    path, func = reads[name]
     return re.search(rf"/{re.escape(path)}:\d+ in {re.escape(func)}: ",
                      culprit) is not None
 

@@ -4,10 +4,13 @@ the main path's shapes, for comparing trees of this package on one card:
 the symmetric ops through an (8, 256, 256) table, the lookups through
 (768, 8, 256) query tables, the quantised ops through int8 tables.
 
-For each op: ``wrapper_ms``, the wrapper call, its range check of the
-codes included (``chip_smoke.py`` prints it as a kernel record's
-``wrapper_ms``); ``launch_ms``, the launch alone into an output made
-beforehand (the record's ``ms``); ``check_ms``, the range check alone.
+For each op: ``wrapper_ms``, the wrapper call (in trees where the wrapper
+checks the codes' range on every call, that check included;
+``chip_smoke.py`` prints it as a kernel record's ``wrapper_ms``);
+``launch_ms``, the launch alone into an output made beforehand (the
+record's ``ms``); ``check_ms``, the range check alone (``check_codes``,
+or ``_check_range`` in older trees), which newer trees run where codes
+enter the program, not in the wrapper.
 Each is the mean of ``--reps`` back-to-back calls after one warm-up call,
 by CUDA events, taken ``--blocks`` times; the line gives every block.
 
@@ -96,8 +99,9 @@ def main(argv=None) -> int:
     qs, qz = qs.reshape(NQ, M, 1), qz.reshape(NQ, M, 1)
     qsv, qzv = qs.reshape(-1).contiguous(), qz.reshape(-1).contiguous()
     out = torch.empty((NQ, N), dtype=torch.float32, device="cuda")
-    sym_check = lambda: ops._check_range(K, codes_a=q_codes, codes_b=codes)
-    lookup_check = lambda: ops._check_range(K, codes=codes)
+    check = getattr(ops, "check_codes", None) or ops._check_range
+    sym_check = lambda: check(K, codes_a=q_codes, codes_b=codes)
+    lookup_check = lambda: check(K, codes=codes)
     cases = {
         "adc_sym": (lambda: ops.adc_sym_cdist(q_codes, codes, lut),
                     lambda: ops.launch_adc_sym(q_codes, codes, lut, out),

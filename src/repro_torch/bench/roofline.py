@@ -14,6 +14,11 @@ it (``memory_eager_s``).
 Reads ``--records`` (default: the dry run's own directory); writes
 ``hw_<cuda|cpu>_roofline.json`` and ``roofline_table.md`` into ``--out``.
 The terms come from the H100's rates, whichever device names the record.
+Records counted per device of a production mesh (``dryrun --mesh
+both``) get a second table in ``roofline_table.md``
+(:func:`mesh_markdown_table`): per-device peak and FLOPs, the FLOPs of
+all devices against the cell's one-card count, collective bytes by kind,
+the three terms and the bytes of the gathers the port forces.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from ..configs.registry import ARCH_IDS, SHAPES
 from ..launch.dryrun import DRYRUN_DIR
 from ._writer import OUT_DIR, Bench, device_args
 
-__all__ = ["load_records", "markdown_table", "run", "main"]
+__all__ = ["load_records", "load_mesh_records", "markdown_table",
+           "mesh_markdown_table", "run", "main"]
 
 _GIB = 2 ** 30
 
@@ -41,13 +47,66 @@ def load_records(records_dir: str = DRYRUN_DIR, tag: str = "") -> List[dict]:
     for path in glob.glob(os.path.join(records_dir, "*.json")):
         with open(path) as f:
             r = json.load(f)
-        if r.get("mesh") == "single" and r.get("tag", "") == tag \
+        if r.get("mesh") == "card" and r.get("tag", "") == tag \
                 and r.get("ok"):
             recs.append(r)
     shapes = tuple(SHAPES)
     recs.sort(key=lambda r: (ARCH_IDS.index(r["arch"]),
                              shapes.index(r["shape"])))
     return recs
+
+
+def load_mesh_records(records_dir: str = DRYRUN_DIR) -> List[dict]:
+    """The per-device records of both production meshes, in the
+    registry's order, ``single`` before ``multi``."""
+    recs = []
+    for path in glob.glob(os.path.join(records_dir, "*.json")):
+        with open(path) as f:
+            r = json.load(f)
+        if r.get("mesh") in ("single", "multi"):
+            recs.append(r)
+    shapes = tuple(SHAPES)
+    recs.sort(key=lambda r: (ARCH_IDS.index(r["arch"]),
+                             shapes.index(r["shape"]), r["mesh"] != "single"))
+    return recs
+
+
+def mesh_markdown_table(recs: List[dict], card: List[dict]) -> str:
+    """One row a per-device record: peak GiB; bf16 and float32 TFLOP on
+    a device; bf16 FLOPs x devices / the one-card count (``card``'s
+    records, train and prefill cells); collective GB by kind (all-gather,
+    reduce-scatter, all-reduce, all-to-all); compute / memory /
+    collective s; the bound; GB of the gathers the port forces.  A failed
+    record shows its error."""
+    ones = {(r["arch"], r["shape"]): r for r in card}
+    lines = [
+        "| arch | shape | mesh | peak GiB | bf16 TFLOP | f32 TFLOP "
+        "| bf16 x dev / card | AG / RS / AR / A2A GB | compute s "
+        "| memory s | collective s | bound | forced GB |",
+        "|---|---|---|---:|---:|---:|---:|---|---:|---:|---:|---|---:|"]
+    for r in recs:
+        if not r.get("ok"):
+            lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                         f"error: {r.get('error', '?')[:60]} |"
+                         + " |" * 9)
+            continue
+        ro, c = r["roofline"], r["collectives"]
+        one = ones.get((r["arch"], r["shape"]))
+        ratio = ""
+        if one is not None and SHAPES[r["shape"]].kind != "decode":
+            ratio = (f"{ro['flops_bf16'] * r['chips']
+                     / one['roofline']['flops_bf16']:.4f}")
+        coll = " / ".join(f"{c.get(k, 0) / 1e9:.3g}" for k in (
+            "all-gather", "reduce-scatter", "all-reduce", "all-to-all"))
+        forced = sum(f["bytes"] for f in r["forced"]) / 1e9
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} "
+            f"| {r['memory']['peak_bytes'] / _GIB:.2f} "
+            f"| {ro['flops_bf16'] / 1e12:.4g} | {ro['flops_f32'] / 1e12:.4g} "
+            f"| {ratio} | {coll} | {ro['compute_s']:.4g} "
+            f"| {ro['memory_s']:.4g} | {ro['collective_s']:.4g} "
+            f"| {ro['bound']} | {forced:.3g} |")
+    return "\n".join(lines)
 
 
 def _run_cells(r: dict) -> tuple:
@@ -86,7 +145,7 @@ def run(quick: bool = True, device: _device.DeviceArg = None,
     for r in recs:
         ro = r["roofline"]
         run_rec = r.get("run") or {}
-        b.add(mesh="single", arch=r["arch"], shape=r["shape"],
+        b.add(mesh="card", arch=r["arch"], shape=r["shape"],
               fit=r["fit"], bound=ro["bound"],
               compute_s=round(ro["compute_s"], 5),
               memory_s=round(ro["memory_s"], 5),
@@ -100,10 +159,15 @@ def run(quick: bool = True, device: _device.DeviceArg = None,
               max_memory_allocated=run_rec.get("max_memory_allocated"))
     b.save(headline={"records": len(recs)})
     os.makedirs(out_dir, exist_ok=True)
+    mesh_recs = load_mesh_records(records_dir)
     with open(os.path.join(out_dir, "roofline_table.md"), "w") as f:
         if recs:
             f.write("### one card (H100 rates)\n\n")
             f.write(markdown_table(recs))
+            f.write("\n")
+        if mesh_recs:
+            f.write("\n### per device of the production meshes\n\n")
+            f.write(mesh_markdown_table(mesh_recs, recs))
             f.write("\n")
     return b
 

@@ -6,7 +6,9 @@
 * an async writer thread (:class:`AsyncCheckpointer`): the train step
   never waits on storage;
 * leaves stored whole, one ``.npy`` file each, named by their field path,
-  with a JSON manifest.
+  with a JSON manifest; a ``DTensor`` leaf is gathered whole and written
+  by rank 0, one leaf at a time, and ``restore`` lays leaves out for any
+  mesh.
 
 Trees are the port's: nested NamedTuples, tuples and dicts of tensors
 (:mod:`repro_torch._tree`; ``None`` fields are no leaves).  numpy has no
@@ -43,7 +45,8 @@ import numpy as np
 import torch
 
 from .._device import DeviceArg, resolve_device
-from .._tree import leaves_with_paths, path_name, tree_map, unflatten
+from .._tree import leaves, leaves_with_paths, path_name, tree_map, unflatten
+from ..sharding.partition import distribute, is_dtensor
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer",
            "begin_atomic_dir", "write_manifest", "commit_atomic_dir",
@@ -178,18 +181,37 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def _writer() -> bool:
+    """Whether this process writes: the only one, or rank 0 of its
+    process group."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def save(directory: str, step: int, tree: Any, keep_last: int = 3) -> str:
-    """Atomically persist ``tree`` under ``directory/step_<step>``."""
+    """Atomically persist ``tree`` under ``directory/step_<step>``.  Each
+    ``DTensor`` leaf is stored whole: every rank gathers it (a
+    collective, leaf by leaf in the tree's order), rank 0 alone writes it
+    and every rank drops it before the next, so a rank holds one whole
+    leaf at a time (the others return the path rank 0 writes to)."""
     name = f"step_{step:010d}"
-    tmp = begin_atomic_dir(directory, name)
+    tmp = begin_atomic_dir(directory, name) if _writer() else None
     manifest = {"step": step, "leaves": []}
     for path, leaf in leaves_with_paths(tree):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if tmp is None:
+            continue
         leaf_name = path_name(path)
         arr, dtype = _to_numpy(leaf.detach().cpu())
         fn = f"{len(manifest['leaves']):05d}_{leaf_name[:80]}.npy"
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"].append({"file": fn, "name": leaf_name,
                                    "shape": list(arr.shape), "dtype": dtype})
+        del arr, leaf
+    if tmp is None:
+        return os.path.join(directory, name)
     write_manifest(tmp, manifest)
     final = commit_atomic_dir(tmp, directory, name)
     gc_numbered_dirs(directory, keep_last, "step_")
@@ -201,10 +223,13 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, step: int, like: Any,
-            device: DeviceArg = None) -> Any:
+            device: DeviceArg = None, mesh=None, specs: Any = None) -> Any:
     """Load step ``step`` into the structure of ``like``: each leaf in its
     ``like`` leaf's dtype, on that leaf's device (or on ``device``, when
-    given).  ``ValueError`` when the leaf counts differ."""
+    given).  ``ValueError`` when the leaf counts differ.  With a
+    ``DeviceMesh`` ``mesh`` and ``specs`` (the partition rules' specs of
+    ``like``) each leaf is laid out for the mesh of the run that
+    restores, whatever mesh saved it (the reference's ``shardings``)."""
     d = os.path.join(directory, f"step_{step:010d}")
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
@@ -219,7 +244,10 @@ def restore(directory: str, step: int, like: Any,
                         meta["dtype"])
         out.append(t.to(device=ref.device if dev is None else dev,
                         dtype=ref.dtype))
-    return unflatten(like, out)
+    out = unflatten(like, out)
+    if mesh is not None:
+        out = distribute(out, specs, mesh)
+    return out
 
 
 class AsyncCheckpointer:
@@ -248,8 +276,16 @@ class AsyncCheckpointer:
                 self._q.task_done()
 
     def submit(self, step: int, tree: Any) -> None:
+        """Queue ``tree`` for writing.  A tree with ``DTensor`` leaves is
+        written now, in the caller, as :func:`save` writes it (one whole
+        leaf on the host at a time; a host copy of the whole tree on
+        every rank would not fit a production mesh's host memory)."""
         if self._err:
             raise self._err
+        if any(is_dtensor(t) for t in leaves(tree)):
+            self.wait()
+            save(self.directory, step, tree, self.keep_last)
+            return
         # the host copy is taken now: the train step updates the live
         # tensors in place
         self._q.put((step, tree_map(_host, tree)))

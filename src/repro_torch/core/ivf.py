@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..kernels.pq_adc.ops import check_codes
 from .dispatch import elastic_cdist, two_level_coarse
 from .kmeans import dba_kmeans
 from .lb import lb_lut
@@ -103,6 +104,7 @@ def ivf_index_from_numpy(index, device: _device.DeviceArg = None
     order (e.g. the reference's ``IVFPQIndex``), arrays as numpy."""
     dev = _device.resolve_device(device)
     coarse, cb, codes, ids, start, length, max_list, window = index
+    check_codes(np.asarray(cb[1]).shape[-1], codes=np.asarray(codes))
     return IVFPQIndex(
         coarse=_device.to_tensor(coarse, dev, torch.float32),
         cb=codebook_from_numpy(cb, dev),

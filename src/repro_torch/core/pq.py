@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..kernels.pq_adc.ops import check_codes, note_codes
 from . import measures as measures_mod
 from .dispatch import (adc_cdist, adc_lookup, elastic_cdist,
                        elastic_pairwise, prealign_encode)
@@ -323,9 +324,13 @@ def encode_with_stats(X, cb: PQCodebook, cfg: PQConfig, *,
         codes = prealign_encode(X, cb.centroids, level=cfg.wavelet_level,
                                 tail=cfg.tail(D), window=cfg.window(D),
                                 measure=cfg.measure())
-        return codes, torch.ones(codes.shape, dtype=torch.bool, device=dev)
-    return _encode_segs(segment(X, cfg), cb, cfg.window(D), cfg.refine_t(),
-                        cfg.full_scan_encode(), cfg.measure())
+        sound = torch.ones(codes.shape, dtype=torch.bool, device=dev)
+    else:
+        codes, sound = _encode_segs(segment(X, cfg), cb, cfg.window(D),
+                                    cfg.refine_t(), cfg.full_scan_encode(),
+                                    cfg.measure())
+    # the program's own codes: a distance call reads nothing back for them
+    return note_codes(codes, cb.lut.shape[-1]), sound
 
 
 # ---------------------------------------------------------------------------
@@ -345,9 +350,10 @@ def cdist_sym(codes_a, codes_b, lut, *, lut_dtype: str = "float32",
     [0.0, 1.4142135381698608]
     """
     dev = _device.resolve_device(device)
+    lut = _device.to_tensor(lut, dev, torch.float32)
+    check_codes(lut.shape[-1], codes_a=codes_a, codes_b=codes_b)
     return adc_cdist(_device.to_tensor(codes_a, dev, torch.int32),
-                     _device.to_tensor(codes_b, dev, torch.int32),
-                     _device.to_tensor(lut, dev, torch.float32),
+                     _device.to_tensor(codes_b, dev, torch.int32), lut,
                      lut_dtype=lut_dtype)
 
 
@@ -410,6 +416,7 @@ def cdist_asym(Q, codes, cb: PQCodebook, cfg: PQConfig, *,
     Q = _device.to_tensor(Q, dev, torch.float32)
     cb = _codebook_on(cb, dev)
     D = Q.shape[-1]
+    check_codes(cfg.codebook_size, codes=codes)
     luts = query_lut_batch(segment(Q, cfg), cb, cfg.window(D),
                            not cfg.is_elastic, cfg.measure())
     return adc_lookup(_device.to_tensor(codes, dev, torch.int32), luts)
@@ -438,6 +445,7 @@ def cdist_sym_refined(codes_a, segs_a, codes_b, segs_b, cb: PQCodebook, *,
     (4, 4)
     """
     dev = _device.resolve_device(device)
+    check_codes(cb.lut.shape[-1], codes_a=codes_a, codes_b=codes_b)
     ca = _device.to_tensor(codes_a, dev, torch.int64)
     cb_codes = _device.to_tensor(codes_b, dev, torch.int64)
     sa = _device.to_tensor(segs_a, dev, torch.float32)

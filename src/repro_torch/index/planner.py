@@ -32,6 +32,7 @@ import torch
 
 from .. import obs
 from ..core.topk import smallest_k
+from ..launch.mesh import mesh_sizes, validate_search_mesh
 from .streaming import (StreamingIndex, _empty_topk, _hot_topk, _merge_topk,
                         _probe_tables, _rank_blocks, search_impl)
 
@@ -140,7 +141,7 @@ def _search_list_sharded(index: StreamingIndex, Q: torch.Tensor,
 
 def search_sharded(index: StreamingIndex, Q, *, n_probe: int,
                    topk: int = 1, partition: str = "auto",
-                   n_devices: Optional[int] = None
+                   n_devices: Optional[int] = None, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:meth:`StreamingIndex.search` under a partition plan ->
     ``(dist, ids)`` on the index's device.
@@ -152,6 +153,12 @@ def search_sharded(index: StreamingIndex, Q, *, n_probe: int,
     ``"auto"`` picks ``"lists"`` when the layout matches
     (``cfg.n_shards == n_devices > 1``) and ``"queries"`` otherwise.
     ``n_devices`` defaults to 1: the reference's mesh on one card.
+    ``mesh``, a ``("search",)`` mesh (:func:`~repro_torch.launch.mesh.
+    make_search_mesh`, or a ``DeviceMesh`` of that axis), gives the count
+    instead, and a list-sharded plan checks the layout against it with
+    :func:`~repro_torch.launch.mesh.validate_search_mesh` (the
+    reference's error); each of its devices' blocks still runs in turn on
+    the index's device.
 
     >>> import numpy as np
     >>> from repro_torch.core.pq import PQConfig
@@ -172,12 +179,22 @@ def search_sharded(index: StreamingIndex, Q, *, n_probe: int,
         raise ValueError(
             f"partition={partition!r} must be one of {_PARTITIONS}")
     n_dev = 1 if n_devices is None else int(n_devices)
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+        if "search" not in sizes:
+            validate_search_mesh(mesh, index.cfg.n_shards)   # raises
+        if n_devices is not None and n_dev != sizes["search"]:
+            raise ValueError(f"n_devices={n_devices} but the mesh has "
+                             f"{sizes['search']} devices on 'search'")
+        n_dev = sizes["search"]
     if n_dev < 1:
         raise ValueError(f"n_devices={n_devices} must be >= 1")
     Q = index._validate(Q, n_probe, topk)
     if partition == "auto":
         partition = ("lists" if n_dev > 1 and index.cfg.n_shards == n_dev
                      else "queries")
+    if partition == "lists" and mesh is not None:
+        validate_search_mesh(mesh, index.cfg.n_shards)
     with obs.span("sharded.search"):
         if obs.enabled():
             obs.counter("sharded_searches_total", persistent=True,

@@ -42,6 +42,7 @@ from ..checkpoint.ckpt import (MANIFEST, begin_atomic_dir, commit_atomic_dir,
 from .. import _device
 from ..core.ivf import TwoLevelCoarse
 from ..core.pq import PQCodebook, PQConfig
+from ..kernels.pq_adc.ops import check_codes
 from .segments import SealedSegment
 from .streaming import IndexConfig, StreamingIndex
 
@@ -191,6 +192,7 @@ def restore_snapshot(directory: str, step: Optional[int] = None, *,
         host_ids = load(f"seg{s:04d}_ids")
         host_live = load(f"seg{s:04d}_live")
         codes = load(f"seg{s:04d}_codes")
+        check_codes(cfg.pq.codebook_size, **{f"seg{s:04d}_codes": codes})
         list_start = load(f"seg{s:04d}_list_start")
         if manifest["format"] >= 3:
             placement = load(f"seg{s:04d}_placement")

@@ -1,9 +1,11 @@
 """Wrappers of the PQ-ADC CUDA kernels (``csrc/pq_adc.cu``).
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel or raises.  Codes are int32 and are bounds-checked here, since
-the kernels gather with them unchecked: one ``aminmax`` per codes tensor
-and a single device-to-host read for the whole call.
+the kernel or raises.  Codes are int32.  The kernels gather with them
+unchecked, and a launch reads nothing back: codes are checked once where
+they enter the program from outside (:func:`check_codes`, one
+:class:`CodeRangeError`; the public ``pq`` functions, IVF ingest,
+snapshot load), and the plain versions check the CPU tensors they get.
 :func:`launch_adc_sym` and :func:`launch_adc_lookup` are the launches
 alone, on inputs the wrappers have checked.
 
@@ -29,7 +31,9 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build, tune
 from .ref import (adc_lookup_quant_ref, adc_lookup_ref,
@@ -38,7 +42,9 @@ from .ref import (adc_lookup_quant_ref, adc_lookup_ref,
 __all__ = ["adc_sym_cdist", "adc_lookup", "launch_adc_sym",
            "launch_adc_lookup", "quantize_lut", "adc_sym_cdist_quant",
            "adc_lookup_quant", "launch_adc_sym_quant",
-           "launch_adc_lookup_quant", "ScanGeometry", "sym_geometry",
+           "launch_adc_lookup_quant", "check_codes", "note_codes",
+           "CodeRangeError",
+           "ScanGeometry", "sym_geometry",
            "sym_thread_geometry", "lookup_geometry", "lookup_table_geometry",
            "row_pitch", "rows_smem_bytes", "TABLE_TYPES", "ROWS_TA",
            "ROWS_WARPS", "GROUP_ROWS", "LOOKUP_ROWS_MIN_NQ"]
@@ -250,17 +256,67 @@ def _codes(c: torch.Tensor, name: str, M: int) -> torch.Tensor:
     return c.to(torch.int32).contiguous()
 
 
-def _check_range(K: int, **codes: torch.Tensor) -> None:
-    """Raise if any codes tensor holds a code outside ``[0, K)``; reads the
-    extremes of all of them back in one transfer."""
-    codes = {name: c for name, c in codes.items() if c.numel()}
-    if not codes:
-        return
-    ext = torch.stack([torch.stack(torch.aminmax(c))
-                       for c in codes.values()]).tolist()
-    for name, (lo, hi) in zip(codes, ext):
+class CodeRangeError(ValueError):
+    """A PQ code outside ``[0, K)``: the one error the port raises for
+    codes that enter the program from outside it."""
+
+
+# codes known to lie in [0, K): made by the program (``note_codes``) or
+# checked once already; tensor -> (K, its version counter then)
+_KNOWN = WeakIdKeyDictionary()
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    try:
+        return t._version
+    except RuntimeError:                # an inference tensor has none
+        return None
+
+
+def note_codes(codes: torch.Tensor, K: int) -> torch.Tensor:
+    """Record that ``codes`` lie in ``[0, K)`` (the program made them, as
+    ``pq.encode`` does): :func:`check_codes` then reads nothing back for
+    them until they are written in place.  Returns ``codes``."""
+    _KNOWN[codes] = (K, _version(codes))
+    return codes
+
+
+def _known(c: torch.Tensor, K: int) -> bool:
+    seen = _KNOWN.get(c)
+    return seen is not None and seen[0] <= K and seen[1] == _version(c)
+
+
+def check_codes(K: int, **codes) -> None:
+    """Raise :class:`CodeRangeError` naming the first of ``codes`` (tensors
+    or numpy arrays) that holds a code outside ``[0, K)``.
+
+    Codes are checked where they enter from outside the program (the
+    public ``pq`` functions that take a caller's codes, IVF ingest,
+    snapshot load) or where a wrapper's plain version reads CPU tensors;
+    the ADC kernels read codes the program checked or made itself, so a
+    launch on the card reads nothing back for them.  A tensor is checked
+    once: codes the program made (:func:`note_codes`) or checked before
+    pass without a read until they are written in place.  The other
+    device tensors' extremes come back in one transfer."""
+    bounds = {}
+    dev = {n: c for n, c in codes.items()
+           if isinstance(c, torch.Tensor) and c.numel() and not _known(c, K)}
+    if dev:
+        ext = torch.stack([torch.stack(torch.aminmax(c))
+                           for c in dev.values()])
+        # repro: ignore[RS101] codes from outside the program, checked once where they enter, never per ADC launch
+        bounds.update(zip(dev, ext.tolist()))
+    host = {n: np.asarray(c) for n, c in codes.items()
+            if not isinstance(c, torch.Tensor)}
+    host = {n: c for n, c in host.items() if c.size}
+    # repro: ignore[RS101] numpy arrays on the host (snapshot load, IVF ingest): nothing on a device
+    bounds.update((n, (int(c.min()), int(c.max()))) for n, c in host.items())
+    for name in codes:
+        lo, hi = bounds.get(name, (0, 0))
         if lo < 0 or hi >= K:
-            raise ValueError(f"{name} holds codes outside [0, {K})")
+            raise CodeRangeError(f"{name} holds codes outside [0, {K})")
+    for name in dev:
+        note_codes(codes[name], K)
 
 
 def _table(t: torch.Tensor) -> torch.Tensor:
@@ -385,8 +441,8 @@ def adc_sym_cdist(codes_a: torch.Tensor, codes_b: torch.Tensor,
     cb = _codes(codes_b, "codes_b", M)
     lut = _table(lut)
     dev = _build.kernel_device(ca, cb, lut)
-    _check_range(K, codes_a=ca, codes_b=cb)
     if dev is None:
+        check_codes(K, codes_a=ca, codes_b=cb)
         return adc_sym_cdist_ref(ca, cb, lut)
     out = torch.empty((ca.shape[0], cb.shape[0]), dtype=torch.float32,
                       device=dev)
@@ -407,8 +463,8 @@ def adc_lookup(codes: torch.Tensor, qlut: torch.Tensor) -> torch.Tensor:
     Nq, M, K = q.shape
     c = _codes(codes, "codes", M)
     dev = _build.kernel_device(c, q)
-    _check_range(K, codes=c)
     if dev is None:
+        check_codes(K, codes=c)
         return adc_lookup_ref(c, qlut if single else q)
     if M * K * 4 > _SMEM_MAX:
         raise ValueError(f"a ({M}, {K}) query table exceeds shared memory")
@@ -500,8 +556,8 @@ def adc_sym_cdist_quant(codes_a: torch.Tensor, codes_b: torch.Tensor,
     ca = _codes(codes_a, "codes_a", M)
     cb = _codes(codes_b, "codes_b", M)
     dev = _build.kernel_device(ca, cb, q, scale, zero)
-    _check_range(K, codes_a=ca, codes_b=cb)
     if dev is None:
+        check_codes(K, codes_a=ca, codes_b=cb)
         return adc_sym_cdist_quant_ref(ca, cb, q, scale[:, None],
                                        zero[:, None])
     out = torch.empty((ca.shape[0], cb.shape[0]), dtype=torch.float32,
@@ -527,8 +583,8 @@ def adc_lookup_quant(codes: torch.Tensor, q: torch.Tensor,
     zero = _affine(zero, "zero", Nq * M)
     c = _codes(codes, "codes", M)
     dev = _build.kernel_device(c, qb, scale, zero)
-    _check_range(K, codes=c)
     if dev is None:
+        check_codes(K, codes=c)
         out = adc_lookup_quant_ref(c, qb, scale.reshape(Nq, M, 1),
                                    zero.reshape(Nq, M, 1))
         return out[0] if single else out

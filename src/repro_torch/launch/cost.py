@@ -39,17 +39,34 @@ the optimizer step once (:func:`count_cell`).
 :func:`roofline` keeps the reference's record (``hlo_analysis.py``) with
 the H100's rates in place of the TPU's (:data:`H100`): float32 products
 run outside the tensor cores (the port sets ``allow_tf32 = False``), so
-the compute term sums each type's FLOPs at its own peak; one card has no
-collective term.
+the compute term sums each type's FLOPs at its own peak.
+
+On a mesh (:func:`.cells.build_cell` with ``mesh``) the arguments are
+``DTensor`` s on meta under a fake process group of the mesh's size, and
+the step runs on rank 0's shards.  The counter lets ``DTensor`` unwrap
+each op first (it returns ``NotImplemented`` for a ``DTensor`` op, as
+``CommDebugMode`` does), so it counts the local ops: FLOPs, bytes and the
+peak are per device.  The collectives ``DTensor`` issues are counted by
+kind in ``collectives`` with the reference's ring conventions (all-reduce
+twice its output, all-gather its output, reduce-scatter its input,
+all-to-all its output).  An all-gather outside a redistribution that the
+partition asks for (:func:`~repro_torch.sharding.partition.
+in_planned_redistribute`) is ``DTensor`` 's own choice: it is listed in
+``forced`` by the op that needed it, the gathered tensor and its bytes
+per device (the counterpart of XLA's "involuntary full
+rematerialization").  The roofline's collective term holds those bytes
+against :data:`H100`'s NVLink rate.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -57,6 +74,7 @@ from torch.utils.flop_counter import flop_registry
 from .._tree import leaves, unflatten
 
 __all__ = ["HW", "H100", "CellCost", "CostCounter", "count_cell",
+           "fake_group",
            "roofline", "model_flops_per_step", "RooflineReport",
            "tensor_bytes"]
 
@@ -64,12 +82,20 @@ __all__ = ["HW", "H100", "CellCost", "CostCounter", "count_cell",
 @dataclasses.dataclass(frozen=True)
 class HW:
     """One card's rates: dense bf16 and float32 (no tensor cores)
-    FLOP/s, HBM bytes/s, device memory; ``link_bw`` 0 = no collective."""
+    FLOP/s, HBM bytes/s, device memory, and ``link_bw``, the bytes a
+    second one device sends to its peers (0: no collective term).
+
+    The H100 SXM's NVLink 4 carries 900 GB/s a GPU in both directions
+    together, 450 GB/s each way (NVIDIA H100 Tensor Core GPU datasheet);
+    a ring collective sends its bytes one way, so ``link_bw`` is 450e9.
+    The figure is the datasheet's, not measured here, and it holds inside
+    one 8-GPU NVLink domain only: a mesh axis of 16 spans two, whose link
+    is the network's, so the term is optimistic there."""
     name: str = "h100-sxm"
     peak_flops: float = 989e12
     peak_flops_f32: float = 67e12
     hbm_bw: float = 3.35e12
-    link_bw: float = 0.0
+    link_bw: float = 450e9
     hbm_bytes: float = 80 * 2 ** 30
 
 
@@ -94,8 +120,23 @@ def tensor_bytes(t: torch.Tensor) -> int:
         return n
 
 
+def _local(t):
+    """A DTensor's local shard, any other tensor as it is."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _tensors(x):
-    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+    return [_local(t) for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_reduce": "all-reduce", "all_reduce_coalesced":
+                "all-reduce", "all_to_all_single": "all-to-all"}
+_COMM_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                    "c10d_functional")
 
 
 @dataclasses.dataclass
@@ -117,6 +158,12 @@ class CellCost:
     kernel_bytes: float = 0.0
     argument_bytes: int = 0
     peak_bytes: int = 0
+    collectives: Dict[str, float] = dataclasses.field(default_factory=dict)
+    forced: Dict[str, dict] = dataclasses.field(default_factory=dict)
+
+    @property
+    def coll_bytes(self) -> float:
+        return float(sum(self.collectives.values()))
 
     @property
     def flops(self) -> float:
@@ -137,6 +184,7 @@ class CellCost:
         out = dataclasses.asdict(self)
         out["flops"] = self.flops
         out["floor_bytes"] = self.floor_bytes
+        out["coll_bytes"] = self.coll_bytes
         return out
 
 
@@ -154,6 +202,12 @@ class CostCounter(TorchDispatchMode):
         self._bytes = 0
         self._args: set = set()          # the arguments' storages
         self._written: set = set()       # regions of them written
+        self._dt_op = None               # the last DTensor op unwrapped
+        try:
+            from torch.distributed.tensor import DTensor
+            self._dtensor = DTensor
+        except ImportError:                                 # pragma: no cover
+            self._dtensor = None
 
     # the simulated allocator ------------------------------------------
     def _add(self, t: torch.Tensor) -> bool:
@@ -212,12 +266,51 @@ class CostCounter(TorchDispatchMode):
         c.hbm_bytes += self.scale * nbytes
         c.ops += self.scale
 
+    def _collective(self, func, ins, outs) -> None:
+        """One collective's bytes by kind (module docstring); a gather
+        the partition did not ask for goes in ``forced``."""
+        from ..sharding.partition import (forced_label,
+                                          in_planned_redistribute)
+        kind = _COLLECTIVES.get(func.name().split("::")[1])
+        if kind is None:
+            return
+        n_out = sum(tensor_bytes(t) for t in outs)
+        moved = (2.0 * n_out if kind == "all-reduce" else
+                 sum(tensor_bytes(t) for t in ins[:1])
+                 if kind == "reduce-scatter" else float(n_out))
+        c, s = self.cost, self.scale
+        c.collectives[kind] = c.collectives.get(kind, 0.0) + s * moved
+        if kind == "all-gather" and not in_planned_redistribute():
+            op = forced_label() or (self._dt_op.name()
+                                    if self._dt_op is not None else "?")
+            t = outs[0]
+            key = f"{op} {tuple(t.shape)} {str(t.dtype)[6:]}"
+            rec = c.forced.setdefault(key, {"op": op, "count": 0.0,
+                                            "bytes": 0.0})
+            rec["count"] += s
+            rec["bytes"] += s * n_out
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if self._dtensor is not None and any(
+                issubclass(t, self._dtensor) for t in types):
+            self._dt_op = func       # DTensor unwraps it into local ops
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation runs the op on fake tensors
+            # of the global shape: metadata, not work on this device
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in outs):
+            return out                   # a fake factory call, the same
         for t in outs:
             self._add(t)
+        if func.namespace in _COMM_NAMESPACES:
+            self._collective(func, _tensors((args, kwargs)), outs)
+            return out
         if func.is_view or func in _FREE:
             return out
         if func._schema.is_mutable:
@@ -242,6 +335,27 @@ class CostCounter(TorchDispatchMode):
         return out
 
 
+@contextlib.contextmanager
+def fake_group(desc):
+    """A fake process group of ``desc.size`` ranks (this process rank 0:
+    collectives return at once and move nothing) and the ``DeviceMesh``
+    of the :class:`~repro_torch.launch.mesh.MeshDesc` ``desc`` over it,
+    for counting a mesh's cell on meta tensors without its devices.  The
+    group is destroyed on the way out."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from .mesh import device_mesh
+    if dist.is_initialized():
+        raise RuntimeError("fake_group: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=desc.size)
+    try:
+        yield device_mesh(desc, "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def count_cell(plan) -> CellCost:
     """Run ``plan``'s step (:func:`.cells.build_cell`) on its meta
     arguments under a :class:`CostCounter`.  A train cell runs one
@@ -251,7 +365,7 @@ def count_cell(plan) -> CellCost:
     counter = CostCounter()
     args = plan.abstract_args
     counter.hold(args)
-    with counter:
+    with plan.sharding(), counter:
         if plan.shape.kind != "train":
             counter.note_outputs(plan.fn(*args))
         else:
@@ -261,14 +375,17 @@ def count_cell(plan) -> CellCost:
 
 def _count_train(plan, counter: CostCounter) -> None:
     from ..train.optim import AdamWConfig, adamw_step
-    from ..train.step import make_loss_and_grads
+    from ..train.step import make_loss_and_grads, zeros_f32
     state, batch = plan.abstract_args
     micro = plan.microbatches
     one = make_loss_and_grads(plan.cfg, plan.q_chunk, microbatches=1,
                               remat=plan.remat, loss_chunk=plan.loss_chunk)
     mb = {k: v[: v.shape[0] // micro] for k, v in batch.items()}
-    acc = ([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for p in leaves(state.params)] if micro > 1 else None)
+    if plan.mb_constraint is not None:
+        from ..sharding.partition import redistribute_tree
+        mb = redistribute_tree(mb, plan.mb_constraint)
+    acc = ([zeros_f32(p) for p in leaves(state.params)]
+           if micro > 1 else None)
     counter.scale = float(micro)
     _, _, grads = one(state.params, mb)
     if acc is not None:
@@ -295,7 +412,7 @@ def model_flops_per_step(param_count: int, active_param_count: int,
 class RooflineReport:
     flops: float                 # HLO-equivalent FLOPs of the step
     hbm_bytes: float             # the fused floor (CellCost.floor_bytes)
-    coll_bytes: float            # 0 on one card
+    coll_bytes: float            # per device; 0 on one card
     compute_s: float
     memory_s: float
     collective_s: float
@@ -316,9 +433,10 @@ class RooflineReport:
 def roofline(cost: CellCost, coll_bytes: float = 0.0, chips: int = 1, *,
              model_flops: float, hw: HW = H100) -> RooflineReport:
     """The reference's three-term roofline (``hlo_analysis.roofline``)
-    from a :class:`CellCost` on one card: the memory term is the fused
+    from a :class:`CellCost` of one device: the memory term is the fused
     floor's (``floor_bytes``), the eager step's traffic is kept beside it
-    (``hbm_eager_bytes``, ``memory_eager_s``)."""
+    (``hbm_eager_bytes``, ``memory_eager_s``); ``coll_bytes`` (a mesh's
+    per-device collective bytes) at ``hw.link_bw``."""
     compute_s = cost.compute_s(hw)
     memory_s = cost.floor_bytes / hw.hbm_bw
     coll_s = coll_bytes / hw.link_bw if hw.link_bw else 0.0

@@ -1,6 +1,6 @@
-"""One-card dry run: count every (arch x shape) cell on meta tensors, and
-optionally take one real step on the card (counterpart of
-:mod:`repro.launch.dryrun`).
+"""Dry run: count every (arch x shape) cell on meta tensors, on one card or
+per device of a production mesh, and optionally take one real step on
+the card (counterpart of :mod:`repro.launch.dryrun`).
 
 For each cell it builds the step and its abstract arguments
 (:mod:`.cells`), counts FLOPs by operand type, HBM bytes and the peak of
@@ -22,10 +22,27 @@ its own shape (listed under ``run.reduced``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-780m \\
         --shape prefill_32k --run
 
+``--mesh`` takes the reference's choices with the reference's meanings,
+and ``card``: ``card`` (the default) counts the cell on one card as above;
+``single`` the 16 x 16 mesh over ``("data", "model")``, 256 devices;
+``multi`` the 2 x 16 x 16 mesh over ``("pod", "data", "model")``, 512
+devices; ``both`` runs ``single`` and ``multi``.  On a mesh the cell's
+arguments are ``DTensor`` s laid out by the partition rules and the step
+runs on rank 0's shards under a fake process group of the mesh's size
+(:func:`.cost.fake_group`): no device is used.  The record is per
+device, as the reference's: ``memory`` (arguments, temporaries, peak),
+``cost``, ``collectives`` (bytes by kind, the reference's ring
+conventions), ``forced`` (every gather the port inserts or ``DTensor``
+chose, with its op, tensor and bytes) and ``roofline`` (the collective
+term at :data:`.cost.H100`'s NVLink rate), ``chips`` the mesh's size.  A
+cell that fails keeps its ``error``.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+
 Records go to ``--out`` (default ``build/dryrun`` at the repository root,
-or ``$REPRO_TORCH_DRYRUN_OUT``); a cell with a record is skipped unless
-``--force``; ``--jobs N`` counts cells in N processes.  ``--mesh``
-takes ``single`` only: the port runs on one card.
+or ``$REPRO_TORCH_DRYRUN_OUT``), named ``<arch>__<shape>__<mesh>``; a
+cell with a record is skipped unless ``--force``; ``--jobs N`` counts
+cells in N processes.
 """
 
 from __future__ import annotations
@@ -45,8 +62,8 @@ from ..configs.registry import ARCH_IDS, SHAPES, ShapeSpec, all_cells
 from .cells import CellPlan, build_cell
 from .cost import H100, count_cell, model_flops_per_step, roofline
 
-__all__ = ["DRYRUN_DIR", "HEADROOM", "STATE_BYTES_PER_PARAM", "cell_id",
-           "run_cell", "real_step", "main"]
+__all__ = ["DRYRUN_DIR", "HEADROOM", "STATE_BYTES_PER_PARAM", "MESHES",
+           "cell_id", "run_cell", "real_step", "main"]
 
 DRYRUN_DIR = os.environ.get(
     "REPRO_TORCH_DRYRUN_OUT",
@@ -54,9 +71,11 @@ DRYRUN_DIR = os.environ.get(
 HEADROOM = 0.10              # --run: the meta peak leaves this share free
 STATE_BYTES_PER_PARAM = 16   # float32 masters, mu, nu and gradients
 RUN_MICROBATCHES = 2         # --run: a train cell's real step
+# --mesh: None is one card; else make_production_mesh(multi_pod=...)
+MESHES = {"card": None, "single": False, "multi": True}
 
 
-def cell_id(arch: str, shape: str, mesh_name: str = "single") -> str:
+def cell_id(arch: str, shape: str, mesh_name: str = "card") -> str:
     return f"{arch}__{shape}__{mesh_name}"
 
 
@@ -80,20 +99,22 @@ def _fit(peak: int, state: Optional[int]) -> tuple:
 def run_cell(arch: str, shape_name: str, out_dir: str = DRYRUN_DIR,
              force: bool = False, extra: Optional[dict] = None,
              tag: str = "", run: bool = False, device: str = "cuda",
-             seed: int = 0) -> dict:
-    """Count one cell (and with ``run`` take its real step); returns and
-    writes the record."""
+             seed: int = 0, mesh_name: str = "card") -> dict:
+    """Count one cell on ``mesh_name`` (:data:`MESHES`; with ``run``, on
+    the card, take its real step); returns and writes the record."""
     shape = SHAPES[shape_name]
-    cid = cell_id(arch, shape_name) + (f"__{tag}" if tag else "")
+    cid = cell_id(arch, shape_name, mesh_name) + (f"__{tag}" if tag else "")
     path = os.path.join(out_dir, cid + ".json")
     if os.path.exists(path) and not force:
         with open(path) as f:
             rec = json.load(f)
         if not run or "run" in rec:
             return rec
+    elif mesh_name != "card":
+        rec = _count_mesh(arch, shape, extra, tag, mesh_name)
     else:
         rec = _count(arch, shape, extra, tag)
-    if run and rec["ok"]:
+    if run and rec["ok"] and mesh_name == "card":
         if rec["memory"]["peak_bytes"] <= (1 - HEADROOM) * H100.hbm_bytes:
             rec["run"] = _run_record(arch, shape, extra, device, seed,
                                      rec["memory"]["peak_bytes"])
@@ -107,7 +128,7 @@ def run_cell(arch: str, shape_name: str, out_dir: str = DRYRUN_DIR,
 
 
 def _count(arch: str, shape: ShapeSpec, extra, tag: str) -> dict:
-    rec = {"arch": arch, "shape": shape.name, "mesh": "single", "chips": 1,
+    rec = {"arch": arch, "shape": shape.name, "mesh": "card", "chips": 1,
            "tag": tag, "hw": dataclasses.asdict(H100), "ok": False}
     t0 = time.time()
     try:
@@ -135,6 +156,51 @@ def _count(arch: str, shape: ShapeSpec, extra, tag: str) -> dict:
             fit=fit, fit_reason=why, state_bytes=state,
             cost=cost.to_dict(),
             roofline=roofline(cost, model_flops=mf).to_dict(),
+            params=int(cfg.param_count()),
+            active_params=int(cfg.active_param_count()))
+    except Exception as e:                                  # noqa: BLE001
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    rec["wall_s"] = round(time.time() - t0, 2)
+    return rec
+
+
+def _count_mesh(arch: str, shape: ShapeSpec, extra, tag: str,
+                mesh_name: str) -> dict:
+    """One cell counted per device of a production mesh (module
+    docstring), under a fake process group of its size."""
+    from .cost import fake_group
+    from .mesh import make_production_mesh
+    desc = make_production_mesh(multi_pod=MESHES[mesh_name])
+    rec = {"arch": arch, "shape": shape.name, "mesh": mesh_name,
+           "mesh_shape": list(desc.dims), "axes": list(desc.axis_names),
+           "chips": desc.size, "tag": tag, "hw": dataclasses.asdict(H100),
+           "ok": False}
+    t0 = time.time()
+    try:
+        with fake_group(desc) as mesh:
+            plan = build_cell(arch, shape, mesh, extra=extra)
+            cfg = plan.cfg
+            t_build = time.time() - t0
+            cost = count_cell(plan)
+        mf = model_flops_per_step(cfg.param_count(),
+                                  cfg.active_param_count(), _tokens(shape),
+                                  shape.kind)
+        fit, why = _fit(cost.peak_bytes, None)
+        rec.update(
+            ok=True, t_build_s=round(t_build, 2),
+            t_count_s=round(time.time() - t0 - t_build, 2),
+            microbatches=plan.microbatches,
+            memory=dict(argument_bytes=cost.argument_bytes,
+                        temp_bytes=cost.peak_bytes - cost.argument_bytes,
+                        peak_bytes=cost.peak_bytes),
+            fit=fit, fit_reason=why, cost=cost.to_dict(),
+            collectives={k: int(v) for k, v in cost.collectives.items()},
+            forced=sorted(({"tensor": k, **v} for k, v in
+                           cost.forced.items()),
+                          key=lambda r: -r["bytes"]),
+            roofline=roofline(cost, cost.coll_bytes, desc.size,
+                              model_flops=mf).to_dict(),
             params=int(cfg.param_count()),
             active_params=int(cfg.active_param_count()))
     except Exception as e:                                  # noqa: BLE001
@@ -262,16 +328,19 @@ def real_step(arch: str, shape: ShapeSpec, extra: Optional[dict] = None,
 
 
 def _fmt(rec: dict) -> str:
+    mesh = rec.get("mesh", "card")
     if not rec["ok"]:
-        return (f"FAIL  {rec['arch']:24s} {rec['shape']:12s} "
+        return (f"FAIL  {rec['arch']:24s} {rec['shape']:12s} {mesh:6s} "
                 f"{rec.get('error', '?')[:90]}")
     r, m = rec["roofline"], rec["memory"]
     line = (f"{'fit ' if rec['fit'] else 'NOFIT'} {rec['arch']:24s} "
-            f"{rec['shape']:12s} peak={m['peak_bytes'] / 2 ** 30:8.2f}GiB "
+            f"{rec['shape']:12s} {mesh:6s} "
+            f"peak={m['peak_bytes'] / 2 ** 30:8.2f}GiB "
             f"C={r['compute_s'] * 1e3:10.2f}ms "
             f"(bf16 {r['flops_bf16']:.3g} f32 {r['flops_f32']:.3g}) "
             f"M={r['memory_s'] * 1e3:10.2f}ms "
-            f"(eager {r['memory_eager_s'] * 1e3:.2f}ms) bound={r['bound']:8s} "
+            f"(eager {r['memory_eager_s'] * 1e3:.2f}ms) "
+            f"K={r['collective_s'] * 1e3:.2f}ms bound={r['bound']:10s} "
             f"frac={r['roofline_frac']:.3f} [{rec['wall_s']:.1f}s]")
     run = rec.get("run")
     if run and "seconds" in run:
@@ -285,8 +354,9 @@ def _fmt(rec: dict) -> str:
 
 def _count_one(job) -> None:
     torch.set_num_threads(1)
-    arch, shape_name, out, force, extra, tag = job
-    run_cell(arch, shape_name, out, force=force, extra=extra, tag=tag)
+    arch, shape_name, out, force, extra, tag, mesh_name = job
+    run_cell(arch, shape_name, out, force=force, extra=extra, tag=tag,
+             mesh_name=mesh_name)
 
 
 def _count_parallel(cells, args, extra) -> None:
@@ -296,8 +366,8 @@ def _count_parallel(cells, args, extra) -> None:
     import concurrent.futures
     import multiprocessing
     order = {"prefill": 0, "train": 1, "decode": 2}
-    jobs = sorted(((a, s, args.out, args.force, extra, args.tag)
-                   for a, s in cells),
+    jobs = sorted(((a, s, args.out, args.force, extra, args.tag, m)
+                   for a, s, m in cells),
                   key=lambda j: order[SHAPES[j[1]].kind])
     with concurrent.futures.ProcessPoolExecutor(
             args.jobs, mp_context=multiprocessing.get_context("spawn")) as ex:
@@ -309,8 +379,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
-    ap.add_argument("--mesh", default="single",
-                    help="single only: the port runs on one card")
+    ap.add_argument("--mesh", default="card",
+                    choices=("card", "single", "multi", "both"),
+                    help="card: one card; single: the 16x16 mesh (256 "
+                         "devices); multi: 2x16x16 (512); both: single "
+                         "and multi")
     ap.add_argument("--all", action="store_true",
                     help="every applicable (arch x shape) cell")
     ap.add_argument("--out", default=DRYRUN_DIR)
@@ -328,20 +401,20 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=1,
                     help="processes counting cells on meta tensors")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        raise ValueError(f"--mesh {args.mesh}: the port runs on one card "
-                         "(single); no multi-card mesh is ported")
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
+    if args.run and args.mesh != "card":
+        ap.error("--run takes one real step on the card: --mesh card")
     cells = []
     if args.all:
         for arch, shape, ok, why in all_cells():
             if not ok:
                 print(f"skip  {arch:24s} {shape.name:12s} ({why})")
                 continue
-            cells.append((arch, shape.name))
+            cells += [(arch, shape.name, m) for m in meshes]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape, or --all")
-        cells.append((args.arch, args.shape))
+        cells += [(args.arch, args.shape, m) for m in meshes]
     extra = json.loads(args.extra) if args.extra else None
     if extra and "pqkv" in extra:
         from ..serve.pqkv import PQKVConfig
@@ -349,10 +422,10 @@ def main(argv=None) -> int:
     if args.jobs > 1:
         _count_parallel(cells, args, extra)
     n_fail = 0
-    for arch, shape_name in cells:
+    for arch, shape_name, mesh_name in cells:
         rec = run_cell(arch, shape_name, args.out, force=args.force,
                        extra=extra, tag=args.tag, run=args.run,
-                       device=args.device)
+                       device=args.device, mesh_name=mesh_name)
         print(_fmt(rec), flush=True)
         n_fail += 0 if rec["ok"] else 1
     print(f"\ndone: {len(cells) - n_fail} ok, {n_fail} failed")

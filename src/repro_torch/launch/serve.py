@@ -19,6 +19,11 @@ naming the family.
         --reduced --device cpu --pqkv
 
 Without ``--device`` it runs on the card (and raises if there is none).
+``--production-mesh`` serves on the 16 x 16 mesh, one rank a device under
+``torchrun`` (any other world size raises, naming 256): the weights laid
+out TP-only, the caches with their sequence on ``model``, every family
+prefilled token by token through ``serve_step``; without it the host mesh
+(1 x 1) is the one card.
 A ``--reduced`` config draws its weights, prompts and codebook samples
 from a CPU generator, so that one ``--seed`` serves the same model on the
 card and on the CPU; a full config draws them on its device.
@@ -34,6 +39,9 @@ import torch
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_reduced
+from repro_torch.launch.cells import mesh_context
+from repro_torch.launch.mesh import (launch_mesh, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models.encdec import init_params_encdec
 from repro_torch.models.lm import KV_FAMILIES, check_kv_family, init_params
 from repro_torch.serve.cache import init_cache
@@ -41,15 +49,20 @@ from repro_torch.serve.decode import prefill_cache_encdec, serve_step
 from repro_torch.serve.pqkv import (PQKVConfig, compress_cache,
                                     pq_serve_step, pqkv_memory)
 from repro_torch.serve.prefill import prefill
+from repro_torch.sharding.partition import (batch_specs, cache_specs,
+                                            distribute, full, gather_vocab,
+                                            param_specs)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
+    logits = gather_vocab(logits)
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
 
 
 def margin(logits: torch.Tensor) -> torch.Tensor:
     """``(B, 1)``: the last position's largest logit less the second (how
     near the greedy pick is to a tie)."""
+    logits = gather_vocab(logits)
     top = torch.topk(logits[:, -1, :].float(), 2, dim=-1).values
     return (top[:, 0] - top[:, 1])[:, None]
 
@@ -89,15 +102,15 @@ def main(argv=None):
     ap.add_argument("--pq-quantize-v", action="store_true",
                     help="PQ-code the values too")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported (one card): raises")
+                    help="16x16 mesh (256 ranks under torchrun)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh: the port runs on one "
-                                  "card; no mesh is ported")
+    desc = make_production_mesh() if args.production_mesh \
+        else make_host_mesh()
     dev = resolve_device(args.device)
+    mesh = launch_mesh(desc, dev)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     max_len = args.max_len or (args.prompt_len + args.gen)
     print(f"[serve] arch={cfg.name} family={cfg.family} "
@@ -124,57 +137,69 @@ def main(argv=None):
                               cfg.d_model), generator=gen,
                              device=gen.device).to(dev)
         cache = prefill_cache_encdec(params, cfg, cache, frames)
+    if mesh is not None:
+        params = distribute(params, param_specs(params, mesh, fsdp=False),
+                            mesh)
+        cache = distribute(cache, cache_specs(cache, mesh), mesh)
+        prompt = distribute({"tokens": prompt}, batch_specs(
+            {"tokens": prompt}, mesh), mesh)["tokens"]
+    with mesh_context(mesh):
+        # ---- prefill: one batched cache-filling pass where supported ----
+        t0 = time.perf_counter()
+        with obs.span("serve.prefill") as sp:
+            if cfg.family in KV_FAMILIES and mesh is None:
+                logits, cache = prefill(params, cfg, cache, {"tokens": prompt})
+            else:   # ssm / hybrid / encdec decoders (and every family on a
+                # mesh) prefill token by token
+                for p in range(args.prompt_len):
+                    logits, cache = serve_step(params, cfg, cache,
+                                               prompt[:, p:p + 1], p)
+            sp.fence(logits)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        print(f"[serve] prefill {args.prompt_len} tokens in {t_prefill:.2f}s")
 
-    # ---- prefill: one batched cache-filling pass where supported ----
-    t0 = time.perf_counter()
-    with obs.span("serve.prefill") as sp:
-        if cfg.family in KV_FAMILIES:
-            logits, cache = prefill(params, cfg, cache, {"tokens": prompt})
-        else:   # ssm / hybrid / encdec decoders prefill token by token
-            for p in range(args.prompt_len):
-                logits, cache = serve_step(params, cfg, cache,
-                                           prompt[:, p:p + 1], p)
-        sp.fence(logits)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
-    print(f"[serve] prefill {args.prompt_len} tokens in {t_prefill:.2f}s")
-
-    # ---- optional PQ compression of the populated cache ----
-    if pqc is not None:
-        mem = pqkv_memory(cfg, pqc, args.batch, max_len)
-        # copy: the exact cache goes on decoding in place, and the PQ
-        # cache's values would otherwise be the same tensor
-        pq_cache = compress_cache(
-            {"k": cache["k"], "v": cache["v"].clone()}, cfg, pqc,
-            pos=args.prompt_len, generator=gen)
-        print(f"[serve] PQ-KV: exact {mem['exact_bytes']/1e6:.2f}MB -> "
-              f"{mem['pq_bytes']/1e6:.2f}MB "
-              f"({mem['compression']:.2f}x compression)")
-
-    # ---- decode ----
-    tok = greedy(logits)
-    out_exact, out_pq = [tok], [tok]
-    gap_exact, gap_pq = [margin(logits)], [margin(logits)]
-    pq_tok = tok
-    t0 = time.perf_counter()
-    for g in range(args.gen - 1):
-        pos = args.prompt_len + g
-        # per-step span: with obs enabled the fence syncs each step so
-        # p50/p99 step latency is real; disabled, the card runs ahead
-        with obs.span("serve.decode_step") as sp:
-            logits, cache = serve_step(params, cfg, cache, tok, pos)
-            tok = greedy(logits)
-            sp.fence(tok)
-        out_exact.append(tok)
-        gap_exact.append(margin(logits))
+        # ---- optional PQ compression of the populated cache ----
         if pqc is not None:
-            pq_logits, pq_cache = pq_serve_step(params, cfg, pq_cache,
-                                                pq_tok, pos, pqc=pqc)
-            pq_tok = greedy(pq_logits)
-            out_pq.append(pq_tok)
-            gap_pq.append(margin(pq_logits))
-    _sync(dev)
-    t_dec = time.perf_counter() - t0
+            mem = pqkv_memory(cfg, pqc, args.batch, max_len)
+            # copy: the exact cache goes on decoding in place, and the PQ
+            # cache's values would otherwise be the same tensor
+            pq_cache = compress_cache(
+                {"k": full(cache["k"]), "v": full(cache["v"]).clone()}, cfg,
+                pqc, pos=args.prompt_len, generator=gen)
+            if mesh is not None:
+                pq_cache = distribute(pq_cache, cache_specs(pq_cache, mesh),
+                                      mesh)
+            print(f"[serve] PQ-KV: exact {mem['exact_bytes']/1e6:.2f}MB -> "
+                  f"{mem['pq_bytes']/1e6:.2f}MB "
+                  f"({mem['compression']:.2f}x compression)")
+
+        # ---- decode ----
+        tok = greedy(logits)
+        out_exact, out_pq = [tok], [tok]
+        gap_exact, gap_pq = [margin(logits)], [margin(logits)]
+        pq_tok = tok
+        t0 = time.perf_counter()
+        for g in range(args.gen - 1):
+            pos = args.prompt_len + g
+            # per-step span: with obs enabled the fence syncs each step so
+            # p50/p99 step latency is real; disabled, the card runs ahead
+            with obs.span("serve.decode_step") as sp:
+                logits, cache = serve_step(params, cfg, cache, tok, pos)
+                tok = greedy(logits)
+                sp.fence(tok)
+            out_exact.append(tok)
+            gap_exact.append(margin(logits))
+            if pqc is not None:
+                pq_logits, pq_cache = pq_serve_step(params, cfg, pq_cache,
+                                                    pq_tok, pos, pqc=pqc)
+                pq_tok = greedy(pq_logits)
+                out_pq.append(pq_tok)
+                gap_pq.append(margin(pq_logits))
+        _sync(dev)
+        t_dec = time.perf_counter() - t0
+    out_exact, out_pq = full(out_exact), full(out_pq)
+    gap_exact, gap_pq = full(gap_exact), full(gap_pq)
     toks = torch.cat(out_exact, dim=1).cpu()
     rate = args.batch * (args.gen - 1) / max(t_dec, 1e-9)
     print(f"[serve] decoded {args.gen - 1} steps x {args.batch} seqs in "

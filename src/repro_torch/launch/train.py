@@ -13,9 +13,15 @@ Fault-tolerance contract, as the reference's:
     ``--watchdog`` seconds (logs, and with ``--watchdog-abort`` sends
     SIGTERM to the process).
 
-One card, no mesh: ``--production-mesh`` and ``--multi-pod`` raise.  The
-training state is float32 masters and moments (12 bytes a parameter,
-16 with the step's float32 gradients).  Each step prints, and appends to
+``--production-mesh`` trains on the 16 x 16 mesh (``--multi-pod``: 2 x 16
+x 16), one rank a device under ``torchrun`` (``env://``): the state is laid
+out by the partition rules (FSDP + TP), each step's batch over the DP
+axes, the step runs inside the activation constraints, and checkpoints
+are stored whole, restoring under any mesh.  Any other world size raises,
+naming the ranks needed.  Without the flag the host mesh (1 x 1) is the
+one card: no process group, no ``DTensor``.  The training state is
+float32 masters and moments (12 bytes a parameter, 16 with the step's
+float32 gradients).  Each step prints, and appends to
 ``--metrics-out``, one JSON record: ``step``, ``loss``, ``ce``, ``sec``.
 
 Usage (CPU example scale; without ``--device`` it runs on the card and
@@ -42,6 +48,10 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_reduced
 from repro_torch.data.tokens import TokenStream
+from repro_torch.launch.cells import mesh_context, state_specs
+from repro_torch.launch.mesh import (launch_mesh, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.sharding.partition import batch_specs, distribute
 from repro_torch.train.optim import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -83,6 +93,12 @@ class Watchdog:
         self._thread.join(timeout=10)
 
 
+def step_batch_keys(cfg) -> tuple:
+    """The leaves of a step's batch (:func:`step_batch`)."""
+    extra = {"encdec": ("frames",), "vlm": ("patches",)}.get(cfg.family, ())
+    return ("tokens", "labels") + extra
+
+
 def step_batch(stream: TokenStream, cfg, step: int, batch: int, dev):
     """The step's batch on ``dev``: the stream's tokens and labels, and the
     encdec frames or vlm patches the reference's launcher draws from
@@ -114,28 +130,39 @@ def main(argv=None):
                     help="straggler threshold in seconds (0 = off)")
     ap.add_argument("--watchdog-abort", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported (one card): raises")
+                    help="16x16 mesh (256 ranks under torchrun)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported (one card): raises")
+                    help="with --production-mesh: 2x16x16 (512 ranks)")
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError("--production-mesh / --multi-pod: the port "
-                                  "trains on one card; no mesh is ported")
+    desc = (make_production_mesh(multi_pod=args.multi_pod)
+            if args.production_mesh else make_host_mesh())
     dev = resolve_device(args.device)
+    mesh = launch_mesh(desc, dev)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     print(f"[train] arch={cfg.name} params={cfg.param_count():,} "
-          f"device={dev}", flush=True)
+          f"mesh={desc.shape} device={dev}", flush=True)
 
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=max(args.steps, 2),
                           warmup_steps=max(2, args.steps // 10))
+    mb_constraint = None
+    if mesh is not None and args.microbatches > 1:
+        rows = args.batch // args.microbatches
+        mb_constraint = batch_specs(
+            {k: torch.empty((rows, 1), device="meta")
+             for k in step_batch_keys(cfg)}, mesh)
     train_step = make_train_step(cfg, opt_cfg, q_chunk=min(512, args.seq),
-                                 microbatches=args.microbatches)
+                                 microbatches=args.microbatches,
+                                 mb_constraint=mb_constraint)
     state = init_train_state(torch.Generator(device=dev).manual_seed(
         args.seed), cfg, dev)
+    specs = None
+    if mesh is not None:
+        specs = state_specs(state, mesh)
+        state = distribute(state, specs, mesh)
 
     start_step = 0
     ckpt = None
@@ -143,7 +170,8 @@ def main(argv=None):
         ckpt = AsyncCheckpointer(args.ckpt_dir, keep_last=args.keep_last)
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            state = restore(args.ckpt_dir, last, state)
+            state = restore(args.ckpt_dir, last, state, mesh=mesh,
+                            specs=specs)
             start_step = last
             print(f"[train] restored step {last} from {args.ckpt_dir}",
                   flush=True)
@@ -169,8 +197,11 @@ def main(argv=None):
             if dog:
                 dog.beat(step)
             batch = step_batch(stream, cfg, step, args.batch, dev)
+            if mesh is not None:
+                batch = distribute(batch, batch_specs(batch, mesh), mesh)
             t0 = time.perf_counter()
-            state, metrics = train_step(state, batch)
+            with mesh_context(mesh):
+                state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])            # waits for the step
             dt = time.perf_counter() - t0
             rec = {"step": step + 1, "loss": round(loss, 4),

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .._device import DeviceArg, resolve_device
+from ..sharding.partition import constrain_batch, gather_fsdp, is_dtensor
 from .config import ModelConfig
 from .layers import (BF16, AttnParams, MlpParams, _dot, attention, init_attn,
                      init_mlp, mlp, normal_weight, remat_call, rms_norm,
@@ -147,18 +148,19 @@ def encode_frames(params: EncDecParams, cfg: ModelConfig,
     """Bidirectional encoder over frontend-stub frames ``(B, Sf, d)``:
     the frame projection (one bf16 product), the encoder blocks, then
     ``enc_norm``.  Returns bf16 ``(B, Sf, d)``."""
-    x = _dot(frames, params.frame_proj)
+    x = _dot(constrain_batch(frames), gather_fsdp(params.frame_proj))
     B, Sf, _ = x.shape
     positions = _positions(B, Sf, x.device)
     cos_sin = rotary(positions, cfg.head_dim_, cfg.rope_theta)
 
     def body(blk):
         def run(h):
-            h = h + attention(blk.attn, cfg,
-                              rms_norm(h, blk.ln1, cfg.norm_eps), positions,
-                              causal=False, q_chunk=q_chunk, cos_sin=cos_sin)
-            return h + mlp(blk.mlp, rms_norm(h, blk.ln2, cfg.norm_eps),
-                           cfg.act)
+            h, blk_ = constrain_batch(h), gather_fsdp(blk)
+            h = h + constrain_batch(attention(
+                blk_.attn, cfg, rms_norm(h, blk_.ln1, cfg.norm_eps),
+                positions, causal=False, q_chunk=q_chunk, cos_sin=cos_sin))
+            return constrain_batch(h + constrain_batch(mlp(
+                blk_.mlp, rms_norm(h, blk_.ln2, cfg.norm_eps), cfg.act)))
         return run
 
     for blk in params.enc_blocks:
@@ -169,12 +171,17 @@ def encode_frames(params: EncDecParams, cfg: ModelConfig,
 def cross_kv(blk_cross: AttnParams, cfg: ModelConfig,
              enc_out: torch.Tensor):
     """One decoder layer's cross-attention keys and values ``(B, Sf, G,
-    hd)`` from the encoder's output: bf16 products, no rope."""
+    hd)`` from the encoder's output: bf16 products, no rope.  On a mesh
+    they stay ``(B, Sf, G * hd)``, their heads on ``model`` as the
+    products leave them (:func:`~repro_torch.models.spmd.attention_mesh`
+    takes either form)."""
     B, Sf, _ = enc_out.shape
     G, hd = cfg.n_kv_heads, cfg.head_dim_
-    k = _dot(enc_out, blk_cross.wk, blk_cross.bk).reshape(B, Sf, G, hd)
-    v = _dot(enc_out, blk_cross.wv, blk_cross.bv).reshape(B, Sf, G, hd)
-    return k, v
+    k = _dot(enc_out, blk_cross.wk, blk_cross.bk)
+    v = _dot(enc_out, blk_cross.wv, blk_cross.bv)
+    if is_dtensor(k):
+        return k, v
+    return k.reshape(B, Sf, G, hd), v.reshape(B, Sf, G, hd)
 
 
 def zero_cos_sin(cfg: ModelConfig, B: int, S: int, device):
@@ -202,16 +209,17 @@ def forward_encdec(params: EncDecParams, cfg: ModelConfig, batch, *,
     kv_mask = torch.ones((B, Sf), dtype=torch.bool, device=x.device)
     def body(blk):
         def run(h):
-            h = h + attention(blk.self_attn, cfg,
-                              rms_norm(h, blk.ln1, cfg.norm_eps), positions,
-                              q_chunk=q_chunk, cos_sin=cos_sin)
-            k, v = cross_kv(blk.cross_attn, cfg, enc_out)
-            h = h + attention(blk.cross_attn, cfg,
-                              rms_norm(h, blk.ln_x, cfg.norm_eps), zero_pos,
-                              causal=False, q_chunk=q_chunk, cos_sin=zeros,
-                              kv=(k, v), kv_mask=kv_mask)
-            return h + mlp(blk.mlp, rms_norm(h, blk.ln2, cfg.norm_eps),
-                           cfg.act)
+            h, blk_ = constrain_batch(h), gather_fsdp(blk)
+            h = h + constrain_batch(attention(
+                blk_.self_attn, cfg, rms_norm(h, blk_.ln1, cfg.norm_eps),
+                positions, q_chunk=q_chunk, cos_sin=cos_sin))
+            k, v = cross_kv(blk_.cross_attn, cfg, enc_out)
+            h = h + constrain_batch(attention(
+                blk_.cross_attn, cfg, rms_norm(h, blk_.ln_x, cfg.norm_eps),
+                zero_pos, causal=False, q_chunk=q_chunk, cos_sin=zeros,
+                kv=(k, v), kv_mask=kv_mask))
+            return constrain_batch(h + constrain_batch(mlp(
+                blk_.mlp, rms_norm(h, blk_.ln2, cfg.norm_eps), cfg.act)))
         return run
 
     for blk in params.dec_blocks:

@@ -40,8 +40,9 @@ differentiates through these functions: each in-place write here
 (``masked_fill_`` on fresh scores, the routing matrix's ``scatter_``,
 the combine's ``index_add_`` into fresh zeros) leaves autograd the
 reference's gradient.  Attention activations keep the GQA layout
-``(B, S, G, R, hd)``.  The sharding hints of the reference have no
-counterpart on one card.
+``(B, S, G, R, hd)``.  The reference's sharding hints are
+:mod:`repro_torch.sharding.partition`'s ``constrain_*`` calls (the
+identity without a mesh); ops on a mesh are :mod:`.spmd`.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.partition import is_dtensor
 from .config import ModelConfig
 
 __all__ = ["rms_norm", "softcap", "rotary", "apply_rope", "mrope_positions",
@@ -256,6 +258,10 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     form is the reference's too.  Meta tensors take the card's form, so a
     cost pass on them counts the card's bf16 product."""
     xb, wb = x.to(BF16), w.to(BF16)
+    if is_dtensor(xb):
+        from .spmd import mm_f32_mesh
+        y = mm_f32_mesh(xb.reshape(-1, xb.shape[-1]), wb)
+        return y.reshape(*xb.shape[:-1], wb.shape[-1])
     if xb.is_cuda or xb.is_meta:
         y = _MmF32.apply(xb.reshape(-1, xb.shape[-1]), wb)
         return y.reshape(*xb.shape[:-1], wb.shape[-1])
@@ -273,18 +279,27 @@ def _qkv(p: AttnParams, cfg: ModelConfig, x: torch.Tensor, cos, sin):
 
 
 def _attend_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  scale: float, cap: float, mask: torch.Tensor
-                  ) -> torch.Tensor:
+                  scale: float, cap: float, mask: torch.Tensor,
+                  reduce=None) -> torch.Tensor:
     """``q_blk (B, Qc, G, R, hd)``, ``k/v (B, S, G, hd)``, ``mask (Qc, S)``
-    or ``(B, Qc, S)`` -> ``(B, Qc, G, R, hd)``."""
+    or ``(B, Qc, S)`` -> ``(B, Qc, G, R, hd)``.  With ``reduce(t, op)``
+    (``op`` ``"max"`` or ``"sum"`` over the ranks that hold the rest of a
+    sequence split along ``S``) the softmax takes the global maximum and
+    denominator, and the ranks' float32 weighted values are summed before
+    the one rounding to bf16."""
     scores = torch.einsum("bqgrh,bkgh->bgrqk", q_blk.to(BF16).float(),
                           k.to(BF16).float()) * scale
     scores = softcap(scores, cap)
     mask_b = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
     scores.masked_fill_(~mask_b, _NEG_INF)
-    p = torch.softmax(scores, dim=-1).to(BF16)
-    del scores
-    return torch.einsum("bgrqk,bkgh->bqgrh", p, v.to(BF16))
+    if reduce is None:
+        p = torch.softmax(scores, dim=-1).to(BF16)
+        del scores
+        return torch.einsum("bgrqk,bkgh->bqgrh", p, v.to(BF16))
+    e = torch.exp(scores - reduce(scores.amax(dim=-1, keepdim=True), "max"))
+    p = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(BF16)
+    o = torch.einsum("bgrqk,bkgh->bqgrh", p.float(), v.to(BF16).float())
+    return reduce(o, "sum").to(BF16)
 
 
 def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
@@ -303,7 +318,13 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     own (roped keys, to fill its cache), or another sequence's for
     cross-attention (no rope; the reference's ``kv_override``), whose
     ``kv_mask (B, Sk)`` says which keys a query may see.  Rope applies to
-    the queries only then."""
+    the queries only then.  On a mesh (a ``DTensor`` ``x``) each rank
+    attends with its own heads (:mod:`.spmd`)."""
+    if is_dtensor(x):
+        from .spmd import attention_mesh
+        return attention_mesh(p, cfg, x, positions, causal=causal,
+                              window=window, q_chunk=q_chunk,
+                              cos_sin=cos_sin, kv=kv, kv_mask=kv_mask)
     B, S, _ = x.shape
     hd = cfg.head_dim_
     scale = hd ** -0.5
@@ -317,26 +338,38 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
         q = _dot(x, p.wq, p.bq).reshape(B, S, G, cfg.n_heads // G, hd)
         q = apply_rope(q, cos, sin)
         k, v = kv
-    Sk = k.shape[1]
+    out = _attend_chunks(q, k, v, causal=causal, window=window,
+                         q_chunk=q_chunk, scale=scale, cap=cfg.attn_softcap,
+                         kv_mask=kv_mask)
+    return _dot(out.reshape(B, S, cfg.n_heads * hd), p.wo)
+
+
+def _attend_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int, q_chunk: int, scale: float,
+                   cap: float, kv_mask: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """:func:`attention`'s core on roped ``q (B, S, G, R, hd)`` and ``k,
+    v (B, Sk, G, hd)``: each chunk of queries against every key under
+    the mask -> ``(B, S, G, R, hd)``."""
+    S, Sk = q.shape[1], k.shape[1]
+    dev = q.device
     nc = S // q_chunk if (S % q_chunk == 0 and S > q_chunk) else 1
     qc = S // nc
-    kpos = torch.arange(Sk, device=x.device)
+    kpos = torch.arange(Sk, device=dev)
     outs = []
     for c in range(nc):
-        qpos = c * qc + torch.arange(qc, device=x.device)
+        qpos = c * qc + torch.arange(qc, device=dev)
         if causal:
             mask = kpos[None, :] <= qpos[:, None]
             if window > 0:
                 mask &= kpos[None, :] > qpos[:, None] - window
         else:
-            mask = torch.ones((qc, Sk), dtype=torch.bool, device=x.device)
+            mask = torch.ones((qc, Sk), dtype=torch.bool, device=dev)
         if kv_mask is not None:
             mask = mask[None] & kv_mask[:, None, :]
         outs.append(_attend_block(q[:, c * qc:(c + 1) * qc], k, v,
-                                  scale=scale, cap=cfg.attn_softcap,
-                                  mask=mask))
-    out = torch.cat(outs, dim=1) if nc > 1 else outs[0]
-    return _dot(out.reshape(B, S, cfg.n_heads * hd), p.wo)
+                                  scale=scale, cap=cap, mask=mask))
+    return torch.cat(outs, dim=1) if nc > 1 else outs[0]
 
 
 def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
@@ -347,30 +380,56 @@ def attention_decode(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     written at ``pos`` in place (the reference's one-hot select exists only
     for its sharded cache); ``update_cache=False`` reads them without
     writing (cross-attention decode); ``window > 0`` attends to the last
-    ``window`` positions only.  Returns ``out (B, 1, d)``."""
+    ``window`` positions only.  Returns ``out (B, 1, d)``.  On a mesh (a
+    ``DTensor`` ``x``) a cache split along its sequence over ``model``
+    is scored shard by shard and merged (:mod:`.spmd`)."""
+    if is_dtensor(x):
+        from .spmd import attention_decode_mesh
+        return attention_decode_mesh(p, cfg, x, k_cache, v_cache, pos,
+                                     window=window,
+                                     update_cache=update_cache,
+                                     cos_sin=cos_sin)
     B = x.shape[0]
-    hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-    Smax = k_cache.shape[1]
     if cos_sin is None:
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
-        cos_sin = rotary(positions, hd, cfg.rope_theta)
-    cos, sin = cos_sin
-    q = apply_rope(_dot(x, p.wq, p.bq).reshape(B, 1, G, H // G, hd),
-                   cos, sin)
+        cos_sin = rotary(positions, cfg.head_dim_, cfg.rope_theta)
+    k2 = v2 = None
     if update_cache:
-        k_new = apply_rope(_dot(x, p.wk, p.bk).reshape(B, 1, G, hd), cos,
-                           sin)
-        v_new = _dot(x, p.wv, p.bv).reshape(B, 1, G, hd)
-        k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    kpos = torch.arange(Smax, device=x.device)
+        k2, v2 = _dot(x, p.wk, p.bk), _dot(x, p.wv, p.bv)
+    out = _decode_attend(cfg, _dot(x, p.wq, p.bq), k2, v2, cos_sin, k_cache,
+                         v_cache, pos, window=window)
+    return _dot(out, p.wo)
+
+
+def _decode_attend(cfg: ModelConfig, q2: torch.Tensor,
+                   k2: Optional[torch.Tensor], v2: Optional[torch.Tensor],
+                   cos_sin: Tuple, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, pos: int, *, window: int,
+                   s0: int = 0, reduce=None) -> torch.Tensor:
+    """:func:`attention_decode`'s core on the step's projections ``q2 (B,
+    1, H hd)``, ``k2`` / ``v2 (B, 1, G hd)`` (``None``: no cache write):
+    rope, write the caches at ``pos``, attend -> ``(B, 1, H hd)``.  On a
+    mesh the caches hold positions ``[s0, s0 + S)`` of a sequence split
+    over the ranks that ``reduce`` combines (:func:`_attend_block`), and a
+    rank writes ``pos`` only where it holds it."""
+    B = q2.shape[0]
+    hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    S = k_cache.shape[1]
+    cos, sin = cos_sin
+    q = apply_rope(q2.reshape(B, 1, G, H // G, hd), cos, sin)
+    if k2 is not None and (reduce is None or s0 <= pos < s0 + S):
+        k_new = apply_rope(k2.reshape(B, 1, G, hd), cos, sin)
+        k_cache[:, pos - s0] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos - s0] = v2.reshape(B, G, hd).to(v_cache.dtype)
+    kpos = torch.arange(s0, s0 + S, device=q.device)
     mask = kpos <= pos
     if window > 0:
         mask &= kpos > pos - window
     out = _attend_block(q, k_cache, v_cache, scale=hd ** -0.5,
-                        cap=cfg.attn_softcap, mask=mask[None, :])
-    return _dot(out.reshape(B, 1, H * hd), p.wo)
+                        cap=cfg.attn_softcap, mask=mask[None, :],
+                        reduce=reduce)
+    return out.reshape(B, 1, H * hd)
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +523,12 @@ def moe(p: MoeParams, cfg: ModelConfig, x: torch.Tensor,
     ``k`` (weighted by the router's probabilities there): it holds two
     computations of the same tokens to the same experts, where bf16
     router logits an ulp apart would pick differently."""
+    if is_dtensor(x):
+        if stats is not None or routing is not None:
+            raise NotImplementedError("moe on a mesh takes no stats or "
+                                      "pinned routing")
+        from .spmd import moe_mesh
+        return moe_mesh(p, cfg, x, capacity_factor)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.n_active_experts
     T = B * S

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceArg, resolve_device
+from ..sharding.partition import constrain_batch, gather_fsdp, is_dtensor
 from .config import ModelConfig
 from .layers import (BF16, AttnParams, MlpParams, MoeParams, _dot,
                      _mrope_tables, attention, init_attn, init_mlp,
@@ -295,7 +296,12 @@ def embed_tokens(params: LmParams, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     """``tokens (B, S)`` -> bf16 ``(B, S, d)``; gemma2 scales them by
     ``bf16(sqrt(d_model))`` (a bf16 product)."""
-    x = params.embed[tokens.long()].to(BF16)
+    table = gather_fsdp(params.embed)
+    if is_dtensor(table):
+        from .spmd import embed_mesh
+        x = constrain_batch(embed_mesh(table, tokens).to(BF16))
+    else:
+        x = table[tokens.long()].to(BF16)
     if cfg.local_global:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=BF16,
                              device=x.device)
@@ -308,7 +314,7 @@ def embed_batch(params: LmParams, cfg: ModelConfig, batch) -> torch.Tensor:
     replace the first ``P`` positions."""
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
-        proj = _dot(batch["patches"], params.patch_proj)
+        proj = _dot(batch["patches"], gather_fsdp(params.patch_proj))
         x[:, :proj.shape[1]] = proj
     return x
 
@@ -317,24 +323,34 @@ def block_apply(blk, cfg: ModelConfig, h: torch.Tensor, attn_fn
                 ) -> torch.Tensor:
     """One block around its attention: ``attn_fn(attn_params, normed h)``
     gives the attention output (prefill, decode or PQ decode).  Then the
-    sandwich norms where the block has them, and the MLP or the experts."""
-    a = attn_fn(blk.attn, rms_norm(h, blk.ln1, cfg.norm_eps))
+    sandwich norms where the block has them, and the MLP or the experts.
+    On a mesh the block's weights are gathered over the FSDP axes here,
+    and ``h`` and the row-parallel outputs (partial sums over ``model``)
+    are pinned to the DP axes, replicated over ``model``, before they are
+    added."""
+    h = constrain_batch(h)
+    blk = gather_fsdp(blk)
+    a = constrain_batch(attn_fn(blk.attn, rms_norm(h, blk.ln1, cfg.norm_eps)))
     if getattr(blk, "post_attn_ln", None) is not None:
         a = rms_norm(a, blk.post_attn_ln, cfg.norm_eps)
     h = h + a
     if isinstance(blk, MoeBlock):
-        return h + moe(blk.moe, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
-    m = mlp(blk.mlp, rms_norm(h, blk.ln2, cfg.norm_eps), cfg.act)
+        return constrain_batch(h + constrain_batch(
+            moe(blk.moe, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))))
+    m = constrain_batch(mlp(blk.mlp, rms_norm(h, blk.ln2, cfg.norm_eps),
+                            cfg.act))
     if blk.post_mlp_ln is not None:
         m = rms_norm(m, blk.post_mlp_ln, cfg.norm_eps)
-    return h + m
+    return constrain_batch(h + m)
 
 
 def ssm_block_apply(blk: SsmBlock, cfg: ModelConfig, h: torch.Tensor, *,
                     chunk: int = 128) -> torch.Tensor:
     """One SSM block over a full sequence: ``h + ssd_forward(norm(h))``."""
-    return h + ssd_forward(blk.ssm, cfg, rms_norm(h, blk.ln, cfg.norm_eps),
-                           chunk=chunk)
+    h = constrain_batch(h)
+    blk = gather_fsdp(blk)
+    return constrain_batch(h + constrain_batch(ssd_forward(
+        blk.ssm, cfg, rms_norm(h, blk.ln, cfg.norm_eps), chunk=chunk)))
 
 
 def logits_from_hidden(params, cfg: ModelConfig,
@@ -343,8 +359,9 @@ def logits_from_hidden(params, cfg: ModelConfig,
     (float32 logits), as the reference's ``preferred_element_type``.
     ``params`` is an :class:`LmParams` or an
     :class:`~repro_torch.models.encdec.EncDecParams`."""
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    head = params.embed if params.lm_head is None else params.lm_head
+    h = rms_norm(constrain_batch(h), params.final_norm, cfg.norm_eps)
+    head = gather_fsdp(params.embed if params.lm_head is None
+                       else params.lm_head)
     logits = torch.matmul(h.to(BF16).float(), head.to(BF16).float().T)
     return softcap(logits, cfg.final_softcap)
 

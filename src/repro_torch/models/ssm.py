@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.partition import is_dtensor
 from .config import ModelConfig
 from .layers import BF16, _dot, _dot_f32, normal_weight, rms_norm
 
@@ -141,18 +142,41 @@ def ssd_forward(p: SsmParams, cfg: ModelConfig, x: torch.Tensor,
     so  y_j = C_j exp(cum_j) S_prev                       [inter-chunk]
             + sum_{l<=j} exp(cum_j - cum_l) dt_l (C_j.B_l) x_l   [intra]
     """
-    B, T, _ = x.shape
-    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    if is_dtensor(x):
+        from .spmd import ssd_forward_mesh
+        if initial_state is not None or return_state:
+            raise NotImplementedError("ssd_forward on a mesh takes no "
+                                      "initial state and returns none")
+        return ssd_forward_mesh(p, cfg, x, chunk)
+    y, S = _ssd_core(p, cfg, lambda w: _dot_f32(x, getattr(p, w)), chunk,
+                     initial_state)
+    out = _dot(rms_norm(y.to(BF16), p.norm, cfg.norm_eps), p.out_proj)
+    if return_state:
+        return out, S
+    return out
+
+
+def _ssd_core(p: SsmParams, cfg: ModelConfig, proj, chunk: int,
+              initial_state: Optional[torch.Tensor]):
+    """:func:`ssd_forward` between its input and its gated norm:
+    ``proj(name)`` gives the float32 output of the projection by weight
+    ``name`` (``wz``, ``wx`` ``(B, T, din)``, ``wB``, ``wC`` ``(B, T,
+    N)``, ``wdt`` ``(B, T, H)``, taken in that order);
+    then the convolutions, the chunked scan, the skip and the gate ->
+    ``(y (B, T, din) float32, S (B, H, P, N))``.  Widths come from the
+    projections, so a rank runs it on its own heads
+    (``spmd.ssd_forward_mesh``)."""
+    z = proj("wz")                                              # (B,T,din)
+    xin = _causal_conv(proj("wx"), p.conv_x, p.conv_bx)
+    Bm = _causal_conv(proj("wB"), p.conv_B, p.conv_bB)          # (B,T,N)
+    Cm = _causal_conv(proj("wC"), p.conv_C, p.conv_bC)
+    dt = _softplus(proj("wdt") + p.dt_bias)
+    A = -torch.exp(p.a_log.float())                             # (H,)
+    B, T, din = xin.shape
+    N, H = Bm.shape[-1], dt.shape[-1]
     P = cfg.ssm_head_dim
     Q = chunk if (T % chunk == 0 and T >= chunk) else T
     nc = T // Q
-
-    z = _dot_f32(x, p.wz)                                       # (B,T,din)
-    xin = _causal_conv(_dot_f32(x, p.wx), p.conv_x, p.conv_bx)
-    Bm = _causal_conv(_dot_f32(x, p.wB), p.conv_B, p.conv_bB)   # (B,T,N)
-    Cm = _causal_conv(_dot_f32(x, p.wC), p.conv_C, p.conv_bC)
-    dt = _softplus(_dot_f32(x, p.wdt) + p.dt_bias)
-    A = -torch.exp(p.a_log.float())                             # (H,)
     xh = xin.reshape(B, T, H, P)
 
     dtc = dt.reshape(B, nc, Q, H)
@@ -165,7 +189,7 @@ def ssd_forward(p: SsmParams, cfg: ModelConfig, x: torch.Tensor,
     # ---- intra-chunk (batched (Q, Q) products) ----
     G = torch.einsum("bciN,bcjN->bcij", Cc, Bc)                 # (B,nc,Q,Q)
     Lmat = _clip_exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xin.device))
     M = G[..., None] * torch.where(tri[None, None, :, :, None], Lmat, 0.0)
     del Lmat
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xc * dtc[..., None])
@@ -174,7 +198,7 @@ def ssd_forward(p: SsmParams, cfg: ModelConfig, x: torch.Tensor,
     # ---- inter-chunk recurrence ----
     decay_out = _clip_exp(seg_end[:, :, None, :] - cum)
     S_local = torch.einsum("bcjh,bcjhp,bcjn->bchpn", decay_out * dtc, xc, Bc)
-    S = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    S = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xin.device)
          if initial_state is None else initial_state.float())
     y_inter = []
     for c in range(nc):
@@ -184,11 +208,7 @@ def ssd_forward(p: SsmParams, cfg: ModelConfig, x: torch.Tensor,
 
     y = (y_intra + torch.stack(y_inter, dim=1)).reshape(B, T, H, P)
     y = y + p.d_skip[None, None, :, None] * xh
-    y = y.reshape(B, T, din) * F.silu(z)
-    out = _dot(rms_norm(y.to(BF16), p.norm, cfg.norm_eps), p.out_proj)
-    if return_state:
-        return out, S
-    return out
+    return y.reshape(B, T, din) * F.silu(z), S
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int,
@@ -217,16 +237,29 @@ def _conv_step(state: torch.Tensor, u_new: torch.Tensor, w: torch.Tensor,
 def ssd_decode_step(p: SsmParams, cfg: ModelConfig, x: torch.Tensor, state):
     """Exact single-token recurrence: ``x (B, 1, d)`` -> (out ``(B, 1,
     d)`` bf16, the new ``(ssd, conv_x, conv_B, conv_C)`` states)."""
-    B = x.shape[0]
-    din, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    S, cx, cB, cC = state
+    if is_dtensor(x):
+        from .spmd import ssd_decode_step_mesh
+        return ssd_decode_step_mesh(p, cfg, x, state)
+    y, new = _decode_core(p, cfg, lambda w: _dot_f32(x, getattr(p, w))[:, 0],
+                          state)
+    out = _dot(rms_norm(y.to(BF16), p.norm, cfg.norm_eps), p.out_proj)
+    return out, new
 
-    z = _dot_f32(x, p.wz)[:, 0]                                 # (B, din)
-    xin, cx = _conv_step(cx, _dot_f32(x, p.wx)[:, 0], p.conv_x, p.conv_bx)
-    Bm, cB = _conv_step(cB, _dot_f32(x, p.wB)[:, 0], p.conv_B, p.conv_bB)
-    Cm, cC = _conv_step(cC, _dot_f32(x, p.wC)[:, 0], p.conv_C, p.conv_bC)
-    dt = _softplus(_dot_f32(x, p.wdt)[:, 0] + p.dt_bias)
+
+def _decode_core(p: SsmParams, cfg: ModelConfig, proj, state):
+    """:func:`ssd_decode_step` between its input and its gated norm:
+    ``proj(name)`` as :func:`_ssd_core`'s, one position (``(B, din)``,
+    ``(B, N)``, ``(B, H)``) -> ``(y (B, 1, din) float32, new states)``;
+    widths from the projections."""
+    S, cx, cB, cC = state
+    z = proj("wz")                                              # (B, din)
+    xin, cx = _conv_step(cx, proj("wx"), p.conv_x, p.conv_bx)
+    Bm, cB = _conv_step(cB, proj("wB"), p.conv_B, p.conv_bB)
+    Cm, cC = _conv_step(cC, proj("wC"), p.conv_C, p.conv_bC)
+    dt = _softplus(proj("wdt") + p.dt_bias)
     A = -torch.exp(p.a_log.float())
+    B, din = xin.shape
+    H, P = dt.shape[-1], cfg.ssm_head_dim
     xhead = xin.reshape(B, H, P)
 
     dA = torch.exp(dt * A)                                      # (B, H)
@@ -237,6 +270,4 @@ def ssd_decode_step(p: SsmParams, cfg: ModelConfig, x: torch.Tensor, state):
              + (dt[:, :, None] * xhead)[..., None] * Bm[:, None, None, :])
     y = torch.matmul(S_new, Cm[:, None, :, None])[..., 0]       # (B, H, P)
     y = y + p.d_skip[None, :, None] * xhead
-    y = y.reshape(B, 1, din) * F.silu(z)[:, None, :]
-    out = _dot(rms_norm(y.to(BF16), p.norm, cfg.norm_eps), p.out_proj)
-    return out, (S_new, cx, cB, cC)
+    return y.reshape(B, 1, din) * F.silu(z)[:, None, :], (S_new, cx, cB, cC)

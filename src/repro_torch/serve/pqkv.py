@@ -54,6 +54,7 @@ from .._device import DeviceArg, resolve_device
 from ..kernels.pq_attn.ops import pq_attn
 from ..models.config import ModelConfig
 from ..models.layers import _dot, apply_rope, top_k
+from ..sharding.partition import is_dtensor
 from ..models.lm import (LmParams, block_apply, check_kv_family,
                          embed_tokens, layer_window, logits_from_hidden)
 from .decode import decode_cos_sin
@@ -375,7 +376,8 @@ def _codeword_mass(p: torch.Tensor, v_codes: torch.Tensor,
 
 def pq_attention_decode(q: torch.Tensor, layer_cache: PQKVCache, pos: int,
                         *, pqc: PQKVConfig, window: int = 0,
-                        route: Optional[str] = None) -> torch.Tensor:
+                        route: Optional[str] = None, s0: int = 0,
+                        reduce=None) -> torch.Tensor:
     """One layer's decode attention against its compressed cache.
 
     ``q (B, G, R, hd)``; ``layer_cache`` one layer of a :class:`PQKVCache`
@@ -383,9 +385,20 @@ def pq_attention_decode(q: torch.Tensor, layer_cache: PQKVCache, pos: int,
     to the last ``window`` positions (gemma2's local layers).  Returns
     ``(B, G, R, hd)`` bf16.  ``route``: ``"plain"`` or ``"kernel"``
     (module docstring); by default the kernel for tensors off the CPU
-    with ``mode="softmax"`` and exact values, else the plain route."""
+    with ``mode="softmax"`` and exact values, else the plain route.
+
+    On a mesh the coded tail holds positions ``[s0, s0 + S)`` of a
+    sequence split over ranks, and ``reduce(t, op)`` (``op`` ``"max"`` or
+    ``"sum"``) combines a tensor over them
+    (:mod:`repro_torch.models.spmd`): the kernel runs on the rank's part
+    of the tail and the ranks' ``(o, m, l)`` merge by the log-sum-exp
+    rule; the plain route takes the global maximum and sums.  The ring is
+    every rank's.  ``mode="topk"`` is refused there."""
     lc = layer_cache
     coded_v = lc.v is None
+    if reduce is not None and pqc.mode != "softmax":
+        raise NotImplementedError("PQ-KV mode='topk' over a cache split "
+                                  "along its sequence: not on a mesh")
     if route is None:
         route = ("kernel" if q.device.type != "cpu"
                  and pqc.mode == "softmax"
@@ -406,16 +419,26 @@ def pq_attention_decode(q: torch.Tensor, layer_cache: PQKVCache, pos: int,
                 f"exact values); {what} has no kernel (the reference "
                 f"computes it outside its Pallas kernel): use route='plain'")
         start, stop = tail_range(pos, W, window)
+        if reduce is not None:                  # this rank's part of it
+            start = min(max(start - s0, 0), S)
+            stop = max(min(max(stop - s0, 0), S), start)
         o_t, m_t, l_t = pq_attn(qlut.reshape(B, G * R, M, K), lc.k_codes,
                                 lc.v, stop, scale, start)
+        o_t = o_t.reshape(B, G, R, hd)
         m_t, l_t = m_t.reshape(B, G, R, 1), l_t.reshape(B, G, R, 1)
+        if reduce is not None:          # the ranks' parts, log-sum-exp
+            mx = reduce(m_t, "max")
+            w_i = l_t * torch.exp(m_t - mx)
+            o_t = reduce(o_t * w_i, "sum")
+            l_t = reduce(w_i, "sum")
+            o_t, m_t = o_t / l_t.clamp_min(1e-30), mx
         m_r = s_ring.amax(dim=-1, keepdim=True)
         er = torch.exp(s_ring - m_r)
         acc_r = torch.einsum("bgrw,bwgh->bgrh", er, lc.v_recent.float())
         m = torch.maximum(m_t, m_r)
         w_t = l_t * torch.exp(m_t - m)
         w_r = torch.exp(m_r - m)
-        out = ((o_t.reshape(B, G, R, hd) * w_t + acc_r * w_r)
+        out = ((o_t * w_t + acc_r * w_r)
                / (w_t + er.sum(dim=-1, keepdim=True) * w_r))
         return out.to(BF16)
     if route != "plain":
@@ -423,7 +446,7 @@ def pq_attention_decode(q: torch.Tensor, layer_cache: PQKVCache, pos: int,
     idx = lc.k_codes.long().permute(0, 2, 3, 1)[:, :, None].expand(
         B, G, R, M, S)
     scores = torch.gather(qlut.float(), 4, idx).sum(dim=3) * scale
-    kpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(s0, s0 + S, device=q.device)
     tail = kpos <= pos - W
     if window > 0:
         tail &= kpos > pos - window
@@ -442,18 +465,26 @@ def pq_attention_decode(q: torch.Tensor, layer_cache: PQKVCache, pos: int,
         out = torch.einsum("bgrt,bgrth->bgrh", et, vg)
         out = out + torch.einsum("bgrw,bwgh->bgrh", er, v_rec)
         return (out / denom).to(BF16)
-    m = torch.maximum(s_tail.amax(dim=-1, keepdim=True),
+    if reduce is None:
+        reduce = _one_rank
+    m = torch.maximum(reduce(s_tail.amax(dim=-1, keepdim=True), "max"),
                       s_ring.amax(dim=-1, keepdim=True))
     et = torch.exp(s_tail - m)
     er = torch.exp(s_ring - m)
-    denom = et.sum(dim=-1, keepdim=True) + er.sum(dim=-1, keepdim=True)
+    denom = (reduce(et.sum(dim=-1, keepdim=True), "sum")
+             + er.sum(dim=-1, keepdim=True))
     out = torch.einsum("bgrw,bwgh->bgrh", er, v_rec)
     if coded_v:
-        out = out + _codeword_mass(et, lc.v_codes, lc.v_books)
+        tail_out = _codeword_mass(et, lc.v_codes, lc.v_books)
     else:
-        out = out + torch.einsum("bgrs,bsgh->bgrh", et.to(BF16).float(),
-                                 lc.v.float())
-    return (out / denom).to(BF16)
+        tail_out = torch.einsum("bgrs,bsgh->bgrh", et.to(BF16).float(),
+                                lc.v.float())
+    return ((out + reduce(tail_out, "sum")) / denom).to(BF16)
+
+
+def _one_rank(t: torch.Tensor, op: str) -> torch.Tensor:
+    """The reduction over one rank: ``t`` itself."""
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -465,26 +496,47 @@ def _pq_attn_block(attn_p, cfg: ModelConfig, x: torch.Tensor,
                    window: int, cos_sin) -> torch.Tensor:
     """Project q/k/v, write the compressed cache at ``pos`` (the key's
     codes, the value or its codes, and both into ring slot ``pos % W``),
-    attend."""
-    B = x.shape[0]
+    attend.  On a mesh (a ``DTensor`` ``x``) each rank runs the same core
+    on its share of the cache
+    (:func:`repro_torch.models.spmd.pq_attn_block_mesh`)."""
+    if is_dtensor(x):
+        from ..models.spmd import pq_attn_block_mesh
+        return pq_attn_block_mesh(attn_p, cfg, x, layer_cache, pos, pqc=pqc,
+                                  window=window, cos_sin=cos_sin)
+    out = _pq_write_attend(cfg, _dot(x, attn_p.wq, attn_p.bq),
+                           _dot(x, attn_p.wk, attn_p.bk),
+                           _dot(x, attn_p.wv, attn_p.bv), cos_sin,
+                           layer_cache, pos, pqc=pqc, window=window)
+    return _dot(out, attn_p.wo)
+
+
+def _pq_write_attend(cfg: ModelConfig, q2: torch.Tensor, k2: torch.Tensor,
+                     v2: torch.Tensor, cos_sin, lc: PQKVCache, pos: int, *,
+                     pqc: PQKVConfig, window: int, s0: int = 0,
+                     reduce=None) -> torch.Tensor:
+    """:func:`_pq_attn_block`'s core on the step's projections ``q2 (B, 1,
+    H hd)``, ``k2`` / ``v2 (B, 1, G hd)``: rope, write the cache, attend
+    -> ``(B, 1, H hd)`` bf16.  On a mesh ``lc`` holds positions ``[s0, s0
+    + S)`` (:func:`pq_attention_decode`'s ``s0`` / ``reduce``) and a rank
+    writes ``pos`` only where it holds it."""
+    B = q2.shape[0]
     hd, H, G = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     cos, sin = cos_sin
-    q = apply_rope(_dot(x, attn_p.wq, attn_p.bq).reshape(B, 1, G, H // G, hd),
-                   cos, sin)[:, 0]
-    k_new = apply_rope(_dot(x, attn_p.wk, attn_p.bk).reshape(B, 1, G, hd),
-                       cos, sin)[:, 0]
-    v_new = _dot(x, attn_p.wv, attn_p.bv).reshape(B, G, hd)
-    lc = layer_cache
-    lc.k_codes[:, pos] = encode_kv(k_new, lc.k_books)
-    if lc.v is not None:
-        lc.v[:, pos] = v_new.to(lc.v.dtype)
-    else:
-        lc.v_codes[:, pos] = encode_kv(v_new, lc.v_books)
+    q = apply_rope(q2.reshape(B, 1, G, H // G, hd), cos, sin)[:, 0]
+    k_new = apply_rope(k2.reshape(B, 1, G, hd), cos, sin)[:, 0]
+    v_new = v2.reshape(B, G, hd)
+    if reduce is None or s0 <= pos < s0 + lc.k_codes.shape[1]:
+        lc.k_codes[:, pos - s0] = encode_kv(k_new, lc.k_books)
+        if lc.v is not None:
+            lc.v[:, pos - s0] = v_new.to(lc.v.dtype)
+        else:
+            lc.v_codes[:, pos - s0] = encode_kv(v_new, lc.v_books)
     slot = pos % lc.k_recent.shape[1]
     lc.k_recent[:, slot] = k_new.to(lc.k_recent.dtype)
     lc.v_recent[:, slot] = v_new.to(lc.v_recent.dtype)
-    out = pq_attention_decode(q, lc, pos, pqc=pqc, window=window)
-    return _dot(out.reshape(B, 1, H * hd).to(BF16), attn_p.wo)
+    out = pq_attention_decode(q, lc, pos, pqc=pqc, window=window, s0=s0,
+                              reduce=reduce)
+    return out.reshape(B, 1, H * hd).to(BF16)
 
 
 def pq_serve_step(params: LmParams, cfg: ModelConfig, pq_cache: PQKVCache,

@@ -7,6 +7,8 @@ from typing import Tuple
 
 import torch
 
+from ..sharding.partition import constrain_batch, gather_vocab, pick_last
+
 __all__ = ["next_token_loss"]
 
 
@@ -21,10 +23,10 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor,
     (``log^2 Z``) keeps the softmax normaliser from drifting.  Metrics:
     ``ce``, ``z_loss``, ``ppl`` (``exp`` of ``ce`` clipped to [0, 20]) and
     ``tokens`` (the unmasked count)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)                        # (B, S)
+    logits = gather_vocab(logits.float())
+    lse = constrain_batch(torch.logsumexp(logits, dim=-1))       # (B, S)
     label_safe = torch.clamp(labels, min=0).long()
-    picked = torch.gather(logits, -1, label_safe[..., None])[..., 0]
+    picked = constrain_batch(pick_last(logits, label_safe))
     nll = lse - picked
     mask = (labels != ignore_id).float()
     tokens = mask.sum()

@@ -41,6 +41,8 @@ from ..models import encdec as encdec_mod
 from ..models import lm as lm_mod
 from ..models.config import ModelConfig
 from ..models.layers import BF16
+from ..sharding.partition import (constrain_batch, gather_vocab,
+                                  is_dtensor, pick_last, redistribute_tree)
 from .losses import next_token_loss
 from .optim import (AdamWConfig, OptState, adamw_init, adamw_step,
                     matrix_like)
@@ -92,9 +94,17 @@ def bf16_cast(params):
                          and matrix_like(path, p) else p), params)
 
 
+def zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """A float32 accumulator shaped like ``p`` (a DTensor's laid out as
+    it is)."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def make_loss_and_grads(cfg: ModelConfig, q_chunk: int = 512,
                         microbatches: int = 1, remat: bool = True,
-                        loss_chunk: int = 0):
+                        loss_chunk: int = 0, mb_constraint=None):
     """``fn(params, batch) -> (loss, metrics, grads)``: the reference's
     ``value_and_grad`` of its train step's loss, with float32 ``grads``
     shaped like ``params``.  ``batch = {"tokens" (B, S), "labels" (B, S),
@@ -108,10 +118,11 @@ def make_loss_and_grads(cfg: ModelConfig, q_chunk: int = 512,
     fwd = make_forward(cfg, q_chunk=q_chunk, remat=remat)
 
     def chunk_sums(p, hb, lb):
-        logits = lm_mod.logits_from_hidden(p, cfg, hb).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              torch.clamp(lb, min=0).long()[..., None])[..., 0]
+        logits = gather_vocab(
+            lm_mod.logits_from_hidden(p, cfg, hb).float())
+        lse = constrain_batch(torch.logsumexp(logits, dim=-1))
+        picked = constrain_batch(
+            pick_last(logits, torch.clamp(lb, min=0).long()))
         mask = (lb != -100).float()
         return (torch.sum((lse - picked) * mask),
                 torch.sum((lse ** 2) * mask), torch.sum(mask))
@@ -148,17 +159,22 @@ def make_loss_and_grads(cfg: ModelConfig, q_chunk: int = 512,
                 grads)
 
     def loss_and_grads(params, batch):
+        if mb_constraint is not None and not all(
+                is_dtensor(v) for v in batch.values()):
+            raise ValueError("mb_constraint lays microbatches out on a "
+                             "mesh; this batch lies on no mesh")
         if microbatches == 1:
             loss, metrics, grads = one(params, batch)
             return loss, metrics, unflatten(params, grads)
         mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches,
                             *v.shape[1:]) for k, v in batch.items()}
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves(params)]
+        acc = [zeros_f32(p) for p in leaves(params)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=acc[0].device)
         for i in range(microbatches):
-            loss, metrics, grads = one(params,
-                                       {k: v[i] for k, v in mbs.items()})
+            mb = {k: v[i] for k, v in mbs.items()}
+            if mb_constraint is not None:
+                mb = redistribute_tree(mb, mb_constraint)
+            loss, metrics, grads = one(params, mb)
             for a, g in zip(acc, grads):
                 a.add_(g)
             loss_sum = loss_sum + loss
@@ -175,14 +191,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """``train_step(state, batch) -> (state, metrics)``, the state's
     masters and moments updated in place; ``metrics`` are float32 scalar
     tensors (``loss``, ``ce``, ``z_loss``, ``ppl``, ``tokens``).  The
-    arguments are :func:`make_loss_and_grads`'s.  ``mb_constraint`` pins
-    a microbatch's sharding in the reference's SPMD lowering: one card has
-    none, so anything but ``None`` raises."""
-    if mb_constraint is not None:
-        raise ValueError("mb_constraint shards a microbatch across a mesh; "
-                         "one card has no mesh (pass None)")
+    arguments are :func:`make_loss_and_grads`'s; ``mb_constraint`` pins
+    each microbatch's layout on a mesh (the reference's, its
+    ``train/step.py:54-66``): a batch on no mesh with a constraint
+    raises ``ValueError``."""
     loss_and_grads = make_loss_and_grads(cfg, q_chunk, microbatches, remat,
-                                         loss_chunk)
+                                         loss_chunk, mb_constraint)
 
     def train_step(state: TrainState, batch):
         loss, metrics, grads = loss_and_grads(state.params, batch)

@@ -203,11 +203,11 @@ def test_live_tree_is_clean():
     assert r.clean, (
         [f.render(REPO) for f in r.findings],
         r.stale_baseline, r.unjustified_baseline)
-    # the held items' findings are frozen, not silenced: H2's wave flag,
-    # and the ADC range check's read-back (ROADMAP queue 3)
+    # the held item's findings are frozen, not silenced: H2's wave flag
+    # (the ADC range check's read-back is gone: codes are checked where
+    # they enter the program)
     baseline = json.loads((REPO / BASELINE).read_text())["findings"]
-    held = {"src/repro_torch/core/lb_search.py": "ROADMAP H2",
-            "src/repro_torch/kernels/pq_adc/ops.py": "ROADMAP queue 3"}
+    held = {"src/repro_torch/core/lb_search.py": "ROADMAP H2"}
     assert {e["path"] for e in baseline.values()} == set(held)
     assert all(held[e["path"]] in e["justification"]
                for e in baseline.values())
@@ -279,7 +279,11 @@ def test_sanitizer_ops_cover_the_routing_gate():
         assert f"def {func}(" in src
 
 
-_CHECK = "/w/src/repro_torch/kernels/pq_adc/ops.py:260 in _check_range: "
+_CHECK = "/w/src/repro_torch/kernels/pq_adc/ops.py:275 in check_codes: "
+# a table of the form KNOWN_READS takes: the ADC range check as it was
+# listed, before its read moved to where codes enter the program
+_READS = {op: ("kernels/pq_adc/ops.py", "check_codes")
+          for op in ("adc_cdist", "adc_lookup_quant")}
 
 
 @pytest.mark.parametrize("name,culprit,want", [
@@ -289,13 +293,15 @@ _CHECK = "/w/src/repro_torch/kernels/pq_adc/ops.py:260 in _check_range: "
     ("adc_cdist", "RuntimeError: /w/src/repro_torch/kernels/pq_adc/"
      "ops.py:300 in adc_sym_cdist: x.item()", False),
     ("adc_cdist", "RuntimeError: /w/src/repro_torch/core/pq.py:260 in "
-     "_check_range: x.tolist()", False),
-    # an op outside KNOWN_READS, even at the known call
+     "check_codes: x.tolist()", False),
+    # an op outside the table, even at the known call
     ("prealign_encode", f"RuntimeError: {_CHECK}x.tolist()", False),
     ("adc_cdist", None, False),
 ])
 def test_known_reads_match_only_their_call(name, culprit, want):
-    assert check_sanitizers.known(name, culprit) is want
+    assert check_sanitizers.known(name, culprit, _READS) is want
+    # no read is left in the live table: every op that trips is new
+    assert not check_sanitizers.known(name, culprit)
 
 
 def test_routing_gate_passes_on_the_cpu_route(cpu_snapshot):

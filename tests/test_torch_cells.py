@@ -326,10 +326,10 @@ def test_dryrun_writes_one_record_a_cell(tmp_path, capsys):
                         "--shape", "decode_32k"]) == 0
     recs = {p.name: json.loads(p.read_text())
             for p in Path(out).glob("*.json")}
-    assert sorted(recs) == ["internlm2-1.8b__decode_32k__single.json",
-                            "mamba2-780m__long_500k__single.json"]
-    small = recs["mamba2-780m__long_500k__single.json"]
-    big = recs["internlm2-1.8b__decode_32k__single.json"]
+    assert sorted(recs) == ["internlm2-1.8b__decode_32k__card.json",
+                            "mamba2-780m__long_500k__card.json"]
+    small = recs["mamba2-780m__long_500k__card.json"]
+    big = recs["internlm2-1.8b__decode_32k__card.json"]
     assert small["fit"] and not big["fit"]
     assert "> 80 GiB" in big["fit_reason"]
     for r in (small, big):
@@ -344,8 +344,10 @@ def test_dryrun_writes_one_record_a_cell(tmp_path, capsys):
     with mock.patch.object(dryrun, "_count") as count:
         dryrun.main(argv + ["--arch", "mamba2-780m"])
     assert not count.called
-    with pytest.raises(ValueError, match="one card"):
-        dryrun.main(argv + ["--arch", "mamba2-780m", "--mesh", "multi"])
+    # a real step is the card's alone; a mesh name outside the four raises
+    for mesh in (["--mesh", "multi", "--run"], ["--mesh", "pod"]):
+        with pytest.raises(SystemExit):
+            dryrun.main(argv + ["--arch", "mamba2-780m", *mesh])
 
 
 def test_dryrun_train_record_states_16_bytes_a_parameter(tmp_path):

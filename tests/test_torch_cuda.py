@@ -118,8 +118,8 @@ def _randn(gen, *shape):
 
 
 def test_sanitizer_trips_only_at_the_known_reads(gen):
-    # every op is clean but those of KNOWN_READS (ROADMAP queue 3), and
-    # each of those trips at its own call
+    # every op is clean but those of KNOWN_READS (ROADMAP queue 3; none is
+    # left), and each of those trips at its own call
     ops = check_sanitizers.device_ops()
     results = check_sanitizers.run(ops)
     assert [n for n, _ in results] == [n for n, _ in ops]
@@ -186,15 +186,24 @@ def test_adc_matches_plain(gen):
 
 
 def test_adc_codes_out_of_range_raise(gen):
+    """Codes from a caller are checked where they enter (the public ``pq``
+    functions), with one error type; the ADC launches read nothing
+    back."""
+    from repro_torch.core.pq import cdist_sym
     M, K = 4, 16
     lut = _randn(gen, M, K, K).abs()
     good = torch.randint(0, K, (9, M), device="cuda", dtype=torch.int32)
     bad = good.clone()
     bad[3, 2] = K
-    with pytest.raises(ValueError, match="codes_b holds codes outside"):
-        adc_sym_cdist(good, bad, lut)
-    with pytest.raises(ValueError, match="codes holds codes outside"):
-        adc_lookup(-bad, lut[:, 0])
+    with pytest.raises(adc_ops.CodeRangeError,
+                       match="codes_b holds codes outside"):
+        cdist_sym(good, bad, lut, device="cuda")
+    with pytest.raises(adc_ops.CodeRangeError,
+                       match="codes_a holds codes outside"):
+        cdist_sym(-bad, good, lut, lut_dtype="int8", device="cuda")
+    with pytest.raises(adc_ops.CodeRangeError,
+                       match="codes holds codes outside"):
+        adc_ops.check_codes(K, codes=-bad)
 
 
 @pytest.mark.parametrize("measure", MEASURES)
@@ -1737,3 +1746,123 @@ def test_train_step_matches_cpu_route(gen, arch):
         cpu.append(db)
     card, cpu = torch.cat(card), torch.cat(cpu)
     assert float((card - cpu).norm()) <= 0.1 * float(cpu.norm())
+
+
+# ---------------------------------------------------------------------------
+# The host mesh on the card (repro_torch.sharding, models/spmd.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card_mesh(gen, tmp_path):
+    """The ``(1, 1)`` host mesh on an NCCL group of one."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield tmesh.device_mesh(tmesh.make_host_mesh(), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_host_mesh_train_and_decode_equal_meshless(card_mesh):
+    """internlm2-1.8b's reduced config on the card: a train step and exact
+    and PQ-KV decode steps laid out as DTensors on the host mesh equal the
+    meshless runs bit for bit; the PQ steps launch row 11 inside
+    ``local_map``, once a layer a step."""
+    from repro_torch import _tree
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.cells import mesh_context, state_specs
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.cache import init_cache
+    from repro_torch.serve.decode import serve_step
+    from repro_torch.serve.pqkv import (PQKVConfig, compress_cache,
+                                        pq_serve_step)
+    from repro_torch.serve.prefill import prefill
+    from repro_torch.sharding import partition as P
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = get_reduced("internlm2-1.8b")
+    mesh = card_mesh
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             TokenStream(cfg.vocab_size, 32, 4).batch_at(0).items()}
+    step = make_train_step(cfg, AdamWConfig(), q_chunk=16)
+
+    def train(m):
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(
+            0), cfg, "cuda")
+        b = batch
+        if m is not None:
+            state = P.distribute(state, state_specs(state, m), m)
+            b = P.distribute(batch, P.batch_specs(batch, m), m)
+        with mesh_context(m):
+            state, metrics = step(state, b)
+        return P.full(metrics["loss"]), P.full(state.params)
+
+    (l0, p0), (l1, p1) = train(None), train(mesh)
+    assert torch.equal(l0, l1)
+    for a, b in zip(_tree.leaves(p0), _tree.leaves(p1)):
+        assert torch.equal(a, b)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, gen, "cuda")
+    cache = init_cache(cfg, 2, 40, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pqc = PQKVConfig(n_sub=4, codebook_size=16, recent_window=8)
+    with torch.no_grad():
+        prefill(params, cfg, cache, {"tokens": toks[:, :32]})
+        pq = compress_cache({"k": cache["k"], "v": cache["v"].clone()}, cfg,
+                            pqc, pos=32, generator=torch.Generator(
+                                device="cuda").manual_seed(2))
+
+    def decode(m, c):
+        c = _tree.tree_map(lambda t: t.clone(), c)
+        p = params
+        if m is not None:
+            p = P.distribute(params, P.param_specs(params, m, fsdp=False), m)
+            c = P.distribute(c, P.cache_specs(c, m), m)
+        out = []
+        with torch.no_grad(), mesh_context(m):
+            for i in range(3):
+                tok = toks[:, 32 + i:33 + i]
+                if m is not None:
+                    tok = P.distribute({"token": tok}, P.batch_specs(
+                        {"token": tok}, m), m)["token"]
+                logits, c = (serve_step(p, cfg, c, tok, 32 + i)
+                             if isinstance(c, dict) else
+                             pq_serve_step(p, cfg, c, tok, 32 + i, pqc=pqc))
+                out.append(P.full(logits))
+        return torch.stack(out)
+
+    assert torch.equal(decode(None, cache), decode(mesh, cache))
+    want = decode(None, pq)
+    before = _build.LAUNCHES["pq_attn"]
+    assert torch.equal(decode(mesh, pq), want)
+    assert _build.LAUNCHES["pq_attn"] - before == 3 * cfg.n_layers
+
+
+def test_pq_attn_under_local_map_equals_direct_launch(card_mesh, gen):
+    """Row 11 launched on a DTensor's local blocks inside ``local_map``
+    gives the direct launch's bits."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.sharding import partition as P
+    B, S, G, R, M, K, Dv = 2, 300, 2, 4, 8, 256, 128
+    qlut = _randn(gen, B, G * R, M, K)
+    codes = torch.randint(0, K, (B, S, G, M), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    v = _randn(gen, B, S, G, Dv).to(torch.bfloat16)
+    want = pq_attn(qlut, codes, v, 250, 0.125, 20)
+    rep = [Replicate(), Replicate()]
+    args = [P.distribute({"t": t}, {"t": (None,) * t.ndim}, card_mesh)["t"]
+            for t in (qlut, codes, v)]
+    before = _build.LAUNCHES["pq_attn"]
+    got = local_map(lambda a, b, c: pq_attn(a, b, c, 250, 0.125, 20),
+                    out_placements=(rep, rep, rep),
+                    device_mesh=card_mesh)(*args)
+    assert _build.LAUNCHES["pq_attn"] - before == 1
+    for g, w in zip(got, want):
+        assert torch.equal(P.full(g), w)

@@ -25,12 +25,14 @@ MODULES = (
     "repro_torch.kernels.pq_attn.ops",
     "repro_torch.kernels.prealign_encode.ops",
     "repro_torch.kernels.tune",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.specs",
     "repro_torch.models.encdec",
     "repro_torch.models.ssm",
     "repro_torch.obs",
     "repro_torch.serve.pqkv",
     "repro_torch.serve_index.config",
+    "repro_torch.sharding.partition",
     "repro_torch.train.step",
 )
 

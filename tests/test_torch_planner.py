@@ -233,6 +233,23 @@ class TestListShardedPlanner:
             search_sharded(idx, Q, n_probe=2, topk=2, partition="lists",
                            n_devices=4)
 
+    def test_search_mesh_gives_the_count_and_checks_the_layout(
+            self, data, booted):
+        """A ``make_search_mesh`` mesh stands for ``n_devices``; a list
+        plan checks the layout with ``validate_search_mesh``."""
+        from repro_torch.launch.mesh import make_host_mesh, make_search_mesh
+        X, Q = data
+        idx = _fresh(booted, n_shards=2)
+        idx.insert(X[:30])
+        _identical(search_sharded(idx, Q, n_probe=3, topk=4,
+                                  mesh=make_search_mesh(2)),
+                   search_sharded(idx, Q, n_probe=3, topk=4, n_devices=2))
+        with pytest.raises(ValueError, match=r"make_search_mesh\(2\)"):
+            search_sharded(idx, Q, n_probe=3, topk=4, partition="lists",
+                           mesh=make_search_mesh(4))
+        with pytest.raises(ValueError, match="expected a 1-D"):
+            search_sharded(idx, Q, n_probe=3, mesh=make_host_mesh())
+
     def test_partition_arg_validation(self, data, booted):
         _, Q = data
         idx = _fresh(booted)

@@ -212,3 +212,33 @@ def test_module_doctests(name):
     import importlib
     result = doctest.testmod(importlib.import_module(name), verbose=False)
     assert result.attempted > 0 and result.failed == 0
+
+
+def test_codes_are_checked_once_a_tensor(monkeypatch):
+    """``check_codes`` reads a tensor's extremes once: codes ``encode``
+    made, or a caller's checked before and not written since, pass with
+    no read (the 1-NN entry points over encoded codes read nothing); a
+    write in place checks them again, and a bad code then raises."""
+    from repro_torch.kernels.pq_adc import ops as adc_ops
+    reads = []
+    aminmax = torch.aminmax
+    monkeypatch.setattr(torch, "aminmax",
+                        lambda t: reads.append(t) or aminmax(t))
+    cfg = tpq.PQConfig(n_sub=2, codebook_size=2, use_prealign=False,
+                       kmeans_iters=1, dba_iters=1)
+    X = torch.arange(32, dtype=torch.float32).reshape(4, 8) / 10.0
+    cb = tpq.fit(X, cfg, torch.Generator().manual_seed(0), device="cpu")
+    codes = tpq.encode(X, cb, cfg, device="cpu")
+    labels = torch.arange(4)
+    tknn.knn_classify_sym(codes, labels, X, cb, cfg, device="cpu")
+    tknn.knn_classify_asym(codes, labels, X, cb, cfg, device="cpu")
+    tpq.cdist_sym(codes, codes, cb.lut, device="cpu")
+    assert reads == []
+    mine = codes.clone()                     # a caller's own tensor
+    tpq.cdist_sym(mine, codes, cb.lut, device="cpu")
+    tpq.cdist_asym(X, mine, cb, cfg, device="cpu")
+    assert len(reads) == 1
+    mine[0, 0] = 2
+    with pytest.raises(adc_ops.CodeRangeError, match="codes_a holds"):
+        tpq.cdist_sym(mine, codes, cb.lut, device="cpu")
+    assert len(reads) == 2

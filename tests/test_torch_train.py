@@ -527,8 +527,14 @@ def test_train_steps_match_reference(arch):
 
 def test_mb_constraint_raises():
     cfg = tregistry.get_reduced("internlm2-1.8b")
+    step = tstep.make_train_step(cfg, toptim.AdamWConfig(), microbatches=2,
+                                 mb_constraint={"tokens": ("data", None)})
+    state = tstep.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
+    batch = {k: torch.zeros((2, 8), dtype=torch.int32)
+             for k in ("tokens", "labels")}
     with pytest.raises(ValueError, match="mesh"):
-        tstep.make_train_step(cfg, toptim.AdamWConfig(), mb_constraint={})
+        step(state, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -617,9 +623,13 @@ def test_preemption_checkpoints_and_exits(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod"])
-def test_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="one card"):
-        tlaunch.main(_argv(tmp_path, flag))
+def test_mesh_flags_raise(tmp_path, flag, monkeypatch):
+    # the production meshes need 256 and 512 ranks; this run is one
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    size = {"--production-mesh": 256, "--multi-pod": 512}[flag]
+    argv = ["--production-mesh", "--multi-pod"][: 1 + (size == 512)]
+    with pytest.raises(ValueError, match=f"needs {size} ranks"):
+        tlaunch.main(_argv(tmp_path, *argv))
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):

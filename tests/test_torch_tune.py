@@ -282,7 +282,7 @@ def test_auto_then_pinned_gives_the_same_launches(tmp_path, monkeypatch):
         monkeypatch.setattr(tune, "_time", _Clock(ms))
         # the fake library writes no output: fresh outputs start at zero
         monkeypatch.setattr(torch, "empty_like", torch.zeros_like)
-        monkeypatch.setattr(adc_ops, "_check_range", lambda K, **c: None)
+        monkeypatch.setattr(adc_ops, "check_codes", lambda K, **c: None)
         dtw_ops.dtw_band(A, A, w)
         dtw_ops.dtw_band_cdist(A, A[:3], w)
         lb_ops.lb_refine(A, A, A, A, torch.zeros(5), w)
@@ -353,7 +353,7 @@ def test_an_entry_that_does_not_fit_is_never_launched(op, tmp_path,
     clock = _Clock(lambda p: 1.0 if p[param] == won else 2.0)
     monkeypatch.setattr(tune, "_time", clock)
     monkeypatch.setattr(torch, "empty_like", torch.zeros_like)
-    monkeypatch.setattr(adc_ops, "_check_range", lambda K, **c: None)
+    monkeypatch.setattr(adc_ops, "check_codes", lambda K, **c: None)
 
     call(first)
     assert _row_calls(lib, entry)[-1][slot] == won
