@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _device
+from ..obs import span
 from .dispatch import elastic_cdist
 from .lb_search import filtered_topk
 from .measures import MeasureArg
@@ -26,11 +27,16 @@ def _labels(labels, dev: torch.device) -> torch.Tensor:
 def knn_classify_sym(train_codes, train_labels, Q, cb: PQCodebook,
                      cfg: PQConfig, *,
                      device: _device.DeviceArg = None) -> torch.Tensor:
-    """Symmetric 1-NN: encode the queries, then M LUT gathers per pair."""
-    dev = _device.resolve_device(device)
-    q_codes = encode(Q, cb, cfg, device=dev)
-    d = cdist_sym(q_codes, train_codes, cb.lut, device=dev)
-    return _labels(train_labels, dev)[torch.argmin(d, dim=1)]
+    """Symmetric 1-NN: encode the queries, then M LUT gathers per pair.
+    The call is the ``classify.sym`` span, around ``pq.encode``,
+    ``pq.adc`` and ``classify.nearest`` (the argmin and label gather)."""
+    with span("classify.sym"):
+        dev = _device.resolve_device(device)
+        q_codes = encode(Q, cb, cfg, device=dev)
+        with span("pq.adc"):
+            d = cdist_sym(q_codes, train_codes, cb.lut, device=dev)
+        with span("classify.nearest"):
+            return _labels(train_labels, dev)[torch.argmin(d, dim=1)]
 
 
 def knn_classify_asym(train_codes, train_labels, Q, cb: PQCodebook,

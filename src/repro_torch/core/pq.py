@@ -27,6 +27,7 @@ import torch
 
 from .. import _device
 from ..kernels.pq_adc.ops import check_codes, note_codes
+from ..obs import span
 from . import measures as measures_mod
 from .dispatch import (adc_cdist, adc_lookup, elastic_cdist,
                        elastic_pairwise, prealign_encode)
@@ -243,32 +244,36 @@ def _encode_segs(segs: torch.Tensor, cb: PQCodebook, window: Optional[int],
 
     The LB filter (:func:`lb_filter_pairs`) keeps the T most promising
     centroids per subspace, and all of them are refined in ONE zipped-pair
-    launch.
+    launch (the ``pq.encode.refine`` span, as is a full scan).
     """
     N, M, S = segs.shape
     dev = segs.device
     exact = torch.ones((N, M), dtype=torch.bool, device=dev)
     if measure is None:
-        d = torch.stack([((segs[:, m, None, :] - cb.centroids[m][None])
-                          ** 2).sum(-1) for m in range(M)], dim=1)
-        return torch.argmin(d, -1).to(torch.int32), exact
+        with span("pq.encode.refine"):
+            d = torch.stack([((segs[:, m, None, :] - cb.centroids[m][None])
+                              ** 2).sum(-1) for m in range(M)], dim=1)
+            return torch.argmin(d, -1).to(torch.int32), exact
 
     if full_scan:
-        d = torch.stack([elastic_cdist(segs[:, m].contiguous(),
-                                       cb.centroids[m], window,
-                                       measure=measure)
-                         for m in range(M)], dim=1)           # (N, M, K)
-        return torch.argmin(d, -1).to(torch.int32), exact
+        with span("pq.encode.refine"):
+            d = torch.stack([elastic_cdist(segs[:, m].contiguous(),
+                                           cb.centroids[m], window,
+                                           measure=measure)
+                             for m in range(M)], dim=1)       # (N, M, K)
+            return torch.argmin(d, -1).to(torch.int32), exact
 
     T = refine_t
     cand, next_lb, qs, cs = lb_filter_pairs(segs, cb, T)
-    d = elastic_pairwise(qs, cs, window, measure=measure).view(N, M, T)
-    best = torch.argmin(d, -1, keepdim=True)                  # (N, M, 1)
-    codes = torch.gather(cand, -1, best)[..., 0].to(torch.int32)
-    # Soundness certificate: the true NN is among the candidates iff the
-    # best refined cost <= the smallest bound left out, the (T+1)-th.
-    best_d = torch.gather(d, -1, best)[..., 0]
-    return codes, best_d <= next_lb
+    with span("pq.encode.refine"):
+        d = elastic_pairwise(qs, cs, window, measure=measure).view(N, M, T)
+        best = torch.argmin(d, -1, keepdim=True)              # (N, M, 1)
+        codes = torch.gather(cand, -1, best)[..., 0].to(torch.int32)
+        # Soundness certificate: the true NN is among the candidates iff
+        # the best refined cost <= the smallest bound left out, the
+        # (T+1)-th.
+        best_d = torch.gather(d, -1, best)[..., 0]
+        return codes, best_d <= next_lb
 
 
 def lb_filter_pairs(segs: torch.Tensor, cb: PQCodebook, refine_t: int):
@@ -277,20 +282,25 @@ def lb_filter_pairs(segs: torch.Tensor, cb: PQCodebook, refine_t: int):
     index first among equal bounds (``jax.lax.top_k``'s order, here a
     stable sort).  Returns ``(cand (N, M, T), next_lb (N, M), qs, cs)``:
     the candidates, the smallest bound left out, and the zipped
-    ``(N*M*T, S)`` segment / centroid pairs to refine.
+    ``(N*M*T, S)`` segment / centroid pairs to refine.  The bounds and
+    their sort run in the ``pq.encode.lb_filter`` span, the pairs in
+    ``pq.encode.pairs``.
     """
     N, M, S = segs.shape
     T = refine_t
-    lbs = torch.stack([
-        cascade_bound(segs[:, m, None, :], cb.centroids[m][None],
-                      cb.env_upper[m][None], cb.env_lower[m][None])
-        for m in range(M)], dim=1)                            # (N, M, K)
-    srt = torch.sort(lbs, dim=-1, stable=True)
-    cand = srt.indices[..., :T]                               # (N, M, T)
-    m_idx = torch.arange(M, device=segs.device)[None, :, None]
-    qs = segs[:, :, None, :].expand(N, M, T, S).reshape(-1, S)
-    cs = cb.centroids[m_idx, cand].reshape(-1, S)
-    return cand, srt.values[..., T], qs, cs
+    with span("pq.encode.lb_filter"):
+        lbs = torch.stack([
+            cascade_bound(segs[:, m, None, :], cb.centroids[m][None],
+                          cb.env_upper[m][None], cb.env_lower[m][None])
+            for m in range(M)], dim=1)                        # (N, M, K)
+        srt = torch.sort(lbs, dim=-1, stable=True)
+        cand = srt.indices[..., :T]                           # (N, M, T)
+        next_lb = srt.values[..., T]
+    with span("pq.encode.pairs"):
+        m_idx = torch.arange(M, device=segs.device)[None, :, None]
+        qs = segs[:, :, None, :].expand(N, M, T, S).reshape(-1, S)
+        cs = cb.centroids[m_idx, cand].reshape(-1, S)
+    return cand, next_lb, qs, cs
 
 
 def uses_fused_prealign(cfg: PQConfig) -> bool:
@@ -315,22 +325,30 @@ def encode(X, cb: PQCodebook, cfg: PQConfig, *,
 def encode_with_stats(X, cb: PQCodebook, cfg: PQConfig, *,
                       device: _device.DeviceArg = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Encode + per-code soundness flags (True = certified exact-NN)."""
-    dev = _device.resolve_device(device)
-    X = _device.to_tensor(X, dev, torch.float32)
-    cb = _codebook_on(cb, dev)
-    D = X.shape[-1]
-    if uses_fused_prealign(cfg):
-        codes = prealign_encode(X, cb.centroids, level=cfg.wavelet_level,
-                                tail=cfg.tail(D), window=cfg.window(D),
-                                measure=cfg.measure())
-        sound = torch.ones(codes.shape, dtype=torch.bool, device=dev)
-    else:
-        codes, sound = _encode_segs(segment(X, cfg), cb, cfg.window(D),
-                                    cfg.refine_t(), cfg.full_scan_encode(),
-                                    cfg.measure())
-    # the program's own codes: a distance call reads nothing back for them
-    return note_codes(codes, cb.lut.shape[-1]), sound
+    """Encode + per-code soundness flags (True = certified exact-NN).
+    The call is the ``pq.encode`` span; pre-alignment (off the fused path)
+    is ``pq.encode.prealign``."""
+    with span("pq.encode"):
+        dev = _device.resolve_device(device)
+        X = _device.to_tensor(X, dev, torch.float32)
+        cb = _codebook_on(cb, dev)
+        D = X.shape[-1]
+        if uses_fused_prealign(cfg):
+            codes = prealign_encode(X, cb.centroids,
+                                    level=cfg.wavelet_level,
+                                    tail=cfg.tail(D), window=cfg.window(D),
+                                    measure=cfg.measure())
+            sound = torch.ones(codes.shape, dtype=torch.bool, device=dev)
+        else:
+            with span("pq.encode.prealign"):
+                segs = segment(X, cfg)
+            codes, sound = _encode_segs(segs, cb, cfg.window(D),
+                                        cfg.refine_t(),
+                                        cfg.full_scan_encode(),
+                                        cfg.measure())
+        # the program's own codes: a distance call reads nothing back for
+        # them
+        return note_codes(codes, cb.lut.shape[-1]), sound
 
 
 # ---------------------------------------------------------------------------

@@ -196,9 +196,6 @@ def search_sharded(index: StreamingIndex, Q, *, n_probe: int,
     if partition == "lists" and mesh is not None:
         validate_search_mesh(mesh, index.cfg.n_shards)
     with obs.span("sharded.search"):
-        if obs.enabled():
-            obs.counter("sharded_searches_total", persistent=True,
-                        partition=partition).inc()
         if partition == "lists":
             return _search_list_sharded(index, Q, n_dev, n_probe, topk)
         return _search_query_sharded(index, Q, n_dev, n_probe, topk)

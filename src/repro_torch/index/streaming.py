@@ -579,7 +579,6 @@ class StreamingIndex:
         sealed_live = sum(int(live.sum()) for live in self._seg_live)
         resident = sealed_resident + self.hot.count
         live = sealed_live + self.hot.n_live()
-        obs.gauge("sealed_rows", persistent=True).set(sealed_resident)
         obs.gauge("tombstone_fraction", persistent=True).set(
             (resident - live) / resident if resident else 0.0)
 

@@ -7,22 +7,31 @@
 ``torch.profiler.record_function``, so the same stage names show up on
 the timeline when a ``torch.profiler`` trace is active.
 
-Zero-overhead-by-default is the load-bearing contract:
+Zero-overhead-by-default is the load-bearing contract.  ``span()`` takes
+one of three forms:
 
-* disabled (the default — enable with ``REPRO_OBS=1`` or
-  :func:`enable`), ``span()`` returns a shared no-op context manager:
-  no clock reads, no histogram writes, no ``record_function``, and
-  :meth:`Span.fence` NEVER synchronises the card, so the instrumented
-  code makes no device sync the un-instrumented code would not have made;
-* enabled, :meth:`Span.fence` calls ``torch.cuda.synchronize()`` when its
+* obs disabled (the default — enable with ``REPRO_OBS=1`` or
+  :func:`enable`) and no ``torch.profiler`` recording: a shared no-op
+  context manager.  No clock reads, no histogram writes, no
+  ``record_function``;
+* obs disabled under a recording profiler: an annotation-only span.  It
+  enters ``record_function(name)`` and nothing else: no clock read, no
+  registry write, and its :meth:`fence` is the identity.  The stage then
+  sits on the profiler's host clock beside the CUDA runtime calls it
+  makes, and each kernel is tied to it through its launch's correlation
+  id, whatever the offset between the device's clock and the host's;
+* obs enabled: the annotation, a ``stage_seconds`` sample, and a
+  :meth:`Span.fence` that calls ``torch.cuda.synchronize()`` when its
   argument holds a CUDA tensor, so work launched asynchronously on the
   card is attributed to the span that launched it instead of leaking
   into whichever stage happens to block next.  CPU tensors are computed
   eagerly and need no fence.
 
-Spans nest and re-enter freely: each ``with`` entry pushes onto a
-thread-local stack and records its own sample on exit, exceptions
-included.
+With obs disabled a fence NEVER synchronises the card, so the
+instrumented code makes no device sync the un-instrumented code would
+not have made.  Timed spans nest and re-enter freely: each ``with`` entry
+pushes onto a thread-local stack and records its own sample on exit,
+exceptions included.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import time
 from typing import List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .registry import REGISTRY
 
@@ -166,8 +176,31 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+class _AnnotationSpan:
+    """Disabled path under a recording profiler: the annotation alone."""
+
+    __slots__ = ("_annotation",)
+
+    def __init__(self, name: str):
+        self._annotation = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._annotation.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._annotation.__exit__(exc_type, exc, tb)
+        return False
+
+    @staticmethod
+    def fence(x):
+        return x
+
+
 def span(name: str):
-    """Context manager timing stage ``name`` (module docstring)."""
-    if not _enabled:
-        return _NULL_SPAN
-    return Span(name)
+    """Context manager for stage ``name`` (module docstring)."""
+    if _enabled:
+        return Span(name)
+    if _autograd_profiler._is_profiler_enabled:
+        return _AnnotationSpan(name)
+    return _NULL_SPAN

@@ -2,7 +2,10 @@
 package's: the same metric writes give identical JSON and Prometheus
 exports; a disabled span never synchronises the card; the index's stage
 spans and pruning counters keep the reference's names; the dispatch
-ledger mirrors into ``dispatch_total`` per call."""
+ledger mirrors into ``dispatch_total`` per call.  Also the port's own
+contract: with obs off a span is the shared no-op, or under a recording
+``torch.profiler`` an annotation alone, and the classify path's eight
+stage spans reach the profiler's trace without changing its answers."""
 
 import json
 
@@ -12,7 +15,11 @@ import torch
 
 from repro import obs as jobs
 from repro_torch import obs as tobs
+from torch.profiler import ProfilerActivity, profile
+
 from repro_torch.core import dispatch as tdispatch
+from repro_torch.core import knn as tknn
+from repro_torch.core import pq as tpq
 from repro_torch.core.pq import PQConfig
 from repro_torch.index import IndexConfig, StreamingIndex
 from repro_torch.obs import spans as tspans
@@ -133,3 +140,105 @@ def test_dispatch_mirror_counts_calls():
     for _ in range(2):
         tdispatch.elastic_cdist(torch.zeros(2, 8), torch.ones(3, 8), 2)
     assert count() - before == 2
+
+
+# ---------------------------------------------------------------------------
+# spans with obs off: the shared no-op, or the annotation under a profiler
+# ---------------------------------------------------------------------------
+
+CLASSIFY_SPANS = ("classify.sym", "pq.encode", "pq.encode.prealign",
+                  "pq.encode.lb_filter", "pq.encode.pairs",
+                  "pq.encode.refine", "pq.adc", "classify.nearest")
+ENCODE_STAGES = CLASSIFY_SPANS[2:6]
+
+
+def _forbid_sync(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("device sync while obs is disabled")
+
+    monkeypatch.setattr(tspans, "_block", forbidden)
+    monkeypatch.setattr(tspans, "_cuda_tensors", lambda x: True)
+
+
+def _stage_count(name):
+    snap = tobs.snapshot()
+    return sum(h["count"] for h in snap["histograms"]
+               if h["name"] == "stage_seconds"
+               and h["labels"].get("stage") == name)
+
+
+def _annotations(prof):
+    """``name -> [(start_us, end_us, thread)]`` of the profiler's events."""
+    out = {}
+    for e in prof.events():
+        out.setdefault(e.name, []).append(
+            (e.time_range.start, e.time_range.end, e.thread))
+    return out
+
+
+def test_disabled_span_without_profiler_is_the_shared_null_span():
+    assert tspans.span("pq.encode") is tspans._NULL_SPAN
+    assert tobs.span("classify.sym") is tspans._NULL_SPAN
+
+
+def test_disabled_span_under_profiler_annotates_only(monkeypatch):
+    _forbid_sync(monkeypatch)
+    before = _stage_count("obs.test.annotated")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sp = tobs.span("obs.test.annotated")
+        assert sp is not tspans._NULL_SPAN
+        with sp:
+            assert sp.fence(torch.zeros(2)) is not None
+            assert tobs.current_spans() == ()
+            torch.ones(3).sum()
+    assert "obs.test.annotated" in _annotations(prof)
+    assert _stage_count("obs.test.annotated") == before
+    # the profiler closed: the shared no-op again
+    assert tobs.span("obs.test.annotated") is tspans._NULL_SPAN
+
+
+def _tiny_classify_inputs():
+    g = torch.Generator().manual_seed(0)
+    train = torch.cumsum(torch.randn(24, 64, generator=g), 1)
+    Q = torch.cumsum(torch.randn(10, 64, generator=g), 1)
+    cfg = PQConfig(n_sub=4, codebook_size=8, refine_frac=0.25)
+    assert not cfg.full_scan_encode() and cfg.refine_t() == 2
+    segs = tpq.segment(train, cfg)
+    rows = torch.stack([torch.randperm(24, generator=g)[:8]
+                        for _ in range(4)])
+    cents = torch.stack([segs[rows[m], m] for m in range(4)]).contiguous()
+    cb = tpq.codebook_from_centroids(cents, cfg, 64)
+    codes = tpq.encode(train, cb, cfg, device="cpu")
+    return codes, torch.arange(24), Q, cb, cfg
+
+
+def test_classify_spans_reach_the_profiler_with_obs_off(monkeypatch):
+    """``knn_classify_sym`` with obs off, with and without a profiler and
+    with every device sync forbidden: under the profiler all eight spans
+    show, ``classify.sym`` enclosing the rest and ``pq.encode`` its four
+    stages; the labels are the same either way, and no stage sample is
+    recorded."""
+    codes, labels, Q, cb, cfg = _tiny_classify_inputs()
+    _forbid_sync(monkeypatch)
+    before = {n: _stage_count(n) for n in CLASSIFY_SPANS}
+    plain = tknn.knn_classify_sym(codes, labels, Q, cb, cfg, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = tknn.knn_classify_sym(codes, labels, Q, cb, cfg,
+                                       device="cpu")
+    assert torch.equal(plain, traced)
+    assert {n: _stage_count(n) for n in CLASSIFY_SPANS} == before
+    ann = _annotations(prof)
+    for name in CLASSIFY_SPANS:
+        assert len(ann.get(name, ())) == 1, name
+
+    def inside(child, parent):
+        (a, b, t), = ann[child]
+        (pa, pb, pt), = ann[parent]
+        return t == pt and pa <= a and b <= pb
+
+    for name in CLASSIFY_SPANS[1:]:
+        assert inside(name, "classify.sym"), name
+    for name in ENCODE_STAGES:
+        assert inside(name, "pq.encode"), name
+    for name in ("pq.adc", "classify.nearest"):
+        assert not inside(name, "pq.encode"), name
