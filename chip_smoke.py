@@ -182,7 +182,7 @@ window 7), then the search paths beyond 1-NN on the same data:
 - ``static_gate``, ``sanitizer_path`` and ``routing_gate`` (last): the
   port's static analysis (``repro_torch.analysis``) clean on this
   checkout against its baseline; every dispatch op
-  (``check_sanitizers.device_ops``, 15 legs, and the two 1-NN entry
+  (``check_sanitizers.device_ops``, 16 legs, and the two 1-NN entry
   points over encoded codes) on tiny CUDA inputs under
   ``torch.cuda.set_sync_debug_mode("error")``, a seeded ``.item()``
   among them tripping under its own name and nothing else
@@ -216,7 +216,11 @@ padded warp sweep, the latter equal to it bit for bit; ``dtw_band_adaptive``
 (dtw, and wdtw, erp and msm as ``dtw_band_adaptive[wdtw]``, ``[erp]``,
 ``[msm]``) and the quantised ADC kernels must equal their plain versions
 exactly, and ``dtw_band_adaptive``'s warp form its thread form, timed
-beside it.  ``dtw_band``'s register form is timed beside its
+beside it.  ``lb_filter`` (the encode's LB filter, row 6) runs on the
+training set's segments: ``next_lb`` within ``S * 2**-23`` relative of the
+plain version's, the candidates equal at every rank the plain bounds
+decide (neighbours farther apart, or the same bound in float64), under 1%
+of ranks left undecided.  ``dtw_band``'s register form is timed beside its
 shared-memory form on the encode's refine pairs, equal bit for bit.
 ``dtw_band_cdist`` is timed in both its forms (the band row in registers,
 the wrapper's choice at these shapes, and in shared memory) at ``fit``'s
@@ -413,8 +417,9 @@ MESH_CELLS = (("internlm2-1.8b", "train_4k"), ("internlm2-1.8b", "decode_32k"),
 MESH_CELL_WAIT_S = 420
 MESH_FLOPS_RATIO = 1.10   # a train cell: per-device bf16 FLOPs x devices
 MAIN_PATH_KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
-                     "prealign_encode")
+                     "prealign_encode", "lb_filter")
 TPU_SITES = {
+    "lb_filter": "none (XLA fuses the step at src/repro/core/pq.py:252-256)",
     "dtw_band": "src/repro/kernels/dtw_band/kernel.py:384",
     "dtw_band_cdist": "src/repro/kernels/dtw_band/kernel.py:411",
     "adc_sym": "src/repro/kernels/pq_adc/kernel.py:118",
@@ -459,6 +464,10 @@ DESIGNS = {
                "query, each warp walking groups of 16 codes_b rows, the "
                "outputs stored through the warp's tile (an output a thread "
                "where 8 queries' rows do not fit)",
+    "lb_filter": "a CTA per 8 warps' series and a subspace, segments and "
+                 "envelopes streamed through shared memory by cp.async, a "
+                 "lane's bounds in registers, a warp radix select of the "
+                 "stable top-(T+1)",
 }
 DESIGNS["adc_sym_quant"] = DESIGNS["adc_sym"]
 DESIGNS["adc_lookup"] = (
@@ -477,6 +486,7 @@ ADAPTIVE_MEASURES = {"wdtw": "wdtw:g=0.1", "erp": "erp:g=0.3",
 # msm's split/merge cost is 10 a move)
 MEASURE_OPS_PER_CELL = {"wdtw": 7, "erp": 12, "msm": 28}
 SOURCES = {
+    "lb_filter": "src/repro_torch/kernels/csrc/lb_cascade.cu",
     "dtw_band": "src/repro_torch/kernels/csrc/dtw_band.cu",
     "dtw_band_cdist": "src/repro_torch/kernels/csrc/dtw_band.cu",
     "adc_sym": "src/repro_torch/kernels/csrc/pq_adc.cu",
@@ -4214,7 +4224,7 @@ def routing_leg(torch, _build, ctx) -> dict:
 
 def routing_gate(torch, _build, ctx, sanitized: dict) -> dict:
     """Last: the routing leg, then ``check_routing.check`` on the whole
-    run's obs snapshot (route ``"cuda"`` for the 11 ops, a non-DTW
+    run's obs snapshot (route ``"cuda"`` for the 12 ops, a non-DTW
     measure for the 4 measured ones, every instrumented stage recorded
     with obs on), and again with the sanitizer's tiny dispatches taken
     out, so the paths themselves pass."""
@@ -4987,7 +4997,65 @@ def kernel_phases(torch, ctx) -> list:
     check(same_main, "fused codes equal the main path's exact encode")
     check(same_prev, "prealign_encode: the register form's codes equal the "
           "shared-memory form's bit for bit")
+    rows.append(_lb_filter_row(torch, launches,
+                               {p: c.get("lb_filter", 0)
+                                for p, c in paths.items()},
+                               segs, cb, cfg.refine_t()))
     return rows
+
+
+def _lb_filter_row(torch, launches, by_path, segs, cb, T):
+    """6. The encode's LB filter on the training set's segments (the LB
+    path's shapes): ``next_lb`` within ``S * 2**-23`` relative of the
+    plain version's (LB_Keogh summed in order, ``torch.sum`` in its own),
+    ``cand`` equal at every rank the plain bounds decide
+    (``undecided_ranks``: its neighbours lie farther apart than that, or
+    are the same bound in float64).  The bound is ``portbench.roofline.lb_filter``'s
+    arithmetic; no library has the step."""
+    from portbench import roofline
+    from repro_torch.kernels.lb_cascade.ops import filter_geometry, lb_filter
+    from repro_torch.kernels.lb_cascade.ref import (filter_bounds,
+                                                    lb_filter_ref,
+                                                    undecided_ranks)
+    N, M, S = segs.shape
+    K = cb.centroids.shape[1]
+    args = [t.contiguous() for t in (segs, cb.centroids, cb.env_upper,
+                                     cb.env_lower)]
+    cand, next_lb = lb_filter(*args, T)
+    torch.cuda.synchronize()
+    (want_c, want_n), plain_ms = _sync_ms(torch,
+                                          lambda: lb_filter_ref(*args, T))
+    rtol = S * 2.0 ** -23
+    open_ = undecided_ranks(filter_bounds(*args),
+                            filter_bounds(*(t.double() for t in args)), T,
+                            rtol)
+    diff = (next_lb.double() - want_n.double()).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / want_n.double().abs().clamp_min(1e-30)).max())
+    same_cand = bool(torch.equal(cand[~open_], want_c[~open_]))
+    open_share = float(open_.float().mean())
+    ok = (bool((diff <= rtol * want_n.double().abs()).all()) and same_cand
+          and open_share < 0.01)
+    ms = _mean_ms(torch, lambda: lb_filter(*args, T), REPS)
+    work = roofline.lb_filter(N, M, K, S)
+    bound_ms, bound_by = bound(work.nbytes, work.ops)
+    kj, rows, kc, warps, chunk, smem = filter_geometry(K, S, T)
+    row = {"name": "lb_filter", "route": "cuda",
+           "source": SOURCES["lb_filter"], "replaces": TPU_SITES["lb_filter"],
+           "launches": launches["lb_filter"], "max_abs_err": max_abs,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "design": DESIGNS["lb_filter"],
+           "variant": f"{warps * rows} series x {32 * kc} centroids a stage, "
+                      f"{chunk} points, {smem} B shared",
+           "launches_by_path": by_path}
+    emit({"phase": "kernel", **row,
+          "shapes": {"segs": [N, M, S], "centroids": [M, K, S], "T": T},
+          "max_rel_err": max_rel, "cand_equal_where_decided": same_cand,
+          "undecided_share": open_share, "agrees": ok, "in_table": True,
+          "tolerance": {"next_lb_rtol": rtol, "undecided_share_below": 0.01}})
+    check(ok, f"lb_filter {[N, M, K, S, T]} agrees with its plain version")
+    return row
 
 
 def _sym_launcher(torch, ca, cb, table, scale, zero, out, ta=None,

@@ -50,6 +50,7 @@ EXPECTED_OPS = (
     "lb_refine",
     "lb_refine_adaptive",
     "two_level_coarse",
+    "lb_filter",
 )
 
 # ops whose recurrence is measure-parameterised: each needs a non-DTW

@@ -47,11 +47,12 @@ KNOWN_READS: Dict[str, Tuple[str, str]] = {}
 
 
 def device_ops(device: str = "cuda") -> List[Tuple[str, Thunk]]:
-    """``(name, thunk)`` per dispatch op (the reference's seven and the
-    adaptive and quantised modes: every name of the routing gate's
-    ``EXPECTED_OPS``), then each of its ``MEASURED_OPS`` under a
-    non-DTW measure (``op[measure]``), then the two 1-NN entry points
-    over encoded codes, on tiny inputs made here, before any guard."""
+    """``(name, thunk)`` per dispatch op (the reference's seven, the
+    adaptive and quantised modes and the encode's LB filter: every name
+    of the routing gate's ``EXPECTED_OPS``), then each of its
+    ``MEASURED_OPS`` under a non-DTW measure (``op[measure]``), then the
+    two 1-NN entry points over encoded codes, on tiny inputs made here,
+    before any guard."""
     import torch
 
     from ..core import dispatch
@@ -90,6 +91,8 @@ def device_ops(device: str = "cuda") -> List[Tuple[str, Thunk]]:
             A, B, env, env, thresh, 2, band="adaptive")),
         ("two_level_coarse", lambda: dispatch.two_level_coarse(
             A, top, coarse, child_idx, child_valid, n_probe_top=1)),
+        ("lb_filter", lambda: dispatch.lb_filter(
+            A[:, None], B3[None], B3[None], B3[None], 1)),
         ("elastic_pairwise[wdtw]", lambda: dispatch.elastic_pairwise(
             A, B, 2, measure="wdtw:g=0.1")),
         ("elastic_cdist[erp]", lambda: dispatch.elastic_cdist(

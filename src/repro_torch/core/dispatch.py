@@ -9,6 +9,10 @@
                                      + elastic-1NN encode  -> (N, M) codes
     lb_refine(A, B, up, lo, thresh)  fused LB cascade +
                                      conditional DTW refine -> (N,), (N,)
+    lb_filter(segs, centroids, up, lo, T)
+                                     the encode's LB filter:
+                                     bounds + stable top-T -> (N, M, T),
+                                                              (N, M)
     two_level_coarse(Q, top, coarse, child_idx, child_valid)
                                      hierarchical coarse
                                      rank + child fan-out  -> (Nq, n_lists)
@@ -53,8 +57,8 @@ from .topk import smallest_k
 
 __all__ = [
     "elastic_pairwise", "elastic_cdist", "adc_cdist", "adc_lookup",
-    "prealign_encode", "lb_refine", "two_level_coarse", "stats", "totals",
-    "reset_stats", "effective_window",
+    "prealign_encode", "lb_refine", "lb_filter", "two_level_coarse",
+    "stats", "totals", "reset_stats", "effective_window",
 ]
 
 stats: Dict[Tuple[str, str], int] = {}
@@ -283,6 +287,30 @@ def lb_refine(A: torch.Tensor, B: torch.Tensor, upper: torch.Tensor,
                                     corridor_factor, corridor_radius)
     return _lb_refine(A, B, upper, lower, thresh, window, spec,
                       corridor=cor, width=width)
+
+
+def lb_filter(segs: torch.Tensor, centroids: torch.Tensor,
+              upper: torch.Tensor, lower: torch.Tensor, refine_t: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encode's LB filter: ``segs (N, M, S)`` against ``centroids (M,
+    K, S)`` with their Keogh envelopes ``upper``/``lower (M, K, S)``.
+
+    Returns ``(cand (N, M, T) int64, next_lb (N, M) float32)``: per series
+    and subspace the ``T = refine_t`` centroids of smallest
+    ``max(LB_Kim, LB_Keogh)``, lower index first among equal bounds (a
+    stable sort's order, as ``jax.lax.top_k``), and the (T+1)-th smallest
+    bound, which the encode's soundness certificate reads.  On the card
+    one launch of ``lb_filter_topk_kernel``.
+
+    >>> segs = torch.tensor([[[0.0, 0.0]]])            # (N=1, M=1, S=2)
+    >>> cents = torch.tensor([[[3.0, 3.0], [1.0, 1.0], [1.0, 1.0]]])
+    >>> cand, next_lb = lb_filter(segs, cents, cents, cents, 2)
+    >>> cand.tolist(), next_lb.tolist()                # ties: lower first
+    ([[[1, 2]]], [[18.0]])
+    """
+    from ..kernels.lb_cascade.ops import lb_filter as _lb_filter
+    _count("lb_filter", _route(segs))
+    return _lb_filter(segs, centroids, upper, lower, refine_t)
 
 
 def two_level_coarse(Q: torch.Tensor, top: torch.Tensor,

@@ -30,10 +30,10 @@ from ..kernels.pq_adc.ops import check_codes, note_codes
 from ..obs import span
 from . import measures as measures_mod
 from .dispatch import (adc_cdist, adc_lookup, elastic_cdist,
-                       elastic_pairwise, prealign_encode)
+                       elastic_pairwise, lb_filter, prealign_encode)
 from .dtw import euclidean_sq
 from .kmeans import dba_kmeans, euclidean_kmeans
-from .lb import cascade_bound, keogh_envelope, lb_keogh
+from .lb import keogh_envelope, lb_keogh
 from .lb_search import BOUND_CHUNK_BYTES
 from .measures import MeasureSpec, sqrt_rn
 from .modwt import fixed_segments, prealign
@@ -279,23 +279,19 @@ def _encode_segs(segs: torch.Tensor, cb: PQCodebook, window: Optional[int],
 def lb_filter_pairs(segs: torch.Tensor, cb: PQCodebook, refine_t: int):
     """The LB filter of the encode: for every series and subspace, the
     ``refine_t`` centroids of smallest ``max(LB_Kim, LB_Keogh)``, lower
-    index first among equal bounds (``jax.lax.top_k``'s order, here a
-    stable sort).  Returns ``(cand (N, M, T), next_lb (N, M), qs, cs)``:
-    the candidates, the smallest bound left out, and the zipped
-    ``(N*M*T, S)`` segment / centroid pairs to refine.  The bounds and
-    their sort run in the ``pq.encode.lb_filter`` span, the pairs in
+    index first among equal bounds (``jax.lax.top_k``'s order).  Returns
+    ``(cand (N, M, T), next_lb (N, M), qs, cs)``: the candidates, the
+    smallest bound left out, and the zipped ``(N*M*T, S)`` segment /
+    centroid pairs to refine.  The dispatch op :func:`.dispatch.lb_filter`
+    (on the card one kernel launch, on the CPU the bounds and a stable
+    sort) runs in the ``pq.encode.lb_filter`` span, the pairs in
     ``pq.encode.pairs``.
     """
     N, M, S = segs.shape
     T = refine_t
     with span("pq.encode.lb_filter"):
-        lbs = torch.stack([
-            cascade_bound(segs[:, m, None, :], cb.centroids[m][None],
-                          cb.env_upper[m][None], cb.env_lower[m][None])
-            for m in range(M)], dim=1)                        # (N, M, K)
-        srt = torch.sort(lbs, dim=-1, stable=True)
-        cand = srt.indices[..., :T]                           # (N, M, T)
-        next_lb = srt.values[..., T]
+        cand, next_lb = lb_filter(segs, cb.centroids, cb.env_upper,
+                                  cb.env_lower, T)            # (N, M, T)
     with span("pq.encode.pairs"):
         m_idx = torch.arange(M, device=segs.device)[None, :, None]
         qs = segs[:, :, None, :].expand(N, M, T, S).reshape(-1, S)

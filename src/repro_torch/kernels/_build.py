@@ -59,7 +59,7 @@ KERNELS = ("dtw_band", "dtw_band_cdist", "adc_sym", "adc_lookup",
            "lb_refine_adaptive", "adc_sym_quant", "adc_lookup_quant",
            "pq_attn", "dtw_band_full", "dtw_band_adaptive[erp]",
            "dtw_band_adaptive[msm]", "dtw_band_adaptive[wdtw]",
-           "pq_attn[window]")
+           "pq_attn[window]", "lb_filter")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -88,6 +88,7 @@ _SIGNATURES = {
     "pq_adc_lookup_rows": [_P] * 5 + [_I] * 9 + [_P],
     "pq_attn": [_P] * 8 + [_I] * 12 + [_F] + [_I] * 3 + [_P],
     "pq_dtw_band_full": [_P] * 4 + [_I] * 6 + [_P],
+    "pq_lb_filter": [_P] * 6 + [_I] * 11 + [_P],
 }
 
 

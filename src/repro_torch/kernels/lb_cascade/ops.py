@@ -22,6 +22,12 @@ follows from the register width alone (:func:`adaptive_variant`): up to
 lanes on rows staged in shared memory (:func:`corridor_warp_geometry`),
 clamping no index where the corridor keeps its invariants; beyond, one
 thread per pair.
+
+:func:`lb_filter` is the encode's LB filter in one launch of
+``lb_filter_topk_kernel`` (counted as ``lb_filter``): the cascade bound of
+every segment against every centroid of its subspace and the stable
+top-(T+1) of each, with nothing of size ``N * K * S`` stored.  Its tile
+sizes follow from ``(K, S, T)`` alone (:func:`filter_geometry`).
 """
 
 from __future__ import annotations
@@ -36,11 +42,12 @@ from ...core.dispatch import effective_window
 from ...core.measures import MeasureArg
 from ..dtw_band.ops import (adaptive_variant, band_geometry,
                            check_corridor, row_geometry, warp_cells)
-from .ref import lb_refine_ref
+from .ref import lb_filter_ref, lb_refine_ref
 
 __all__ = ["lb_refine", "launch_lb_refine", "launch_lb_refine_adaptive",
            "refine_variant", "warp_cells", "warp_geometry",
-           "adaptive_variant", "corridor_warp_geometry"]
+           "adaptive_variant", "corridor_warp_geometry", "lb_filter",
+           "filter_geometry", "FILTER_MAX_K"]
 
 _INT_MAX = 2 ** 31 - 1
 WARP_MAX_W = 255          # lb_cascade.cu: at most 8 band cells a lane
@@ -253,3 +260,106 @@ def launch_lb_refine_adaptive(A: torch.Tensor, B: torch.Tensor,
             blocks, _build.stream(A.device))
     _build.check(status, "lb_refine_adaptive")
     _build.count_launch("lb_refine_adaptive")
+
+
+# lb_filter_topk_kernel's forms: K rounded up to 32 * kj centroids ->
+# (series a warp, centroids a lane a stage), so that a lane holds at most
+# rows * kj = 64 bounds in registers
+_FILTER_FORMS = {1: (8, 1), 2: (8, 2), 4: (8, 2), 8: (8, 2), 16: (4, 2),
+                 32: (2, 2)}
+FILTER_MAX_K = 32 * max(_FILTER_FORMS)
+_FILTER_CHUNK = 64        # points a stage
+_FILTER_WARPS = 8
+
+
+def _kept(T: int, K: int) -> int:
+    T = int(T)
+    if not 1 <= T < K:
+        raise ValueError(f"the LB filter keeps 1 <= T < K centroids, got "
+                         f"T={T} of K={K}")
+    return T
+
+
+def filter_geometry(K: int, S: int, T: int
+                    ) -> Tuple[int, int, int, int, int, int]:
+    """``(kj, rows, kc, warps, chunk, smem_bytes)`` of the LB filter's
+    launch for ``K`` centroids of length ``S`` keeping ``T``: ``kj`` the
+    power of two with ``32 * kj >= K``, ``rows`` series a warp and ``kc``
+    centroids a lane a stage from it, 8 warps a CTA, ``chunk`` points a
+    stage, and the shared memory of the double-buffered segment and
+    envelope stages, the LB_Kim end points and ``T + 1`` selection slots
+    a warp.  Segments stream through shared memory a chunk at a time, so
+    any ``S`` fits; the most, at ``K = 1024`` and ``T = 1023``, is 145 KB
+    of the card's 227 KB.
+
+    >>> filter_geometry(256, 147, 32)     # starlight: two CTAs an SM
+    (8, 8, 2, 8, 64, 104000)
+    >>> filter_geometry(256, 28, 32)[:5]  # electric
+    (8, 8, 2, 8, 28)
+    >>> filter_geometry(4, 5, 1)
+    (1, 8, 1, 8, 5, 6096)
+
+    Raises ``ValueError`` for ``T`` outside ``[1, K)`` and ``K`` beyond
+    :data:`FILTER_MAX_K`.
+    """
+    K, S, T = int(K), int(S), _kept(T, K)
+    if K > FILTER_MAX_K:
+        raise ValueError(f"the LB filter kernel takes K <= {FILTER_MAX_K} "
+                         f"centroids, got K={K}")
+    kj = 1
+    while 32 * kj < K:
+        kj *= 2
+    rows, kc = _FILTER_FORMS[kj]
+    chunk, warps = min(S, _FILTER_CHUNK), _FILTER_WARPS
+    R = warps * rows
+    floats = 2 * chunk * R + 2 * R + 64 * kj + 4 * chunk * (32 * kc + 1)
+    smem = -(-floats // 4) * 16 + 8 * warps * (T + 1)
+    return kj, rows, kc, warps, chunk, smem
+
+
+def lb_filter(segs: torch.Tensor, centroids: torch.Tensor,
+              upper: torch.Tensor, lower: torch.Tensor, refine_t: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encode's LB filter: ``segs (N, M, S)`` against ``centroids (M,
+    K, S)`` with their Keogh envelopes ``upper``/``lower (M, K, S)``.
+
+    Returns ``(cand (N, M, T) int64, next_lb (N, M) float32)``: for each
+    series and subspace the ``T = refine_t`` centroids of smallest
+    ``max(LB_Kim, LB_Keogh)`` in a stable sort's order (lower index first
+    among equal bounds, NaN last), and the (T+1)-th smallest bound.  On
+    the card one launch, no read-back; the kernel sums LB_Keogh in
+    another order than ``torch.sum``, so a bound may differ by ulps.
+    """
+    if not isinstance(segs, torch.Tensor) or segs.dim() != 3:
+        raise ValueError("segs must be a 3-D tensor (N, M, S)")
+    N, M, S = segs.shape
+    if centroids.dim() != 3 or centroids.shape[0] != M or \
+            centroids.shape[2] != S:
+        raise ValueError(f"centroids must have shape ({M}, K, {S}), got "
+                         f"{tuple(centroids.shape)}")
+    K = centroids.shape[1]
+    for name, t in (("upper", upper), ("lower", lower)):
+        if tuple(t.shape) != (M, K, S):
+            raise ValueError(f"{name} must have shape {(M, K, S)}, got "
+                             f"{tuple(t.shape)}")
+    T = _kept(refine_t, K)
+    dev = _build.kernel_device(segs, centroids, upper, lower)
+    if dev is None:
+        return lb_filter_ref(segs, centroids, upper, lower, T)
+    kj, rows, kc, warps, chunk, smem = filter_geometry(K, S, T)
+    if N > _INT_MAX:
+        raise ValueError(f"{N} series exceed one launch")
+    segs, centroids, upper, lower = (
+        t.to(torch.float32).contiguous()
+        for t in (segs, centroids, upper, lower))
+    cand = torch.empty((N, M, T), dtype=torch.int64, device=dev)
+    next_lb = torch.empty((N, M), dtype=torch.float32, device=dev)
+    if N == 0:
+        return cand, next_lb
+    status = _build.lib().pq_lb_filter(
+        segs.data_ptr(), centroids.data_ptr(), upper.data_ptr(),
+        lower.data_ptr(), cand.data_ptr(), next_lb.data_ptr(), N, M, K, S,
+        T, kj, rows, kc, warps, chunk, smem, _build.stream(dev))
+    _build.check(status, "lb_filter")
+    _build.count_launch("lb_filter")
+    return cand, next_lb

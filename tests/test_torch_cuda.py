@@ -20,6 +20,13 @@ for bit.  ``pq_attn`` is held against its plain version at ``rtol=atol=
 rescales in another order), and the PQ-KV decode attention's kernel route
 against its plain route at the PQ-KV tolerance ``2e-2``.
 
+The encode's LB filter (``lb_filter_topk_kernel``) against its plain
+version: ``next_lb`` within ``S * 2**-23`` relative (LB_Keogh summed in
+order, ``torch.sum`` in its own), the candidates identical wherever the
+plain bounds at adjacent ranks lie farther apart or are the same bound in
+float64 (ties: lower index first, NaN last), at both cells' shapes and at the tiles' edges; a
+starlight-shaped ``pq.encode`` gives the CPU route's codes.
+
 The redesigned forms: ``lb_refine``'s warp-per-pair sweep (``w <= 255``)
 and its thread-per-pair form beyond give refined distances equal to
 ``dtw_band``'s bit for bit, on waves that are all pruned, all refined,
@@ -1866,3 +1873,110 @@ def test_pq_attn_under_local_map_equals_direct_launch(card_mesh, gen):
     assert _build.LAUNCHES["pq_attn"] - before == 1
     for g, w in zip(got, want):
         assert torch.equal(P.full(g), w)
+
+
+def _filter_problem(gen, N, M, K, S, case):
+    """Random-walk segments and centroids with their Keogh envelopes; with
+    ``case="ties"`` duplicated centroids, constant centroids and constant
+    segments (bounds equal on both routes), with ``"nan"`` a NaN at a
+    segment's ends (every bound NaN) and inside one (a zero term)."""
+    segs = torch.cumsum(_randn(gen, N, M, S), -1)
+    cents = torch.cumsum(_randn(gen, M, K, S), -1)
+    if case == "ties":
+        cents[:, 1::3] = cents[:, 0::3][:, :cents[:, 1::3].shape[1]]
+        cents[:, 2], cents[:, 5] = 1.0, -1.0
+        segs[::4] = 0.0
+    if case == "nan":
+        segs[0, :, 0] = float("nan")
+        segs[1, 0, S // 2] = float("nan")
+        segs[2, -1, S - 1] = float("nan")
+    up, lo = tlb.keogh_envelope(cents, max(1, round(0.1 * S)))
+    return segs, cents, up, lo
+
+
+@pytest.mark.parametrize("N,M,K,S,T,case", [
+    (300, 8, 256, 147, 32, "random"),     # starlight's (S, K, T)
+    (300, 4, 256, 28, 32, "random"),      # electric's
+    (65, 2, 256, 28, 32, "random"),       # one series past a tile of 64
+    (70, 3, 100, 28, 12, "random"),       # K not a multiple of 32 or 64
+    (9, 2, 4, 10, 1, "random"),           # K = 4, T = 1
+    (9, 2, 4, 10, 3, "random"),           # T = K - 1
+    (130, 3, 256, 28, 32, "ties"),
+    (70, 2, 100, 28, 99, "ties"),         # T = K - 1 through the ties
+    (20, 3, 256, 28, 32, "nan"),
+    (40, 2, 512, 40, 64, "random"),       # 4 series a warp
+    (20, 2, 1000, 30, 125, "random"),     # 2 series a warp
+    (10, 1, 256, 3000, 32, "random"),     # 47 chunks of points
+    (64, 1, 100, 6000, 12, "random"),     # 94 chunks, K not a multiple
+])
+def test_lb_filter_matches_plain(gen, N, M, K, S, T, case):
+    """The LB filter kernel against its plain version (the CPU route):
+    ``next_lb`` within ``S * 2**-23`` relative (the kernel sums LB_Keogh's
+    S non-negative terms in order, ``torch.sum`` in its own: each sum
+    lies within (S - 1) 2**-24 of the exact one), ``cand`` identical at
+    every rank whose neighbours' plain bounds lie farther apart than that
+    or are the same bound in float64 (ties: lower index first on both
+    routes, NaN last); two float32 bounds equal by rounding alone may
+    come out in either order."""
+    from repro_torch.kernels.lb_cascade.ops import lb_filter
+    from repro_torch.kernels.lb_cascade.ref import (filter_bounds,
+                                                    lb_filter_ref,
+                                                    undecided_ranks)
+    segs, cents, up, lo = _filter_problem(gen, N, M, K, S, case)
+    before = _build.LAUNCHES["lb_filter"]
+    cand, next_lb = lb_filter(segs, cents, up, lo, T)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lb_filter"] == before + 1
+    host = [t.cpu() for t in (segs, cents, up, lo)]
+    want_c, want_n = lb_filter_ref(*host, T)
+    rtol = S * 2.0 ** -23
+    torch.testing.assert_close(next_lb.cpu(), want_n, rtol=rtol, atol=0,
+                               equal_nan=True)
+    open_ = undecided_ranks(filter_bounds(*host),
+                            filter_bounds(*(t.double() for t in host)), T,
+                            rtol)
+    # most ranks are decided: a few in 10,000 are open at the cells'
+    # lengths, held under 1%; the tolerance grows with S, and at S = 3000
+    # and 6000 (3.6e-4 and 7.2e-4) 0.2-2.5% are open, held under 5%
+    assert open_.float().mean() < (0.01 if S < 1000 else 0.05)
+    assert torch.equal(cand.cpu()[~open_], want_c[~open_])
+    if case == "nan":
+        assert torch.equal(cand[0].cpu(), torch.arange(T).expand(M, T))
+
+
+def test_lb_filter_refuses_what_it_cannot_take(gen):
+    from repro_torch.kernels.lb_cascade.ops import lb_filter
+    segs, cents, up, lo = _filter_problem(gen, 4, 1, 1025, 8, "random")
+    with pytest.raises(ValueError, match="K=1025"):
+        lb_filter(segs, cents, up, lo, 32)
+    with pytest.raises(ValueError, match="T=8"):
+        lb_filter(segs, cents[:, :8], up[:, :8], lo[:, :8], 8)
+
+
+def test_lb_filter_encode_card_equals_cpu(gen):
+    """A starlight-shaped encode (M = 8, K = 256, S = 147, T = 32): the
+    card's codes equal the CPU route's, one filter launch and one
+    ``lb_filter`` dispatch an encode."""
+    from repro_torch.core import dispatch, pq
+    from repro_torch.data.timeseries import make_dataset
+    cfg = pq.PQConfig()
+    X, _ = make_dataset("cbf", 120, 1024, seed=3)
+    Q, _ = make_dataset("cbf", 50, 1024, seed=4)
+    X, Q = torch.from_numpy(X).cuda(), torch.from_numpy(Q).cuda()
+    segs = pq.segment(X, cfg)
+    rows = torch.stack([torch.randperm(X.shape[0], generator=gen,
+                                       device="cuda")[:256]
+                        for _ in range(8)])
+    cents = torch.stack([segs[rows[m], m] for m in range(8)]).contiguous()
+    cb = pq.codebook_from_centroids(cents, cfg, 1024)
+    assert not cfg.full_scan_encode() and cfg.refine_t() == 32
+    dispatch.reset_stats()
+    before = _build.LAUNCHES["lb_filter"]
+    got, sound = pq.encode_with_stats(Q, cb, cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lb_filter"] == before + 1
+    assert dispatch.stats[("lb_filter", "cuda")] == 1
+    want, want_sound = pq.encode_with_stats(
+        Q.cpu(), pq.PQCodebook(*(t.cpu() for t in cb)), cfg, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(sound.cpu(), want_sound)

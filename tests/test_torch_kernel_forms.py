@@ -850,3 +850,47 @@ def test_adc_lookup_quant_hands_an_aligned_table(monkeypatch):
     (entry, args), = lib.called
     assert entry == "pq_adc_lookup_rows"
     assert args[0] % 4 == 0 and args[0] != view.data_ptr()
+
+
+@pytest.mark.parametrize("K,S,T,want", [
+    (256, 147, 32, (8, 8, 2, 8, 64)),     # starlight: 104 KB, 2 CTAs an SM
+    (256, 28, 32, (8, 8, 2, 8, 28)),      # electric
+    (100, 28, 12, (4, 8, 2, 8, 28)),
+    (4, 10, 1, (1, 8, 1, 8, 10)),
+    (4, 10, 3, (1, 8, 1, 8, 10)),
+    (512, 40, 64, (16, 4, 2, 8, 40)),
+    (1000, 30, 125, (32, 2, 2, 8, 30)),
+    (256, 3000, 32, (8, 8, 2, 8, 64)),    # long segments: chunks of 64
+])
+def test_lb_filter_launch_geometry(monkeypatch, K, S, T, want):
+    """The LB filter hands its kernel the form, warps, chunk and shared
+    memory of ``filter_geometry``; K rounds up to the least 32 * kj, a
+    lane holds at most 64 bounds, the shared memory fits 227 KB, and the
+    launch counts once."""
+    N, M = 5, 2
+    segs, cents = torch.zeros(N, M, S), torch.zeros(M, K, S)
+    lib = _Lib()
+    _on_fake_card(monkeypatch, lb_ops)
+    monkeypatch.setattr(lb_ops._build, "lib", lambda: lib)
+    monkeypatch.setattr(lb_ops._build, "stream", lambda dev: 0)
+    monkeypatch.setitem(_build.LAUNCHES, "lb_filter", 0)
+    cand, next_lb = lb_ops.lb_filter(segs, cents, cents, cents, T)
+    assert cand.shape == (N, M, T) and cand.dtype == torch.int64
+    assert next_lb.shape == (N, M) and next_lb.dtype == torch.float32
+    assert _build.LAUNCHES["lb_filter"] == 1
+    (name, args), = lib.called
+    assert name == "pq_lb_filter"
+    geo = lb_ops.filter_geometry(K, S, T)
+    assert args[6:17] == (N, M, K, S, T) + geo
+    assert geo[:5] == want
+    kj, rows = geo[:2]
+    assert 32 * kj >= K and (kj == 1 or K > 16 * kj) and rows * kj <= 64
+    assert geo[5] <= 227 * 1024
+
+
+@pytest.mark.parametrize("K,S,T,match", [
+    (1025, 28, 32, "K=1025"), (256, 28, 256, "T=256"), (256, 28, 0, "T=0"),
+    (2048, 100000, 32, "K=2048")])
+def test_lb_filter_geometry_refuses(K, S, T, match):
+    with pytest.raises(ValueError, match=match):
+        lb_ops.filter_geometry(K, S, T)

@@ -242,3 +242,98 @@ def test_codes_are_checked_once_a_tensor(monkeypatch):
     with pytest.raises(adc_ops.CodeRangeError, match="codes_a holds"):
         tpq.cdist_sym(mine, codes, cb.lut, device="cpu")
     assert len(reads) == 2
+
+
+def _old_lb_filter_pairs(segs, cb, T):
+    """``lb_filter_pairs`` as it was written before the filter became a
+    dispatch op: the bounds a subspace at a time, a stable sort, the
+    zipped pairs."""
+    from repro_torch.core.lb import cascade_bound
+    N, M, S = segs.shape
+    lbs = torch.stack([
+        cascade_bound(segs[:, m, None, :], cb.centroids[m][None],
+                      cb.env_upper[m][None], cb.env_lower[m][None])
+        for m in range(M)], dim=1)
+    srt = torch.sort(lbs, dim=-1, stable=True)
+    cand = srt.indices[..., :T]
+    next_lb = srt.values[..., T]
+    m_idx = torch.arange(M)[None, :, None]
+    qs = segs[:, :, None, :].expand(N, M, T, S).reshape(-1, S)
+    cs = cb.centroids[m_idx, cand].reshape(-1, S)
+    return cand, next_lb, qs, cs
+
+
+def _filter_problem(case):
+    """Segments and a codebook with its envelopes: random walks, or with
+    duplicated centroids, constant segments and centroids (equal bounds),
+    or NaN points (at an end: every bound NaN; inside: a zero term)."""
+    from repro_torch.core.lb import keogh_envelope
+    g = torch.Generator().manual_seed(11)
+    N, M, K, S, T = 37, 3, 9, 12, 4
+    if case in ("k4_t1", "k4_t3"):
+        K, T = 4, int(case[-1])
+    segs = torch.randn(N, M, S, generator=g).cumsum(-1)
+    cents = torch.randn(M, K, S, generator=g).cumsum(-1)
+    if case == "ties":
+        cents[:, 1::3] = cents[:, 0::3][:, :cents[:, 1::3].shape[1]]
+        cents[:, 2], cents[:, 5] = 1.0, -1.0
+        segs[::4] = 0.0
+    if case == "nan":
+        segs[0, :, 0] = float("nan")
+        segs[1, 0, S // 2] = float("nan")
+        segs[2, 2, S - 1] = float("nan")
+    up, lo = keogh_envelope(cents, 2)
+    cb = tpq.PQCodebook(cents, torch.zeros(M, K, K), up, lo)
+    return segs, cb, T
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan", "k4_t1",
+                                  "k4_t3"])
+def test_lb_filter_plain_route_is_the_old_filter(case):
+    """The dispatch op's plain route, and ``lb_filter_pairs`` through it,
+    give what the filter gave before it was an op, bit for bit."""
+    from repro_torch.core import dispatch as tdispatch
+    segs, cb, T = _filter_problem(case)
+    want = _old_lb_filter_pairs(segs, cb, T)
+    got = tpq.lb_filter_pairs(segs, cb, T)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+    cand, next_lb = tdispatch.lb_filter(segs, cb.centroids, cb.env_upper,
+                                        cb.env_lower, T)
+    assert torch.equal(cand, want[0])
+    assert torch.equal(_bits(next_lb), _bits(want[1]))
+
+
+@pytest.mark.parametrize("kw,calls", [
+    (dict(), 1),                                          # the LB path
+    (dict(exact_encode=True), 0),                         # fused kernel
+    (dict(exact_encode=True, fused_encode=False), 0),     # full scan
+])
+def test_lb_filter_dispatched_once_an_lb_encode(data, ref_fit, kw, calls):
+    from repro_torch.core import dispatch as tdispatch
+    _, tcfg = _cfg_pair(n_sub=4, codebook_size=6, kmeans_iters=2,
+                        dba_iters=1, **kw)
+    cb = tpq.codebook_from_numpy(ref_fit[0], device=CPU)
+    tdispatch.reset_stats()
+    tpq.encode(data[0], cb, tcfg, device=CPU)
+    assert tdispatch.stats.get(("lb_filter", "torch"), 0) == calls
+    assert ("lb_filter", "cuda") not in tdispatch.stats
+
+
+def test_undecided_ranks_are_the_close_unequal_neighbours():
+    """A rank below T is open where a neighbour in the stable order lies
+    within ``rtol`` and is another exact bound, equal in float32 or not;
+    distant bounds, and ties of equal exact bounds, leave it decided."""
+    from repro_torch.kernels.lb_cascade.ref import undecided_ranks
+    bounds = torch.tensor([[[5.0, 1.0, 2.0, 2.0, 2.000002, 9.0]]])
+    exact = bounds.double()
+    assert undecided_ranks(bounds, exact, 4, 1e-5).tolist() == [
+        [[False, False, True, True]]]
+    assert not undecided_ranks(bounds, exact, 4, 1e-7).any()
+    exact[0, 0, 3] += 1e-9                # 2.0 and 2.0 only in float32
+    assert undecided_ranks(bounds, exact, 4, 1e-7).tolist() == [
+        [[False, True, True, False]]]
